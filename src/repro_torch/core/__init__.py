@@ -1,14 +1,15 @@
 """Core contribution of the paper: dynamic partition merging multicast.
 
-Twin of ``repro.core``, with the same public names minus the batched
-planner (``batch_planner``) and the 3-D/chiplet topologies (``topo3d``),
-which come with later slices of the port.
+Twin of ``repro.core``, with the same public names minus the 3-D/chiplet
+topologies (``topo3d``), which come with a later slice of the port.
 
 Public API:
     MeshGrid, grid                         — mesh geometry + Hamiltonian labels
     Torus, torus, make_topology, Topology  — wraparound torus + the protocol
     basic_partitions, dpm_partition        — Definitions 1-3 + Algorithm 1
     plan / PLANNERS                        — cached planning facade + legacy view
+    bulk_plan, BatchPlanner, planner_for   — batched planning on the card
+                                             behind the canonical plan arena
     RoutingAlgorithm, register_algorithm,  — pluggable algorithm registry
     available_algorithms, get_algorithm
     CostModel, register_cost_model,        — pluggable routing objectives:
@@ -34,6 +35,17 @@ from .algo import (
     temporary_algorithm,
     unregister_algorithm,
     unregister_cost_model,
+)
+from .batch_planner import (
+    ArenaCacheInfo,
+    ArenaInfo,
+    BatchPlanner,
+    arena_clear,
+    arena_info,
+    batch_support,
+    bulk_plan,
+    label_chain_matrices,
+    planner_for,
 )
 from .grid import Coord, MeshGrid, grid
 from .partition import (
@@ -95,6 +107,9 @@ from .topology import (
 
 __all__ = [
     "ALL_CANDIDATE_IDS",
+    "ArenaCacheInfo",
+    "ArenaInfo",
+    "BatchPlanner",
     "Coord",
     "CostModel",
     "DPMResult",
@@ -115,10 +130,14 @@ __all__ = [
     "Topology",
     "Torus",
     "WeightedLinkCost",
+    "arena_clear",
+    "arena_info",
     "available_algorithms",
     "available_cost_models",
     "basic_partitions",
+    "batch_support",
     "brute_force_partition",
+    "bulk_plan",
     "candidate_cost",
     "candidate_ids_for",
     "canonical_dests",
@@ -129,6 +148,7 @@ __all__ = [
     "get_cost_model",
     "greedy_tour",
     "grid",
+    "label_chain_matrices",
     "label_route",
     "make_topology",
     "multi_unicast_cost",
@@ -142,6 +162,7 @@ __all__ = [
     "plan_mp",
     "plan_mu",
     "plan_nmp",
+    "planner_for",
     "provider_for",
     "register_algorithm",
     "register_cost_model",

@@ -6,10 +6,10 @@ nodes where a copy is absorbed. DPM paths may spawn *child* packets at the
 representative node (the MU-mode re-injection); the simulator honours the
 dependency, and hop-count accounting sums parent and child paths.
 
-These planners run on the host. The port's twin of ``repro.core.planner``:
-the batched device planner (``core.batch_planner``, the ``dpm_cost`` kernels)
-comes with a later slice, and its contract is plans bit-identical to
-``plan()`` here.
+These planners run on the host. The port's twin of ``repro.core.planner``;
+the batched device planner (``core.batch_planner``) decodes its plans through
+``_emit_dpm_partition`` here, and its contract is plans bit-identical to
+``plan()``.
 """
 from __future__ import annotations
 

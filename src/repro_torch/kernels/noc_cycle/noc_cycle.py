@@ -13,22 +13,14 @@ counts launches, so a caller can show that a run went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 
 import torch
 
+from ..build import CudaLibrary, check_tensor as _check
 from .ref import CycleState, init_planes
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "noc_cycle.cu"
-_BUILD = Path(__file__).resolve().parents[4] / "build" / "kernels"
-_ARCH = "-gencode=arch=compute_90a,code=sm_90a"
-_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-          "-Xptxas", "-v", _ARCH)
 
 _PLANES = CycleState._fields
 # kernel-side table order (NocArgs); ``lane`` is only read by the plain
@@ -52,73 +44,24 @@ class _NocArgs(ctypes.Structure):
     )
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    if home and (Path(home) / "bin" / "nvcc").exists():
-        return str(Path(home) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-
-
-class NocCycleKernel:
+class NocCycleKernel(CudaLibrary):
     """The built library, its build report and the launch counter."""
 
     def __init__(self):
+        super().__init__("noc_cycle", _SRC)
         self.launches = 0
-        self.build_seconds: float | None = None
-        self.build_log = ""
         self.scratch_in_smem: bool | None = None
-        self._lib = None
 
-    def build(self) -> ctypes.CDLL:
-        """Compile (once per source and flag set) and load the library."""
-        if self._lib is not None:
-            return self._lib
-        src = _SRC.read_bytes()
-        tag = hashlib.sha256(src + " ".join(_FLAGS).encode()).hexdigest()[:16]
-        so = _BUILD / f"noc_cycle_{tag}.so"
-        t0 = time.monotonic()
-        if not so.exists():
-            _BUILD.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *_FLAGS, "-o", str(tmp), str(_SRC)],
-                capture_output=True, text=True,
-            )
-            self.build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {_SRC}:\n{self.build_log}")
-            tmp.replace(so)
-        lib = ctypes.CDLL(str(so))
+    def bind(self, lib: ctypes.CDLL) -> None:
         lib.noc_cycle_launch.argtypes = [ctypes.POINTER(_NocArgs),
                                          ctypes.c_void_p]
         lib.noc_cycle_launch.restype = ctypes.c_int
         lib.noc_cycle_scratch_words.argtypes = [ctypes.c_int] * 3
         lib.noc_cycle_scratch_words.restype = ctypes.c_size_t
         lib.noc_cycle_smem_optin.restype = ctypes.c_int
-        self.build_seconds = time.monotonic() - t0
-        self._lib = lib
-        return lib
 
 
 KERNEL = NocCycleKernel()
-
-
-def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
-           device: torch.device) -> None:
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def run_cycles_cuda(tb: dict, dslot: torch.Tensor, geom: dict, *, T: int,

@@ -41,7 +41,8 @@ import numpy as np
 import torch
 
 from ...core.grid import Coord
-from ...core.planner import MulticastPlan, plan
+from ...core.batch_planner import bulk_plan
+from ...core.planner import MulticastPlan
 from ...core.topology import make_topology
 from ...device import resolve_device
 from ...kernels.noc_cycle.ref import CycleState
@@ -115,27 +116,29 @@ def compile_workload(
     cfg: NoCConfig,
     workload: Workload,
     algo,
+    *,
+    device: torch.device | str = "cuda",
 ) -> CompiledTraffic:
     """Plan every request and lower the packet set to dense arrays.
 
     ``algo`` is resolved through the routing-algorithm registry (name or
     ``RoutingAlgorithm`` instance), which plans under its default
-    objective. With ``cfg.broken_links`` set, plans come from the
-    fault-aware route provider on the degraded topology, and every lowered
-    hop is re-checked: a route crossing a broken link is refused before any
-    tensor is built (the same contract as ``WormholeSim.add_plan``).
+    objective. Planning goes through ``core.batch_planner.bulk_plan`` on
+    ``device`` (DPM and DPM-E on healthy fabrics batch there; the other
+    algorithms plan on the host into the same arena). With
+    ``cfg.broken_links`` set, plans come from the fault-aware route
+    provider on the degraded topology, and every lowered hop is re-checked:
+    a route crossing a broken link is refused before any tensor is built (the same contract as ``WormholeSim.add_plan``).
     """
     g = make_topology(cfg.topology, cfg.n, cfg.m, cfg.broken_links)
     rows: list[tuple] = []  # (hops, deliveries, enqueue, parent_pid, flits)
-    # plan per request on the host through the cached ``plan()``. The
-    # reference bulk-plans through its batched planner (``bulk_plan``),
-    # which comes with the batched-planning slice of the port; its contract
-    # is plans bit-identical to per-request ``plan()``, so the two lowerings
-    # are the same
-    plans = [
-        plan(algo, g, r.src, r.dests)
-        for r in workload.requests
-    ]
+    # bulk-plan the whole workload through the shared plan arena: one
+    # device dispatch per chunk of arena misses where supported (plans are
+    # bit-identical to per-request plan() calls)
+    plans = bulk_plan(
+        g, [(r.src, r.dests) for r in workload.requests], algo,
+        device=device,
+    )
     for r, pl_ in zip(workload.requests, plans):
         nf = cfg.flits_per_packet if r.flits is None else int(r.flits)
         if not 1 <= nf <= 127:  # int8 fhead/fcount/lsent planes

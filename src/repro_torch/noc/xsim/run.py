@@ -185,9 +185,10 @@ def xsimulate(
     ``algos`` entries resolve through the routing-algorithm registry (names
     or ``RoutingAlgorithm`` instances); the default is every registered
     algorithm that supports the configured topology; each plans under its
-    own default objective. ``device`` selects the cycle engine: the CUDA
-    kernel on the card (the default), the plain PyTorch cycle for
-    ``device="cpu"``; a missing card raises. The measurement window
+    own default objective. ``device`` selects where DPM plans in batches
+    (``core.batch_planner``) and the cycle engine: the CUDA kernel on the
+    card (the default), the plain PyTorch cycle for ``device="cpu"``; a
+    missing card raises. The measurement window
     (``cfg.warmup``, ``cfg.drain_grace``) and the telemetry epoch
     (``cfg.epoch_len``) come from the config.
     """
@@ -198,7 +199,7 @@ def xsimulate(
     dev = resolve_device(device)
     t0 = time.monotonic()
     traffics: list[CompiledTraffic] = [
-        compile_workload(cfg, wl, algo)
+        compile_workload(cfg, wl, algo, device=dev)
         for wl in workloads
         for algo in resolved
     ]

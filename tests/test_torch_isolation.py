@@ -10,7 +10,10 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.core import BatchPlanner, bulk_plan, grid
+from repro_torch.kernels.dpm_cost import dpm_plan
 from repro_torch.noc import NoCConfig, synthetic_workload, xsimulate
+from repro_torch.serve import PlanServer
 from repro_torch.noc.xsim.compile import planes_from_numpy, traffic_from_numpy
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -27,7 +30,11 @@ def _port_modules() -> list[str]:
 
 def test_importing_every_port_module_loads_neither_jax_nor_repro():
     mods = _port_modules()
-    assert "repro_torch.kernels.noc_cycle.noc_cycle" in mods
+    for name in ("repro_torch.kernels.noc_cycle.noc_cycle",
+                 "repro_torch.kernels.dpm_cost.dpm_cost",
+                 "repro_torch.core.batch_planner",
+                 "repro_torch.serve.planserve"):
+        assert name in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -68,3 +75,18 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         repro_torch.resolve_device()
     assert repro_torch.resolve_device("cpu").type == "cpu"
+
+
+def test_batched_planning_refuses_a_missing_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = grid(4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BatchPlanner(g)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bulk_plan(g, [((0, 0), [(1, 1)])])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dpm_plan(torch.zeros((1, 16), dtype=torch.int32),
+                 torch.zeros((1, 2), dtype=torch.int32), n=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PlanServer(g)
+    assert BatchPlanner(g, device="cpu").device.type == "cpu"

@@ -60,7 +60,7 @@ def test_compile_workload_identical(name, algo):
     wl_j = jnoc.synthetic_workload(jc, 0.1, 40, seed=2)
     wl_t = tnoc.synthetic_workload(tc, 0.1, 40, seed=2)
     jt = jcomp.compile_workload(jc, wl_j, algo)
-    tt = tcomp.compile_workload(tc, wl_t, algo)
+    tt = tcomp.compile_workload(tc, wl_t, algo, device="cpu")
     for f in ("n", "m", "kind", "params", "ports", "num_nodes", "num_links",
               "horizon"):
         assert getattr(tt, f) == getattr(jt, f), f
@@ -91,7 +91,8 @@ def test_stack_and_carry_to_torch_keep_dtypes():
         [jcomp.compile_workload(jc, w, a) for w in jwls for a in ("MU", "DPM")]
     )
     _, ts = tcomp.stack_traffic(
-        [tcomp.compile_workload(tc, w, a) for w in wls for a in ("MU", "DPM")]
+        [tcomp.compile_workload(tc, w, a, device="cpu") for w in wls
+         for a in ("MU", "DPM")]
     )
     assert js.keys() == ts.keys()
     tr = tcomp.traffic_from_numpy(js, "cpu")
