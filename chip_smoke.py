@@ -9,9 +9,11 @@ Phases, each printing what it found on its own line; any failure exits
 non-zero before the result line:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
-2. build: the CUDA cycle kernel (``kernels/noc_cycle/csrc``) and the two
-   cost-table kernels (``kernels/dpm_cost/csrc``), one ``nvcc`` each, in
-   parallel, with ptxas' register and spill report;
+2. build: the CUDA cycle kernel (``kernels/noc_cycle/csrc``), the two
+   cost-table kernels (``kernels/dpm_cost/csrc``), the flash-attention kernel
+   (``kernels/flash_attention/csrc``) and the SSD intra-chunk kernel
+   (``kernels/ssd/csrc``), one ``nvcc`` per source, all four in parallel,
+   with ptxas' register and spill report;
 3. kernel vs plain: on an 8x8 mesh and torus with the paper's Table I
    (``NoCConfig()`` defaults), MU and DPM at two injection rates, the kernel
    must equal the plain PyTorch cycle on every output and final plane; the
@@ -32,18 +34,37 @@ non-zero before the result line:
 6. batched planning: the sweep's DPM requests through ``bulk_plan`` on the
    card, every plan equal to host ``plan()``, plans/s against host
    ``plan()``; then a few thousand requests through a ``PlanServer``;
-7. the ``kernels`` JSON line, then the result line.
+7. serving: ``hymba-1.5b`` at full width and depth (random weights from
+   seed 0, f32 parameters, bf16 activations) answers 8 requests of
+   1,100-2,000 prompt tokens and 16 new tokens each through
+   ``BatchServer(device="cuda")`` in 2 batches of 4; each prefill must
+   launch the flash-attention and SSD kernels once per layer (32 each), the
+   launch counts set to 0 just before and read just after. Then one batch's
+   prefill runs with f32 activations on the kernel path and on the plain
+   path (each kernel's plain version in its place), whose logits must
+   agree within 1e-3 x max |logit|; greedy tokens of the two paths are
+   printed, not asserted (random weights give near-ties). Both kernels are
+   held against their plain versions on q/k/v and SSD inputs captured from
+   a full-width prefill (B = 4, S = 2,000: a global and a window layer, a
+   q_offset case; the SSD at hymba's N = 16 and mamba2's N = 128), in bf16
+   and f32, and timed beside SDPA (attention) and their bounds;
+8. the ``kernels`` JSON line (five kernels), then the result line.
+
+Phase 7 reads the two serving kernels' profiler times from a child process
+of this script (``python3 chip_smoke.py --serve-kernel-alone``).
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -53,6 +74,8 @@ SRC = ROOT / "src"
 # per SM x 132 SMs x 1.98 GHz boost, one operation per lane and clock)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# dense bf16 tensor-core peak (NVIDIA's H100 SXM data sheet)
+BF16_FLOPS_PER_S = 989e12
 
 MAIN_RATES = (0.01, 0.02, 0.03, 0.05)
 MAIN_ALGOS = ("MU", "MP", "NMP", "DPM")
@@ -73,6 +96,15 @@ EARLIER_RESULTS = {
 }
 ENERGY_RTOL = 1e-6
 PLANSERVE_REQUESTS = 4096
+# the serving phase: hymba-1.5b at full width and depth
+SERVE_REQUESTS = 8
+SERVE_PROMPT = (1100, 2000)  # prompt lengths, over the 1024-token window
+SERVE_MAX_TOKENS = 16
+SERVE_MAX_BATCH = 4
+ATTN_CHECK_B, ATTN_CHECK_S = 4, 2000  # the prefill the kernels' inputs
+#                                       are captured from
+ATTN_ATOL = {"torch.bfloat16": 2e-2, "torch.float32": 1e-4}
+SSD_ATOL = {"torch.bfloat16": 1e-1, "torch.float32": 5e-4}
 
 
 def fail(msg: str) -> None:
@@ -235,9 +267,12 @@ def check_earlier(phase: str, topo: str, rate: float, algo: str,
 def build_kernels() -> None:
     """Build every kernel library at once, one ``nvcc`` per source."""
     from repro_torch.kernels.dpm_cost import KERNEL as DPM_KERNEL
+    from repro_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
     from repro_torch.kernels.noc_cycle import KERNEL
+    from repro_torch.kernels.ssd import KERNEL as SSD_KERNEL
 
-    kernels = [("noc_cycle", KERNEL), ("dpm_cost", DPM_KERNEL)]
+    kernels = [("noc_cycle", KERNEL), ("dpm_cost", DPM_KERNEL),
+               ("flash_attention", FLASH_KERNEL), ("ssd", SSD_KERNEL)]
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(kernels)) as pool:
         for f in [pool.submit(k.build) for _, k in kernels]:
@@ -586,6 +621,428 @@ def phase_bulk_plan(cfg16) -> None:
         plans_per_s=f"{len(sub) / serve_s:.0f}")
 
 
+# ---------------------------------------------------------------------------
+# the ML serving path: hymba-1.5b through BatchServer, flash attention and
+# the SSD intra-chunk kernel
+# ---------------------------------------------------------------------------
+def patched(*triples) -> contextlib.ExitStack:
+    """Set ``(module, name, value)`` attributes until the returned stack
+    closes (use it in a ``with``)."""
+    stack = contextlib.ExitStack()
+    for module, name, value in triples:
+        stack.enter_context(mock.patch.object(module, name, value))
+    return stack
+
+
+def plain_path():
+    """The serving path with each kernel's plain version in its place on the
+    card: the attention of ``flash_attention_ref`` and the SSD scan of
+    ``models.ssm.ssd_scan`` (a comparison harness; the port itself has no
+    switch that turns a kernel off)."""
+    import repro_torch.models.attention as attention
+    import repro_torch.models.ssm as ssm
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+
+    def attn(q, k, v, *, causal, window, device):
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+
+    def scan(*args, device):
+        return ssm.ssd_scan(*args, return_state=True)
+
+    return patched((attention, "flash_attention", attn),
+                   (ssm, "ssd_scan_kernel", scan))
+
+
+def capture_inputs(params, cfg, run, tokens) -> tuple[list, list]:
+    """One prefill of ``tokens``, recording the inputs of every attention
+    and SSD-scan call of the first two layers (hymba_g, then hymba_w)."""
+    import repro_torch.models.attention as attention
+    import repro_torch.models.ssm as ssm
+    from repro_torch.models import prefill
+
+    attn_calls, scan_calls = [], []
+    attn_fn, scan_fn = attention.flash_attention, ssm.ssd_scan_kernel
+
+    def attn(q, k, v, **kw):
+        if len(attn_calls) < 2:
+            attn_calls.append((q, k, v, kw["window"]))
+        return attn_fn(q, k, v, **kw)
+
+    def scan(*args, **kw):
+        if len(scan_calls) < 2:
+            scan_calls.append(args)
+        return scan_fn(*args, **kw)
+
+    with patched((attention, "flash_attention", attn),
+                 (ssm, "ssd_scan_kernel", scan)):
+        prefill(params, {"tokens": tokens}, cfg, run)
+    return attn_calls, scan_calls
+
+
+def attention_bound_ms(q, k, v, window, q_offset=0) -> tuple[float, str, int, int]:
+    """Least time the card could take for one attention call: the larger of
+    q, k, v read once and the output written once over HBM bandwidth, and
+    4 D operations per visible (query, key) pair (QK^T and PV, multiply and
+    add; the causal and window masks counted exactly) over the bf16
+    tensor-core rate."""
+    from repro_torch.kernels.flash_attention import attention_mask
+
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    pairs = int(attention_mask(Sq, Sk, causal=True, window=window,
+                               q_offset=q_offset, device=q.device).sum())
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    ops = 4 * D * pairs * B * H
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_FLOPS_PER_S * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", nbytes, ops
+    return t_ops, "operations", nbytes, ops
+
+
+def ssd_bound_ms(x, Bm, L) -> tuple[float, str, int, int]:
+    """Least time the card could take for one intra-chunk pass: the larger
+    of x, dt, B, C read once (B and C once per group) and y, sc, dec, cum
+    written once (f32) over HBM bandwidth, and the operations of each real
+    chunk (length l <= L: 2 N and 2 P per causal pair for C.B and M.X, 2 N P
+    per step for the state) over the bf16 tensor-core rate."""
+    B_, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    nc = -(-S // L)
+    es = x.element_size()
+    nbytes = (B_ * S * H * P * es + B_ * S * H * 4 + 2 * B_ * S * G * N * es
+              + 4 * (B_ * nc * L * H * P + B_ * nc * H * N * P
+                     + B_ * nc * H + B_ * nc * L * H))
+    ops = 0
+    for c in range(nc):
+        ln = min(L, S - c * L)
+        ops += ln * (ln + 1) // 2 * 2 * (N + P) + 2 * N * P * ln
+    ops *= B_ * H
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_FLOPS_PER_S * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", nbytes, ops
+    return t_ops, "operations", nbytes, ops
+
+
+def check_attention(label, q, k, v, window, q_offset, dtype) -> dict:
+    """The flash kernel against its plain version on the card."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda, flash_attention_ref,
+    )
+
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    got, k_ms = median_ms(lambda: flash_attention_cuda(q, k, v, **kw))
+    want, p_ms = median_ms(lambda: flash_attention_ref(q, k, v, **kw))
+    err = float((got.float() - want.float()).abs().max())
+    atol = ATTN_ATOL[str(dtype)]
+    say("kernel_vs_plain", kernel="flash_attention", case=label,
+        dtype=str(dtype).removeprefix("torch."), shape=tuple(q.shape),
+        kv=tuple(k.shape), window=window, q_offset=q_offset,
+        max_abs_err=err, atol=atol, finite=bool(got.isfinite().all()),
+        kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}")
+    if not err <= atol or not bool(got.isfinite().all()):
+        fail(f"flash_attention != plain on {label} {dtype}: {err} > {atol}")
+    return dict(err=err, ms=k_ms, plain_ms=p_ms)
+
+
+def check_ssd(label, args, dtype) -> dict:
+    """The SSD intra-chunk kernel against its plain version on the card,
+    all four outputs."""
+    from repro_torch.kernels.ssd import ssd_intra_chunk_cuda, ssd_intra_chunk_ref
+
+    x, dt, A, Bm, Cm, L = args
+    x, Bm, Cm = (t.to(dtype) for t in (x, Bm, Cm))
+    dt, A = dt.float(), A.float().contiguous()
+    got, k_ms = median_ms(lambda: ssd_intra_chunk_cuda(x, dt, A, Bm, Cm, L))
+    want, p_ms = median_ms(lambda: ssd_intra_chunk_ref(x, dt, A, Bm, Cm, L))
+    errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    err = max(errs)
+    atol = SSD_ATOL[str(dtype)]
+    finite = all(bool(t.isfinite().all()) for t in got)
+    say("kernel_vs_plain", kernel="ssd_intra_chunk", case=label,
+        dtype=str(dtype).removeprefix("torch."), x=tuple(x.shape),
+        B=tuple(Bm.shape), chunk=L,
+        max_abs_err_y_sc_dec_cum=",".join(f"{e:.3g}" for e in errs),
+        max_abs_err=err, atol=atol, finite=finite,
+        kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}")
+    if not err <= atol or not finite:
+        fail(f"ssd_intra_chunk != plain on {label} {dtype}: {err} > {atol}")
+    return dict(err=err, ms=k_ms, plain_ms=p_ms)
+
+
+def serve_kernel_alone() -> None:
+    """``--serve-kernel-alone``: print one JSON line with the profiler's
+    device time of one launch of each serving kernel on seeded random
+    inputs at the serving shapes (the times depend on shapes and masks, not
+    on values): hymba's global and window attention layers, its SSD layer
+    and mamba2's. Run in a fresh process by ``phase_serve``: in a long run
+    of this script the profiler stopped reporting device time for these
+    launches after the earlier phases had profiled, though a fresh process
+    reports it."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ssd import ssd_intra_chunk_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    hy, mb = ARCHS["hymba-1.5b"], ARCHS["mamba2-1.3b"]
+    B, S = ATTN_CHECK_B, ATTN_CHECK_S
+    q = randn(B, S, hy.n_heads, hy.head_dim).bfloat16()
+    k, v = (randn(B, S, hy.n_kv_heads, hy.head_dim).bfloat16()
+            for _ in range(2))
+    out = {}
+    for case, w in (("global", None), ("window", hy.window)):
+        out[f"flash_attention/{case}"] = profiled_ms(
+            lambda: flash_attention_cuda(q, k, v, window=w), "flash_fwd")[0]
+    for case, cfg in (("hymba", hy), ("mamba2", mb)):
+        H, N, P = cfg.ssm.n_heads(cfg.d_model), cfg.ssm.d_state, cfg.ssm.head_dim
+        x = randn(B, S, H, P).bfloat16()
+        dt = F.softplus(randn(B, S, H) - 2.0)
+        A = -torch.exp(randn(H))
+        Bm, Cm = (randn(B, S, 1, N).bfloat16() for _ in range(2))
+        out[f"ssd_intra_chunk/{case}"] = profiled_ms(
+            lambda: ssd_intra_chunk_cuda(x, dt, A, Bm, Cm, cfg.ssm.chunk),
+            "ssd_intra")[0]
+    print(json.dumps(out), flush=True)
+
+
+def kernel_alone_times() -> dict:
+    """``serve_kernel_alone``'s times, from a child process of this script."""
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()),
+         "--serve-kernel-alone"],
+        capture_output=True, text=True, timeout=300,
+    )
+    if proc.returncode != 0:
+        fail(f"the kernel-alone child failed:\n{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def phase_serve() -> list:
+    """hymba-1.5b at full width and depth served through ``BatchServer`` on
+    the card, the kernels' launches counted per prefill; then both kernels
+    against their plain versions on inputs captured from a full-width
+    prefill (and mamba2-1.3b's N = 128 for the SSD kernel), the f32 logits
+    of the kernel path against the plain path, and the kernels' times.
+    Returns the kernels-line entries of the two kernels."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
+    from repro_torch.kernels.flash_attention import (
+        attention_mask, flash_attention_cuda,
+    )
+    from repro_torch.kernels.ssd import KERNEL as SSD_KERNEL
+    from repro_torch.models import RunConfig, count_params, model_init, prefill
+    from repro_torch.serve import BatchServer, Request, generate
+
+    cfg, run = ARCHS["hymba-1.5b"], RunConfig()
+    t0 = time.monotonic()
+    params = model_init(0, cfg, run, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    n_params = count_params(params)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_REQUESTS)
+    reqs = [Request(i, rng.integers(0, cfg.vocab, int(n)).astype(np.int32),
+                    SERVE_MAX_TOKENS) for i, n in enumerate(lens)]
+    # warm-up: one short generate (cuBLAS handles, first launches)
+    generate(params, cfg, run, reqs[0].prompt[None, :128], 2, device="cuda")
+
+    # ---- the serving path, the launch counts set to 0 just before ---------
+    server = BatchServer(params, cfg, run, max_batch=SERVE_MAX_BATCH,
+                         max_wait_s=0.01, device="cuda")
+    for r in reqs:
+        server.submit(r)
+    FLASH_KERNEL.launches = SSD_KERNEL.launches = 0
+    t0 = time.monotonic()
+    responses, per_batch = [], []
+    while len(responses) < len(reqs):
+        f0, s0 = FLASH_KERNEL.launches, SSD_KERNEL.launches
+        out = server.serve_once()
+        torch.cuda.synchronize()
+        res = server.last_result
+        per_batch.append((len(out), res, FLASH_KERNEL.launches - f0,
+                          SSD_KERNEL.launches - s0,
+                          max(len(reqs[o.rid].prompt) for o in out)))
+        responses += out
+    serve_s = time.monotonic() - t0
+    launches = {"flash_attention": FLASH_KERNEL.launches,
+                "ssd_intra_chunk": SSD_KERNEL.launches}
+    for i, (n, res, fl, sl, S) in enumerate(per_batch):
+        B = res.tokens.shape[0]
+        say("serve", batch=i, requests=n, prompt_len=S,
+            prefill_ms=f"{res.prefill_ms:.2f}",
+            prefill_tokens_per_s=f"{B * S / res.prefill_ms * 1e3:.0f}",
+            decode_ms_per_token=f"{res.decode_ms_per_token:.3f}",
+            decode_tokens_per_s=f"{B / res.decode_ms_per_token * 1e3:.1f}",
+            flash_launches=fl, ssd_launches=sl)
+        if fl != cfg.n_layers or sl != cfg.n_layers:
+            fail(f"batch {i}: {fl} flash and {sl} SSD launches per prefill, "
+                 f"expected {cfg.n_layers} each")
+    bad = [o.rid for o in responses
+           if o.tokens.shape != (SERVE_MAX_TOKENS,)
+           or not ((0 <= o.tokens) & (o.tokens < cfg.vocab)).all()]
+    if bad or len(per_batch) != 2 or sorted(o.rid for o in responses) != list(
+            range(len(reqs))):
+        fail(f"serving: {len(per_batch)} batches, bad responses {bad}")
+    gen_tokens = sum(len(o.tokens) for o in responses)
+    say("serve", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        params=n_params, params_dtype="float32",
+        activations=run.activations_dtype, init_s=f"{init_s:.2f}",
+        requests=len(responses), batches=len(per_batch),
+        prompt_lens=",".join(str(int(n)) for n in lens),
+        max_tokens=SERVE_MAX_TOKENS, serve_s=f"{serve_s:.3f}",
+        tokens_per_s=f"{gen_tokens / serve_s:.1f}",
+        launches=",".join(f"{k}:{v}" for k, v in launches.items()),
+        peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"the serving path never launched {name}")
+
+    # ---- kernel path against plain path, whole model ----------------------
+    first = [r for r in reqs[:SERVE_MAX_BATCH]]
+    S = max(len(r.prompt) for r in first)
+    prompts = np.zeros((len(first), S), np.int32)
+    for i, r in enumerate(first):
+        prompts[i, S - len(r.prompt):] = r.prompt
+    toks = torch.from_numpy(prompts).cuda()
+    for act in ("float32", "bfloat16"):
+        r = RunConfig(activations_dtype=act)
+        lk, _ = prefill(params, {"tokens": toks}, cfg, r)
+        with plain_path():
+            f0 = FLASH_KERNEL.launches + SSD_KERNEL.launches
+            lp, _ = prefill(params, {"tokens": toks}, cfg, r)
+            if FLASH_KERNEL.launches + SSD_KERNEL.launches != f0:
+                fail("the plain path launched a kernel")
+        lk, lp = lk[..., :cfg.vocab], lp[..., :cfg.vocab]
+        diff = float((lk - lp).abs().max())
+        scale = float(lp.abs().max())
+        finite = bool(lk.isfinite().all())
+        say("serve_vs_plain", activations=act, batch=len(first), prompt_len=S,
+            max_abs_logit_diff=diff, max_abs_logit=scale,
+            ratio=f"{diff / scale:.3g}",
+            bound="1e-3" if act == "float32" else "not asserted",
+            finite=finite)
+        if not finite or (act == "float32" and not diff <= 1e-3 * scale):
+            fail(f"{act} logits: kernel path vs plain path {diff} > "
+                 f"1e-3 x {scale}")
+    gk = generate(params, cfg, run, prompts, SERVE_MAX_TOKENS, device="cuda")
+    with plain_path():
+        gp = generate(params, cfg, run, prompts, SERVE_MAX_TOKENS,
+                      device="cuda")
+    agree = gk.tokens == gp.tokens
+    say("serve_vs_plain", greedy_tokens_equal=f"{agree.mean():.4f}",
+        first_token_equal=f"{agree[:, 0].mean():.4f}",
+        plain_prefill_ms=f"{gp.prefill_ms:.2f}",
+        kernel_prefill_ms=f"{gk.prefill_ms:.2f}")
+
+    # ---- each kernel against its plain version, and its times -------------
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (ATTN_CHECK_B, ATTN_CHECK_S)).astype(np.int32)).cuda()
+    attn_calls, scan_calls = capture_inputs(params, cfg, run, tokens)
+    del params
+    torch.cuda.empty_cache()
+    (qg, kg, vg, wg), (qw, kw_, vw, ww) = attn_calls
+    if wg is not None or ww != cfg.window:
+        fail(f"captured windows {wg}, {ww}: expected None, {cfg.window}")
+    attn = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        attn["global", dtype] = check_attention("hymba_g", qg, kg, vg, None,
+                                                0, dtype)
+        attn["window", dtype] = check_attention("hymba_w", qw, kw_, vw, ww,
+                                                0, dtype)
+        off = ATTN_CHECK_S - 64
+        for lab, (q, k, v, w) in (("hymba_g", attn_calls[0]),
+                                  ("hymba_w", attn_calls[1])):
+            check_attention(f"{lab}_q_offset", q[:, off:], k, v, w, off,
+                            dtype)
+    ssd = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        ssd["hymba", dtype] = check_ssd("hymba", scan_calls[0], dtype)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    mb = ARCHS["mamba2-1.3b"]
+    H = mb.ssm.n_heads(mb.d_model)
+    N, P, L = mb.ssm.d_state, mb.ssm.head_dim, mb.ssm.chunk
+    B_, S_ = ATTN_CHECK_B, ATTN_CHECK_S
+    randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    mamba_args = (randn(B_, S_, H, P), F.softplus(randn(B_, S_, H) - 2.0),
+                  -torch.exp(randn(H)), randn(B_, S_, 1, N),
+                  randn(B_, S_, 1, N), L)
+    for dtype in (torch.bfloat16, torch.float32):
+        ssd["mamba2", dtype] = check_ssd("mamba2", mamba_args, dtype)
+
+    # times: kernel alone (profiler), library yardstick, bound
+    def sdpa(q, k, v, mask=None):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+
+    wmask = attention_mask(ATTN_CHECK_S, ATTN_CHECK_S, causal=True,
+                           window=ww, q_offset=0, device="cuda")
+    alone_ms = kernel_alone_times()
+    entries = []
+    for case, (q, k, v, w), mask in (("global", attn_calls[0], None),
+                                     ("window", attn_calls[1], wmask)):
+        (lib_out, lib_ms) = median_ms(lambda: sdpa(q, k, v, mask))
+        alone = alone_ms[f"flash_attention/{case}"]
+        b_ms, b_by, nbytes, ops = attention_bound_ms(q, k, v, w)
+        t = attn[case, torch.bfloat16]
+        lib_err = float((lib_out.transpose(1, 2).float()
+                         - flash_attention_cuda(q, k, v, window=w).float())
+                        .abs().max())
+        say("kernel_time", kernel="flash_attention", case=case,
+            dtype="bfloat16", ms=f"{t['ms']:.4f}",
+            kernel_alone_ms="not measured" if alone is None
+            else f"{alone:.4f}", plain_ms=f"{t['plain_ms']:.4f}",
+            sdpa_ms=f"{lib_ms:.4f}", sdpa_vs_kernel_max_abs=f"{lib_err:.3g}",
+            bound_ms=f"{b_ms:.5f}", bound_by=b_by, bytes=nbytes, ops=ops,
+            times_bound=f"{t['ms'] / b_ms:.1f}",
+            f32_ms=f"{attn[case, torch.float32]['ms']:.4f}")
+        if case == "global":
+            entries.append({
+                "name": "flash_attention", "route": "cuda",
+                "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                          "flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention/"
+                            "flash_attention.py:95",
+                "launches": launches["flash_attention"],
+                "max_abs_err": max(v["err"] for v in attn.values()),
+                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": lib_ms,
+            })
+    for case, args in (("hymba", scan_calls[0]), ("mamba2", mamba_args)):
+        x, _, _, Bm, _, L = args
+        t = ssd[case, torch.bfloat16]
+        alone = alone_ms[f"ssd_intra_chunk/{case}"]
+        b_ms, b_by, nbytes, ops = ssd_bound_ms(x.bfloat16(), Bm.bfloat16(), L)
+        say("kernel_time", kernel="ssd_intra_chunk", case=case,
+            dtype="bfloat16", ms=f"{t['ms']:.4f}",
+            kernel_alone_ms="not measured" if alone is None
+            else f"{alone:.4f}", plain_ms=f"{t['plain_ms']:.4f}",
+            library_ms="none", bound_ms=f"{b_ms:.5f}", bound_by=b_by,
+            bytes=nbytes, ops=ops, times_bound=f"{t['ms'] / b_ms:.1f}")
+        if case == "hymba":
+            entries.append({
+                "name": "ssd_intra_chunk", "route": "cuda",
+                "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+                "replaces": "src/repro/kernels/ssd/ssd.py:68",
+                "launches": launches["ssd_intra_chunk"],
+                "max_abs_err": max(ssd["hymba", d]["err"]
+                                   for d in (torch.bfloat16, torch.float32)),
+                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None,
+            })
+    return entries
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the repo")
@@ -594,6 +1051,9 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
+    if sys.argv[1:] == ["--serve-kernel-alone"]:
+        serve_kernel_alone()
+        return
 
     # ---- 1. environment ---------------------------------------------------
     smi = subprocess.run(
@@ -795,7 +1255,10 @@ def main() -> None:
     # ---- 6. batched planning and the plan server -------------------------
     phase_bulk_plan(cfg)
 
-    # ---- 7. kernels line and result ---------------------------------------
+    # ---- 7. the ML serving path: hymba-1.5b, flash attention, SSD --------
+    serve_entries = phase_serve()
+
+    # ---- 8. kernels line and result ---------------------------------------
     if "jax" in sys.modules or "repro" in sys.modules:
         fail("the port imported jax or the reference package")
     print(json.dumps({"kernels": [{
@@ -810,7 +1273,7 @@ def main() -> None:
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": None,
-    }] + dpm_entries}), flush=True)
+    }] + dpm_entries + serve_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -88,14 +88,19 @@ class CudaLibrary:
 
 
 def check_tensor(name: str, x: torch.Tensor, dtype: torch.dtype,
-                 shape: tuple, device: torch.device) -> None:
+                 shape: tuple, device: torch.device, *,
+                 strided: bool = False) -> None:
     """Raise unless ``x`` is a contiguous ``dtype`` tensor of ``shape`` on
-    ``device``: what a kernel's pointer arguments assume."""
+    ``device``: what a kernel's pointer arguments assume. With ``strided``
+    (a kernel that takes the other dims' strides) only the last dim must be
+    contiguous."""
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
     if x.dtype != dtype:
         raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
     if tuple(x.shape) != shape:
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
-    if not x.is_contiguous():
+    if strided and x.stride(-1) != 1:
+        raise ValueError(f"{name}'s last dim must be contiguous")
+    if not strided and not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")

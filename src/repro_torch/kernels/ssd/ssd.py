@@ -1,0 +1,103 @@
+"""Loader and wrapper of the CUDA SSD intra-chunk kernel (``csrc/ssd.cu``).
+
+Replaces the reference's Pallas kernel ``repro.kernels.ssd.ssd.
+ssd_intra_chunk``. The kernel reads the model layout through strides (x
+``(B, S, H, P)``, dt ``(B, S, H)``, Bm and Cm ``(B, S, G, N)``; head ``h``
+reads group ``h // (H / G)``), pads the sequence to whole chunks itself and
+writes the outputs of ``ref.ssd_intra_chunk_ref``. The library is built at
+first use (``kernels.build``); ``ssd_intra_chunk_cuda`` takes CUDA tensors
+only and ``KERNEL.launches`` counts its launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from ..build import CudaLibrary, check_tensor
+
+_SRC = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
+DTYPES = (torch.float32, torch.bfloat16)
+# dynamic shared memory a block may use on an H100 (227 KB)
+MAX_SMEM = 232_448
+
+
+class SsdKernel(CudaLibrary):
+    """The built library, its build report and the launch counter."""
+
+    def __init__(self):
+        super().__init__("ssd", _SRC)
+        self.launches = 0
+
+    def bind(self, lib: ctypes.CDLL) -> None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.ssd_intra_chunk_launch.argtypes = (
+            [p] * 9 + [i] * 9 + [ll] * 12 + [p]
+        )
+        lib.ssd_intra_chunk_launch.restype = ctypes.c_int
+        lib.ssd_intra_chunk_smem_bytes.argtypes = [i] * 3
+        lib.ssd_intra_chunk_smem_bytes.restype = ctypes.c_size_t
+
+
+KERNEL = SsdKernel()
+
+
+def _check(x, dt, A, Bm, Cm) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"the SSD kernel needs CUDA tensors, got {x.device}")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"the kernel takes x, Bm, Cm in {DTYPES}, got "
+                        f"{x.dtype}")
+    if x.dim() != 4 or Bm.dim() != 4:
+        raise ValueError(f"x {tuple(x.shape)} and Bm {tuple(Bm.shape)} must "
+                         "be (B, S, H, P) and (B, S, G, N)")
+    B_, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if H % G:
+        raise ValueError(f"{H} heads do not group over {G} groups")
+    dev, f32 = x.device, torch.float32
+    check_tensor("x", x, x.dtype, (B_, S, H, P), dev, strided=True)
+    check_tensor("dt", dt, f32, (B_, S, H), dev, strided=True)
+    check_tensor("A", A, f32, (H,), dev)
+    check_tensor("Bm", Bm, x.dtype, (B_, S, G, N), dev, strided=True)
+    check_tensor("Cm", Cm, x.dtype, (B_, S, G, N), dev, strided=True)
+
+
+def ssd_intra_chunk_cuda(x, dt, A, Bm, Cm, chunk: int):
+    """The intra-chunk pass through the CUDA kernel on PyTorch's current
+    stream: ``(y (B, nc*L, H, P), sc (B, nc, H, N, P), dec (B, nc, H),
+    cum (B, nc, L, H))``, all f32, the contract of
+    ``ref.ssd_intra_chunk_ref``."""
+    _check(x, dt, A, Bm, Cm)
+    B_, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    L = chunk
+    nc = -(-S // L)
+    lib = KERNEL.build()
+    smem = lib.ssd_intra_chunk_smem_bytes(L, N, P)
+    if smem > MAX_SMEM:
+        raise ValueError(f"L={L}, N={N}, P={P} needs {smem} bytes of shared "
+                         f"memory, over {MAX_SMEM}")
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        y = torch.empty((B_, nc * L, H, P), **f32)
+        sc = torch.empty((B_, nc, H, N, P), **f32)
+        dec = torch.empty((B_, nc, H), **f32)
+        cum = torch.empty((B_, nc, L, H), **f32)
+        if y.numel() == 0:
+            return y, sc, dec, cum
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ssd_intra_chunk_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), y.data_ptr(), sc.data_ptr(), dec.data_ptr(),
+            cum.data_ptr(), int(x.dtype == torch.bfloat16), B_, S, H, G, N,
+            P, L, nc, *x.stride()[:3], *dt.stride(), *Bm.stride()[:3],
+            *Cm.stride()[:3], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"ssd_intra_chunk kernel launch failed: "
+                           f"cudaError {err}")
+    KERNEL.launches += 1
+    return y, sc, dec, cum

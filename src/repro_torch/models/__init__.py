@@ -1,0 +1,32 @@
+"""Model substrate for serving: layers, GQA attention, SSD, blocks, LM.
+Twin of ``repro.models`` (the serving path; MoE, MLA and training come with
+later slices)."""
+from .config import (
+    SHAPES,
+    ArchConfig,
+    MLAConfig,
+    MoEConfig,
+    RunConfig,
+    ShapeConfig,
+    SSMConfig,
+)
+from .convert import params_from_jax
+from .layers import count_params
+from .model import decode_step, init_caches, model_init, padded_vocab, prefill
+
+__all__ = [
+    "SHAPES",
+    "ArchConfig",
+    "MLAConfig",
+    "MoEConfig",
+    "RunConfig",
+    "SSMConfig",
+    "ShapeConfig",
+    "count_params",
+    "decode_step",
+    "init_caches",
+    "model_init",
+    "padded_vocab",
+    "params_from_jax",
+    "prefill",
+]

@@ -1,0 +1,162 @@
+"""Decoder blocks for serving. Twin of ``repro.models.blocks``.
+
+Kinds ported: ``attn_dense`` (GQA + dense MLP), ``ssd`` (Mamba-2, no FFN),
+``hymba_g`` and ``hymba_w`` (global or sliding-window GQA in parallel with
+SSD heads, then an MLP). ``attn_moe``, ``mla_dense`` and ``mla_moe`` raise:
+MoE and MLA come with the rest of the ML stack (ROADMAP.md, queue 1).
+
+Each kind has init (stacked over a group's ``count`` layers) / apply
+(prefill) / init_cache / decode. The MoE auxiliary loss of the reference's
+``block_apply`` belongs to training and is not returned.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .attention import (
+    LATER,
+    gqa_apply,
+    gqa_decode,
+    gqa_init,
+    gqa_init_cache,
+)
+from .config import ArchConfig, RunConfig
+from .layers import Params, mlp_apply, mlp_init, norm_apply, norm_init
+from .ssm import ssd_block_apply, ssd_block_decode, ssd_init, ssd_init_cache
+
+KINDS = ("attn_dense", "ssd", "hymba_g", "hymba_w")
+
+
+def _window(kind: str, cfg: ArchConfig) -> int | None:
+    return cfg.window if kind.endswith("_w") else None
+
+
+def _check_kind(kind: str) -> None:
+    if kind not in KINDS:
+        if kind in ("attn_moe", "mla_dense", "mla_moe"):
+            raise NotImplementedError(
+                f"block kind {kind!r} (MoE / MLA) is not ported ({LATER})")
+        raise ValueError(kind)
+
+
+# ---------------------------------------------------------------- init
+def block_init(kind: str, gen, cfg: ArchConfig, device: torch.device,
+               count: int) -> Params:
+    """Parameters of ``count`` layers of one kind, stacked on dim 0."""
+    _check_kind(kind)
+    lead = (count,)
+    p: Params = {"norm1": norm_init(cfg.d_model, device, cfg.norm, lead)}
+    if kind == "attn_dense":
+        p["attn"] = gqa_init(gen, cfg, device, lead)
+    elif kind == "ssd":
+        p["ssd"] = ssd_init(gen, cfg, device, lead)
+        return p  # mamba2 block has no FFN sublayer
+    else:  # hymba
+        p["attn"] = gqa_init(gen, cfg, device, lead)
+        p["ssd"] = ssd_init(gen, cfg, device, lead)
+        p["bnorm_a"] = norm_init(cfg.d_model, device, lead=lead)
+        p["bnorm_s"] = norm_init(cfg.d_model, device, lead=lead)
+    p["norm2"] = norm_init(cfg.d_model, device, cfg.norm, lead)
+    d_ff = cfg.dense_d_ff if (cfg.moe and cfg.dense_d_ff) else cfg.d_ff
+    p["ffn"] = mlp_init(gen, cfg, device, d_ff, lead)
+    return p
+
+
+# ---------------------------------------------------------------- prefill
+def _kv_to_cache(k, v, run: RunConfig, window: int | None, cache_len=None):
+    """Full-sequence K/V -> decode cache layout (ring-truncated for SWA,
+    zero-padded to ``cache_len`` capacity for cache growth during decode)."""
+    if window:
+        S = k.shape[1]
+        if S >= window:
+            # keep the last `window` tokens; position p lands at ring slot
+            # p % window (the layout gqa_decode continues to write)
+            k, v = k[:, -window:], v[:, -window:]
+            shift = S % window
+            if shift:
+                k = torch.roll(k, shift, dims=1)
+                v = torch.roll(v, shift, dims=1)
+        else:
+            k = F.pad(k, (0, 0, 0, 0, 0, window - S))
+            v = F.pad(v, (0, 0, 0, 0, 0, window - S))
+    elif cache_len is not None and cache_len > k.shape[1]:
+        grow = cache_len - k.shape[1]
+        k = F.pad(k, (0, 0, 0, 0, 0, grow))
+        v = F.pad(v, (0, 0, 0, 0, 0, grow))
+    dt = getattr(torch, run.kv_cache_dtype)
+    return {"k": k.to(dt), "v": v.to(dt)}
+
+
+def _mixer_apply(kind, p, xn, cfg, run, positions, cache_len):
+    """The token-mixing sublayer. Returns (out, cache)."""
+    if kind == "attn_dense":
+        out, (k, v) = gqa_apply(p["attn"], xn, cfg, run, positions,
+                                return_kv=True)
+        return out, _kv_to_cache(k, v, run, None, cache_len)
+    if kind == "ssd":
+        return ssd_block_apply(p["ssd"], xn, cfg, return_state=True,
+                               chunk=run.ssd_chunk)
+    w = _window(kind, cfg)
+    a, (k, v) = gqa_apply(p["attn"], xn, cfg, run, positions, window=w,
+                          return_kv=True)
+    s, st = ssd_block_apply(p["ssd"], xn, cfg, return_state=True,
+                            chunk=run.ssd_chunk)
+    cache = {"attn": _kv_to_cache(k, v, run, w, cache_len), "ssm": st}
+    out = 0.5 * (norm_apply(p["bnorm_a"], a) + norm_apply(p["bnorm_s"], s))
+    return out, cache
+
+
+def block_apply(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig,
+                run: RunConfig, positions: torch.Tensor,
+                cache_len: int | None = None):
+    """One layer's prefill. Returns (x_out, cache)."""
+    _check_kind(kind)
+    mix, cache = _mixer_apply(
+        kind, p,
+        norm_apply(p["norm1"], x, stats_only_f32=run.norm_stats_only_f32),
+        cfg, run, positions, cache_len,
+    )
+    x = x + mix
+    if kind == "ssd":
+        return x, cache
+    xn = norm_apply(p["norm2"], x, stats_only_f32=run.norm_stats_only_f32)
+    return x + mlp_apply(p["ffn"], xn, cfg.mlp), cache
+
+
+# ---------------------------------------------------------------- decode
+def block_init_cache(kind: str, cfg: ArchConfig, run: RunConfig, batch: int,
+                     max_len: int, device: torch.device) -> dict:
+    _check_kind(kind)
+    if kind == "attn_dense":
+        return gqa_init_cache(cfg, run, batch, max_len, None, device)
+    if kind == "ssd":
+        return ssd_init_cache(cfg, batch, device)
+    return {
+        "attn": gqa_init_cache(cfg, run, batch, max_len, _window(kind, cfg),
+                               device),
+        "ssm": ssd_init_cache(cfg, batch, device),
+    }
+
+
+def block_decode(kind: str, p: Params, cache: dict, x: torch.Tensor,
+                 cfg: ArchConfig, run: RunConfig, pos: int):
+    """One layer's decode step. Returns (x_out, new_cache); the KV cache
+    tensors are written in place."""
+    _check_kind(kind)
+    xn = norm_apply(p["norm1"], x)
+    if kind == "attn_dense":
+        mix, cache = gqa_decode(p["attn"], cache, xn, cfg, run, pos)
+    elif kind == "ssd":
+        mix, cache = ssd_block_decode(p["ssd"], cache, xn, cfg)
+    else:  # hymba
+        a, ac = gqa_decode(p["attn"], cache["attn"], xn, cfg, run, pos,
+                           window=_window(kind, cfg))
+        s, sc = ssd_block_decode(p["ssd"], cache["ssm"], xn, cfg)
+        mix = 0.5 * (norm_apply(p["bnorm_a"], a) + norm_apply(p["bnorm_s"], s))
+        cache = {"attn": ac, "ssm": sc}
+    x = x + mix
+    if kind == "ssd":
+        return x, cache
+    xn = norm_apply(p["norm2"], x)
+    return x + mlp_apply(p["ffn"], xn, cfg.mlp), cache

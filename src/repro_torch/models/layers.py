@@ -1,0 +1,121 @@
+"""Primitive layers on plain dicts of tensors. Twin of ``repro.models.layers``.
+
+Parameters keep the reference's tree and layout: a dense weight is
+``(in, out)`` and is applied as ``x @ w.to(x.dtype)``, norms hold
+``scale`` (and ``bias`` for layernorm), tables are ``(vocab, d)``. The
+reference's logical-axis specs drive sharding and have no counterpart on one
+card, so ``*_init`` return parameters only. ``lead`` prepends a stacked
+"layers" dim (the layout of a group's weights). Random draws come from an
+explicit ``torch.Generator``; on the ``meta`` device nothing is drawn.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+Params = dict[str, Any]
+
+
+def normal(gen: torch.Generator | None, shape: tuple, std: float,
+           device: torch.device) -> torch.Tensor:
+    """f32 N(0, std^2) draws from ``gen`` (uninitialised on ``meta``)."""
+    if device.type == "meta":
+        return torch.empty(shape, device=device)
+    return torch.randn(shape, generator=gen, device=device).mul_(std)
+
+
+def dense_init(gen, in_dim: int, out_dim: int, device: torch.device, *,
+               bias: bool = False, lead: tuple = ()) -> Params:
+    p: Params = {"w": normal(gen, (*lead, in_dim, out_dim),
+                             1.0 / math.sqrt(in_dim), device)}
+    if bias:
+        p["b"] = torch.zeros((*lead, out_dim), device=device)
+    return p
+
+
+def dense_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def norm_init(d: int, device: torch.device, kind: str = "rmsnorm",
+              lead: tuple = ()) -> Params:
+    p: Params = {"scale": torch.ones((*lead, d), device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((*lead, d), device=device)
+    return p
+
+
+def norm_apply(p: Params, x: torch.Tensor, eps: float = 1e-6,
+               stats_only_f32: bool = False) -> torch.Tensor:
+    """RMSNorm / LayerNorm with f32 statistics; ``stats_only_f32`` applies
+    the normalisation in the input dtype, as the reference does."""
+    xf = x.float()
+    if "bias" in p:  # layernorm
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        if stats_only_f32:
+            inv = torch.rsqrt(var + eps).to(x.dtype)
+            return (x - mu.to(x.dtype)) * inv * p["scale"].to(x.dtype) \
+                + p["bias"].to(x.dtype)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * p["scale"] + p["bias"]
+    else:  # rmsnorm
+        ms = (xf * xf).mean(-1, keepdim=True)
+        if stats_only_f32:
+            inv = torch.rsqrt(ms + eps).to(x.dtype)
+            return x * inv * p["scale"].to(x.dtype)
+        y = xf * torch.rsqrt(ms + eps) * p["scale"]
+    return y.to(x.dtype)
+
+
+def embed_init(gen, vocab: int, d: int, device: torch.device) -> Params:
+    return {"table": normal(gen, (vocab, d), 0.02, device)}
+
+
+def embed_apply(p: Params, ids: torch.Tensor, dtype) -> torch.Tensor:
+    return p["table"][ids.long()].to(dtype)
+
+
+def lm_head_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Project to (padded) vocab logits using the (vocab, embed) table."""
+    return x @ p["table"].to(x.dtype).T
+
+
+def mlp_init(gen, cfg, device: torch.device, d_ff: int | None = None,
+             lead: tuple = ()) -> Params:
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.mlp == "swiglu":
+        return {
+            "wi": dense_init(gen, d, ff, device, lead=lead),
+            "wg": dense_init(gen, d, ff, device, lead=lead),
+            "wo": dense_init(gen, ff, d, device, lead=lead),
+        }
+    return {
+        "wi": dense_init(gen, d, ff, device, bias=True, lead=lead),
+        "wo": dense_init(gen, ff, d, device, bias=True, lead=lead),
+    }
+
+
+def mlp_apply(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "swiglu":
+        h = F.silu(dense_apply(p["wg"], x)) * dense_apply(p["wi"], x)
+        return dense_apply(p["wo"], h)
+    # jax.nn.gelu is the tanh approximation by default
+    h = F.gelu(dense_apply(p["wi"], x), approximate="tanh")
+    return dense_apply(p["wo"], h)
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
+
+
+def count_params(params: Params) -> int:
+    return sum(x.numel() for x in tree_leaves(params))

@@ -1,0 +1,150 @@
+"""Decoder LM for serving: embed -> block groups -> norm -> LM head. Twin of
+the serving half of ``repro.models.model``.
+
+Parameters keep the reference's tree: ``embed``, one ``g{i}`` per layout
+group with every leaf stacked on a leading "layers" dim, ``final_norm`` and
+(untied) ``lm_head``. The reference scans each group with ``lax.scan``; the
+port loops over the layers and indexes the stacked weights. ``remat`` and
+sharding constraints have no meaning when serving on one card. Caches are
+per layer: ``caches["g{i}"]`` is a list with one dict per layer of the
+group (the reference stacks them); decode writes KV caches in place.
+
+``forward``/``loss_fn`` and training come with the training slice.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from ..device import resolve_device
+from .attention import LATER
+from .blocks import block_apply, block_decode, block_init, block_init_cache
+from .config import ArchConfig, RunConfig
+from .layers import (
+    Params, embed_apply, embed_init, lm_head_apply, norm_apply, norm_init,
+)
+from .rope import sinusoidal
+
+
+def check_run(run: RunConfig) -> None:
+    """Raise on the RunConfig options the port does not implement."""
+    if run.kv_cache_dtype == "int8":
+        raise NotImplementedError(f"the int8 KV cache is not ported ({LATER})")
+    if run.attn_stream_bf16 or run.ssd_stream_bf16:
+        raise NotImplementedError(
+            "attn_stream_bf16 / ssd_stream_bf16: the port's kernels compute "
+            "in f32 from their inputs' dtype; no configuration sets them"
+        )
+
+
+def padded_vocab(cfg: ArchConfig, run: RunConfig) -> int:
+    r = run.vocab_round
+    return (cfg.vocab + r - 1) // r * r
+
+
+def model_init(seed: int, cfg: ArchConfig, run: RunConfig, *,
+               device: torch.device | str = "cuda") -> Params:
+    """Random parameters drawn from a ``torch.Generator`` seeded with
+    ``seed`` on ``device`` (default the card; a missing card raises). On
+    ``torch.device("meta")`` nothing is drawn or allocated: the tree's
+    shapes, for counting parameters."""
+    dev = (torch.device(device) if torch.device(device).type == "meta"
+           else resolve_device(device))
+    gen = None
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+    if cfg.embed_input != "tokens":
+        raise NotImplementedError(f"frame inputs are not ported ({LATER})")
+    vp = padded_vocab(cfg, run)
+    params: Params = {"embed": embed_init(gen, vp, cfg.d_model, dev)}
+    for gi, (kind, count) in enumerate(cfg.layout):
+        params[f"g{gi}"] = block_init(kind, gen, cfg, dev, count)
+    params["final_norm"] = norm_init(cfg.d_model, dev, cfg.norm)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = embed_init(gen, vp, cfg.d_model, dev)
+    return params
+
+
+def _layer(gparams: Params, i: int) -> Params:
+    """Layer ``i``'s parameters: views into the group's stacked tensors."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in gparams.items()}
+
+
+def _embed(params, cfg: ArchConfig, run: RunConfig, batch: dict,
+           pos0: int = 0) -> torch.Tensor:
+    if "tokens" not in batch:
+        raise NotImplementedError(f"frame inputs are not ported ({LATER})")
+    dt = getattr(torch, run.activations_dtype)
+    x = embed_apply(params["embed"], batch["tokens"], dt)
+    if cfg.pos == "sinusoidal":
+        S = x.shape[1]
+        pos = pos0 + torch.arange(S, device=x.device)
+        x = x + sinusoidal(pos, cfg.d_model).to(dt)
+    return x
+
+
+def _logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    table = params.get("lm_head", params["embed"])
+    logits = lm_head_apply(table, x).float()
+    vp = logits.shape[-1]
+    if vp != cfg.vocab:  # mask padded vocab entries
+        mask = torch.arange(vp, device=x.device) < cfg.vocab
+        logits = torch.where(mask, logits, -1e30)
+    return logits
+
+
+@torch.no_grad()
+def prefill(params: Params, batch: dict, cfg: ArchConfig, run: RunConfig,
+            cache_len: int | None = None):
+    """Run the prompt ``batch["tokens"]`` (B, S); return (last-token logits
+    (B, 1, V_pad) f32, caches).
+
+    ``cache_len`` pads non-ring caches to that capacity so decode can append.
+    """
+    check_run(run)
+    x = _embed(params, cfg, run, batch)
+    B, S = x.shape[0], x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    caches: dict[str, Any] = {}
+    for gi, (kind, count) in enumerate(cfg.layout):
+        caches[f"g{gi}"] = []
+        for i in range(count):
+            x, cache = block_apply(kind, _layer(params[f"g{gi}"], i), x, cfg,
+                                   run, positions, cache_len=cache_len)
+            caches[f"g{gi}"].append(cache)
+    x = norm_apply(params["final_norm"], x)
+    return _logits(params, cfg, x[:, -1:, :]), caches
+
+
+def init_caches(cfg: ArchConfig, run: RunConfig, batch: int, max_len: int,
+                device: torch.device | str = "cuda"):
+    """Zeroed decode caches, one dict per layer of every group."""
+    check_run(run)
+    dev = resolve_device(device)
+    return {
+        f"g{gi}": [block_init_cache(kind, cfg, run, batch, max_len, dev)
+                   for _ in range(count)]
+        for gi, (kind, count) in enumerate(cfg.layout)
+    }
+
+
+@torch.no_grad()
+def decode_step(params: Params, caches: dict, batch: dict, cfg: ArchConfig,
+                run: RunConfig):
+    """One decode step against the caches: ``batch`` holds ``tokens``
+    (B, 1) and ``pos``, the tokens already cached. Returns (logits
+    (B, 1, V_pad), caches), the caches updated."""
+    check_run(run)
+    pos = int(batch["pos"])
+    x = _embed(params, cfg, run, batch, pos0=pos)
+    for gi, (kind, count) in enumerate(cfg.layout):
+        group = caches[f"g{gi}"]
+        for i in range(count):
+            x, group[i] = block_decode(kind, _layer(params[f"g{gi}"], i),
+                                       group[i], x, cfg, run, pos)
+    x = norm_apply(params["final_norm"], x)
+    return _logits(params, cfg, x), caches

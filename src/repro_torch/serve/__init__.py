@@ -1,8 +1,8 @@
-"""Serving: the streaming plan server over the device plan arena
-(``planserve``) and its deadline-batching primitive. Twin of
-``repro.serve``; the model-serving ``BatchServer`` and ``generate`` come with
-the ML-stack slice of the port."""
-from .engine import take_batch
+"""Serving: the model ``BatchServer`` and ``generate``, the streaming plan
+server over the device plan arena (``planserve``), and their shared
+deadline-batching primitive. Twin of ``repro.serve``."""
+from .engine import BatchServer, GenResult, Request, Response, generate, take_batch
 from .planserve import PlanServer
 
-__all__ = ["PlanServer", "take_batch"]
+__all__ = ["BatchServer", "GenResult", "PlanServer", "Request", "Response",
+           "generate", "take_batch"]

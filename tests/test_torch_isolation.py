@@ -11,9 +11,13 @@ import torch
 
 import repro_torch
 from repro_torch.core import BatchPlanner, bulk_plan, grid
+from repro_torch.configs import SMOKES
 from repro_torch.kernels.dpm_cost import dpm_plan
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssd import ssd_scan_kernel
+from repro_torch.models import RunConfig, model_init
 from repro_torch.noc import NoCConfig, synthetic_workload, xsimulate
-from repro_torch.serve import PlanServer
+from repro_torch.serve import BatchServer, PlanServer, generate
 from repro_torch.noc.xsim.compile import planes_from_numpy, traffic_from_numpy
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -33,7 +37,14 @@ def test_importing_every_port_module_loads_neither_jax_nor_repro():
     for name in ("repro_torch.kernels.noc_cycle.noc_cycle",
                  "repro_torch.kernels.dpm_cost.dpm_cost",
                  "repro_torch.core.batch_planner",
-                 "repro_torch.serve.planserve"):
+                 "repro_torch.serve.planserve",
+                 "repro_torch.configs.hymba_1_5b",
+                 "repro_torch.models.model",
+                 "repro_torch.models.convert",
+                 "repro_torch.kernels.flash_attention.flash_attention",
+                 "repro_torch.kernels.ssd.ssd",
+                 "repro_torch.serve.engine",
+                 "repro_torch.launch.serve"):
         assert name in mods
     code = (
         "import importlib, sys\n"
@@ -90,3 +101,24 @@ def test_batched_planning_refuses_a_missing_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PlanServer(g)
     assert BatchPlanner(g, device="cpu").device.type == "cpu"
+
+
+def test_serving_refuses_a_missing_card(monkeypatch):
+    cfg = SMOKES["smollm-135m"]
+    run = RunConfig()
+    params = model_init(0, cfg, run, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model_init(0, cfg, run)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        generate(params, cfg, run, torch.zeros((1, 4), dtype=torch.int32), 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BatchServer(params, cfg, run)
+    q = torch.zeros((1, 8, 2, 16))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        flash_attention(q, q, q)
+    x, dt = torch.zeros((1, 8, 2, 16)), torch.zeros((1, 8, 2))
+    bm = torch.zeros((1, 8, 1, 16))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ssd_scan_kernel(x, dt, torch.zeros(2), bm, bm, 4)
+    assert BatchServer(params, cfg, run, device="cpu").device.type == "cpu"

@@ -1,0 +1,227 @@
+"""The port's serving model (``repro_torch.models``) against ``repro.models``
+at smoke width, on weights carried across by ``params_from_jax``.
+
+- ``params_from_jax`` copies every leaf exactly and refuses a tree that
+  differs.
+- ``prefill`` logits and every cache tensor, for ``hymba-1.5b`` (global and
+  sliding-window GQA in parallel with SSD heads), ``smollm-135m``
+  (attention only) and ``mamba2-1.3b`` (SSD only). In f32 the port runs the
+  plain attention and ``ssd_scan`` where the reference runs its chunked
+  online-softmax attention and its own ``ssd_scan``: the same functions
+  summed in another order, held at atol 1e-4 (logits and caches). In the
+  default bf16 activations each framework rounds its bf16 matmuls and
+  elementwise ops on its own, a few bf16 ulps apart after 3-4 layers: logits
+  (|logit| < 1) at atol 4e-2, caches at atol 0.1 + rtol 0.05.
+- ``decode_step`` teacher-forced for 8 steps against the reference's at atol
+  2e-3 (``test_models.py``'s tolerance), through the sliding-window ring of
+  the smoke window 64: a 60-token prompt wraps the ring during decode, a
+  70-token prompt enters decode through the prefill's rolled ring.
+- The full-width parameter counts on ``torch.device("meta")`` equal
+  ``count_params`` of the reference's ``abstract_init``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCHS as JAX_ARCHS
+from repro.configs import SMOKES as JAX_SMOKES
+from repro.models import RunConfig as JaxRun
+from repro.models import abstract_init
+from repro.models import count_params as jax_count_params
+from repro.models import decode_step as jax_decode
+from repro.models import init_caches as jax_init_caches
+from repro.models import model_init as jax_init
+from repro.models import prefill as jax_prefill
+from repro_torch.configs import ARCHS, LATER, SMOKES, get_arch
+from repro_torch.models import (
+    RunConfig,
+    count_params,
+    decode_step,
+    init_caches,
+    model_init,
+    params_from_jax,
+    prefill,
+)
+from repro_torch.models.blocks import block_init
+
+NAMES = ["hymba-1.5b", "smollm-135m", "mamba2-1.3b"]
+RUN_KW = dict(remat="none", attn_chunk_q=32, attn_chunk_k=32, vocab_round=64,
+              kv_cache_dtype="float32")
+TOL = {"float32": dict(logits=dict(atol=1e-4), cache=dict(atol=1e-4)),
+       "bfloat16": dict(logits=dict(atol=4e-2),
+                        cache=dict(atol=0.1, rtol=0.05))}
+
+
+def _tokens(cfg, B, S, seed):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+
+
+@pytest.fixture(scope="module")
+def models():
+    """(jax params, port params on the CPU) per smoke config."""
+    out = {}
+    for name in NAMES:
+        cfg = JAX_SMOKES[name]
+        jp = jax.jit(lambda k: jax_init(k, cfg, JaxRun(**RUN_KW))[0])(
+            jax.random.PRNGKey(0))
+        tp = params_from_jax(jax.tree.map(np.asarray, jp), SMOKES[name],
+                             RunConfig(**RUN_KW), device="cpu")
+        out[name] = (jp, tp)
+    return out
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{path}/{k}")
+    else:
+        yield path, tree
+
+
+def _layer_caches(jax_caches, name):
+    """The reference's layer-stacked caches as the port's per-layer lists."""
+    out = {}
+    for g, stacked in jax_caches.items():
+        n = JAX_SMOKES[name].layout[int(g[1:])][1]
+        out[g] = [jax.tree.map(lambda a: np.asarray(a[i], np.float32),
+                               stacked) for i in range(n)]
+    return out
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_params_from_jax_copies_every_leaf(models, name):
+    jp, tp = models[name]
+    jl = dict(_leaves(jax.tree.map(np.asarray, jp)))
+    tl = dict(_leaves(tp))
+    assert jl.keys() == tl.keys()
+    for k, a in jl.items():
+        assert tl[k].dtype == torch.float32
+        np.testing.assert_array_equal(tl[k].numpy(), a, err_msg=k)
+    bad = jax.tree.map(np.asarray, jp)
+    bad["final_norm"]["scale"] = bad["final_norm"]["scale"][:-1]
+    with pytest.raises(ValueError, match="final_norm/scale"):
+        params_from_jax(bad, SMOKES[name], RunConfig(**RUN_KW), device="cpu")
+    del bad["final_norm"]
+    with pytest.raises(ValueError, match="keys"):
+        params_from_jax(bad, SMOKES[name], RunConfig(**RUN_KW), device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", NAMES)
+def test_prefill_logits_and_caches_match_reference(models, name, dtype):
+    jp, tp = models[name]
+    kw = dict(RUN_KW, activations_dtype=dtype)
+    toks = _tokens(JAX_SMOKES[name], 2, 70, seed=1)
+    jl, jc = jax.jit(lambda p, t: jax_prefill(
+        p, {"tokens": t}, JAX_SMOKES[name], JaxRun(**kw), cache_len=80))(
+        jp, jnp.asarray(toks))
+    tl, tc = prefill(tp, {"tokens": torch.from_numpy(toks)}, SMOKES[name],
+                     RunConfig(**kw), cache_len=80)
+    assert tl.shape == jl.shape and tl.dtype == torch.float32
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL[dtype]["logits"])
+    want = _layer_caches(jc, name)
+    assert want.keys() == tc.keys()
+    for g in want:
+        assert len(tc[g]) == len(want[g])
+        for i, (wc, gc) in enumerate(zip(want[g], tc[g])):
+            wl, gl = dict(_leaves(wc)), dict(_leaves(gc))
+            assert wl.keys() == gl.keys()
+            for k, a in wl.items():
+                np.testing.assert_allclose(gl[k].float().numpy(), a,
+                                           err_msg=f"{g}[{i}]{k}",
+                                           **TOL[dtype]["cache"])
+
+
+@pytest.mark.parametrize("prompt", [60, 70])
+@pytest.mark.parametrize("name", NAMES)
+def test_decode_teacher_forced_matches_reference(models, name, prompt):
+    jp, tp = models[name]
+    kw = dict(RUN_KW, activations_dtype="float32")
+    jcfg, tcfg, jrun, trun = (JAX_SMOKES[name], SMOKES[name], JaxRun(**kw),
+                              RunConfig(**kw))
+    steps = 8
+    toks = _tokens(jcfg, 2, prompt + steps, seed=2)
+    _, jc = jax.jit(lambda p, t: jax_prefill(
+        p, {"tokens": t}, jcfg, jrun, cache_len=prompt + steps))(
+        jp, jnp.asarray(toks[:, :prompt]))
+    _, tc = prefill(tp, {"tokens": torch.from_numpy(toks[:, :prompt])}, tcfg,
+                    trun, cache_len=prompt + steps)
+    dec = jax.jit(lambda p, c, t, pos: jax_decode(
+        p, c, {"tokens": t, "pos": pos}, jcfg, jrun))
+    for t in range(steps):
+        pos = prompt + t
+        one = toks[:, pos: pos + 1]
+        jl, jc = dec(jp, jc, jnp.asarray(one), jnp.int32(pos))
+        tl, tc = decode_step(tp, tc, {"tokens": torch.from_numpy(one),
+                                      "pos": pos}, tcfg, trun)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=2e-3,
+                                   err_msg=f"step {t}")
+    if name == "hymba-1.5b":  # the window layers' ring really wrapped
+        assert prompt + steps > tcfg.window
+        assert tc["g1"][0]["attn"]["k"].shape[1] == tcfg.window
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_init_caches_and_decode_from_zero_state(models, name):
+    """``init_caches`` matches the reference's zero caches (shapes and
+    dtypes), and one decode step from them matches."""
+    jp, tp = models[name]
+    kw = dict(RUN_KW, activations_dtype="float32")
+    jc = jax_init_caches(JAX_SMOKES[name], JaxRun(**kw), 2, 16)
+    tc = init_caches(SMOKES[name], RunConfig(**kw), 2, 16, device="cpu")
+    for g, stacked in jc.items():
+        for gc in tc[g]:
+            for (k, a), (k2, b) in zip(_leaves(stacked), _leaves(gc)):
+                assert k == k2 and a.shape[1:] == tuple(b.shape)
+                assert str(a.dtype) == str(b.dtype).removeprefix("torch.")
+                assert not b.any()
+    one = _tokens(JAX_SMOKES[name], 2, 1, seed=3)
+    jl, _ = jax_decode(jp, jc, {"tokens": jnp.asarray(one), "pos": jnp.int32(5)},
+                       JAX_SMOKES[name], JaxRun(**kw))
+    tl, _ = decode_step(tp, tc, {"tokens": torch.from_numpy(one), "pos": 5},
+                        SMOKES[name], RunConfig(**kw))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=2e-3)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_full_width_param_count_equals_reference(name):
+    run = RunConfig()
+    shapes, _ = abstract_init(JAX_ARCHS[name], JaxRun())
+    meta = model_init(0, ARCHS[name], run, device="meta")
+    assert count_params(meta) == jax_count_params(shapes)
+    assert all(t.device.type == "meta" for _, t in _leaves(meta))
+
+
+def test_model_init_is_seeded():
+    cfg = SMOKES["hymba-1.5b"]
+    a = model_init(3, cfg, RunConfig(), device="cpu")
+    b = model_init(3, cfg, RunConfig(), device="cpu")
+    c = model_init(4, cfg, RunConfig(), device="cpu")
+    for (k, x), (_, y), (_, z) in zip(_leaves(a), _leaves(b), _leaves(c)):
+        assert torch.equal(x, y), k
+    assert not torch.equal(a["g0"]["attn"]["wq"]["w"], c["g0"]["attn"]["wq"]["w"])
+
+
+def test_unported_configs_and_options_raise():
+    for name in LATER:
+        assert name in JAX_ARCHS
+        with pytest.raises(KeyError, match="ROADMAP"):
+            get_arch(name)
+    assert get_arch("hymba-1.5b", smoke=True) is SMOKES["hymba-1.5b"]
+    for kind in ("attn_moe", "mla_dense", "mla_moe"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            block_init(kind, None, SMOKES["smollm-135m"],
+                       torch.device("meta"), 1)
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    for name in ("smollm-135m", "mamba2-1.3b"):  # attention only, SSD only
+        cfg = SMOKES[name]
+        params = model_init(0, cfg, RunConfig(), device="cpu")
+        for bad in (dict(kv_cache_dtype="int8"), dict(attn_stream_bf16=True),
+                    dict(ssd_stream_bf16=True)):
+            with pytest.raises(NotImplementedError):
+                prefill(params, {"tokens": toks}, cfg, RunConfig(**bad))
+            with pytest.raises(NotImplementedError):
+                init_caches(cfg, RunConfig(**bad), 1, 8, device="cpu")
