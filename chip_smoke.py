@@ -11,9 +11,10 @@ non-zero before the result line:
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: the CUDA cycle kernel (``kernels/noc_cycle/csrc``), the two
    cost-table kernels (``kernels/dpm_cost/csrc``), the flash-attention kernel
-   (``kernels/flash_attention/csrc``) and the SSD intra-chunk kernel
-   (``kernels/ssd/csrc``), one ``nvcc`` per source, all four in parallel,
-   with ptxas' register and spill report;
+   (``kernels/flash_attention/csrc``), the SSD intra-chunk kernel
+   (``kernels/ssd/csrc``) and the segmented-min kernel
+   (``kernels/noc_step/csrc``), one ``nvcc`` per source, all five in
+   parallel, with ptxas' register and spill report;
 3. kernel vs plain: on an 8x8 mesh and torus with the paper's Table I
    (``NoCConfig()`` defaults), MU and DPM at two injection rates, the kernel
    must equal the plain PyTorch cycle on every output and final plane; the
@@ -48,10 +49,26 @@ non-zero before the result line:
    a full-width prefill (B = 4, S = 2,000: a global and a window layer, a
    q_offset case; the SSD at hymba's N = 16 and mamba2's N = 128), in bf16
    and f32, and timed beside SDPA (attention) and their bounds;
-8. the ``kernels`` JSON line (five kernels), then the result line.
+8. segmented min: ``segmin`` and ``arbitrate`` on the card over ten cases
+   (tests/test_kernels.py's shapes; xsim's fused link + ejection id space
+   at the 8x8, 16x16 and 32x32 grids with B = 4, 16 and 132 instances; the
+   16x16 case with padded entries; a 32x32 hot spot of 64 segments) and
+   one arbitration round, the launch count set to 0 just before and read
+   just after; every output equal to the plain version (``scatter_reduce_``
+   amin) on the card and on the CPU, one admissible minimum winner per
+   contested resource; each case timed beside the plain version and its
+   bound;
+9. host NoC: ``WormholeSim`` on the paper's configuration (8x8, Table I,
+   rate 0.02, 300 cycles), MU and DPM, fed by ``add_requests(device=
+   "cuda")`` (DPM planned in batches on the card) and by ``simulate()``:
+   identical ``SimStats`` and ``Telemetry``; against ``xsimulate`` on the
+   card the same delivery sets, conserved counts and per-link flits, and
+   average latency within 10%;
+10. the ``kernels`` JSON line (six kernels), then the result line.
 
-Phase 7 reads the two serving kernels' profiler times from a child process
-of this script (``python3 chip_smoke.py --serve-kernel-alone``).
+Phases 7 and 8 read their kernels' profiler times from a child process of
+this script (``python3 chip_smoke.py --serve-kernel-alone`` and
+``--segmin-kernel-alone``).
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -105,6 +122,14 @@ ATTN_CHECK_B, ATTN_CHECK_S = 4, 2000  # the prefill the kernels' inputs
 #                                       are captured from
 ATTN_ATOL = {"torch.bfloat16": 2e-2, "torch.float32": 1e-4}
 SSD_ATOL = {"torch.bfloat16": 1e-1, "torch.float32": 5e-4}
+# the segmented-min phase: tests/test_kernels.py's shapes (candidates,
+# segments), then xsim's fused link + ejection id space at the repo's grids
+# (name, mesh side, instances B)
+SEGMIN_SHAPES = ((64, 7), (1000, 256), (4096, 64), (37, 300), (512, 320))
+SEGMIN_GRIDS = (("paper8x8", 8, 4), ("scale16x16", 16, 16),
+                ("mesh32x32", 32, 132))
+# the host-simulator phase: the paper's configuration
+HOST_SIM_RATE, HOST_SIM_CYCLES = 0.02, 300
 
 
 def fail(msg: str) -> None:
@@ -214,6 +239,16 @@ def first_divergence(tr, geom, kw) -> None:
         differs=",".join(compare(kern, plain)[0]))
 
 
+def roofline(nbytes: int, ops: int, ops_per_s: float) -> tuple[float, str, int, int]:
+    """The larger of ``nbytes`` over HBM bandwidth and ``ops`` over
+    ``ops_per_s``, in ms, with which of the two it was."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", nbytes, ops
+    return t_ops, "operations", nbytes, ops
+
+
 def bound_ms(tr, kern, kw) -> tuple[float, str, int, int]:
     """Least time the card could take for one ``run_cycles`` call, the larger
     of two times. Bytes: what this run's data needs the engine to read once
@@ -246,11 +281,7 @@ def bound_ms(tr, kern, kw) -> tuple[float, str, int, int]:
     per_cycle = (30 * candp + 3 * L * (D * W + 2) + 15 * (L * W + 2 * NN)
                  + 6 * NN * QC + 8 * C)
     ops = per_cycle * T * B
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
-    if t_bytes >= t_ops:
-        return t_bytes, "bytes", nbytes, ops
-    return t_ops, "operations", nbytes, ops
+    return roofline(nbytes, ops, INT32_OPS_PER_S)
 
 
 def check_earlier(phase: str, topo: str, rate: float, algo: str,
@@ -269,10 +300,12 @@ def build_kernels() -> None:
     from repro_torch.kernels.dpm_cost import KERNEL as DPM_KERNEL
     from repro_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
     from repro_torch.kernels.noc_cycle import KERNEL
+    from repro_torch.kernels.noc_step import KERNEL as SEGMIN_KERNEL
     from repro_torch.kernels.ssd import KERNEL as SSD_KERNEL
 
     kernels = [("noc_cycle", KERNEL), ("dpm_cost", DPM_KERNEL),
-               ("flash_attention", FLASH_KERNEL), ("ssd", SSD_KERNEL)]
+               ("flash_attention", FLASH_KERNEL), ("ssd", SSD_KERNEL),
+               ("noc_step", SEGMIN_KERNEL)]
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(kernels)) as pool:
         for f in [pool.submit(k.build) for _, k in kernels]:
@@ -363,11 +396,7 @@ def dpm_bound_ms(mask, wrap: bool, weighted: bool) -> tuple[float, str, int, int
     per_node = 19 if wrap else 13
     per_pair = 3 if weighted else (12 if wrap else 6)
     ops = P * NN * per_node + dests * 6 * per_pair + P * 24 * 12
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
-    if t_bytes >= t_ops:
-        return t_bytes, "bytes", nbytes, ops
-    return t_ops, "operations", nbytes, ops
+    return roofline(nbytes, ops, INT32_OPS_PER_S)
 
 
 def sweep_requests(cfg) -> list:
@@ -693,11 +722,7 @@ def attention_bound_ms(q, k, v, window, q_offset=0) -> tuple[float, str, int, in
                                q_offset=q_offset, device=q.device).sum())
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
     ops = 4 * D * pairs * B * H
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / BF16_FLOPS_PER_S * 1e3
-    if t_bytes >= t_ops:
-        return t_bytes, "bytes", nbytes, ops
-    return t_ops, "operations", nbytes, ops
+    return roofline(nbytes, ops, BF16_FLOPS_PER_S)
 
 
 def ssd_bound_ms(x, Bm, L) -> tuple[float, str, int, int]:
@@ -718,11 +743,7 @@ def ssd_bound_ms(x, Bm, L) -> tuple[float, str, int, int]:
         ln = min(L, S - c * L)
         ops += ln * (ln + 1) // 2 * 2 * (N + P) + 2 * N * P * ln
     ops *= B_ * H
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / BF16_FLOPS_PER_S * 1e3
-    if t_bytes >= t_ops:
-        return t_bytes, "bytes", nbytes, ops
-    return t_ops, "operations", nbytes, ops
+    return roofline(nbytes, ops, BF16_FLOPS_PER_S)
 
 
 def check_attention(label, q, k, v, window, q_offset, dtype) -> dict:
@@ -811,11 +832,11 @@ def serve_kernel_alone() -> None:
     print(json.dumps(out), flush=True)
 
 
-def kernel_alone_times() -> dict:
-    """``serve_kernel_alone``'s times, from a child process of this script."""
+def kernel_alone_times(flag: str) -> dict:
+    """The profiler times a child process of this script prints when run
+    with ``flag`` (``--serve-kernel-alone``, ``--segmin-kernel-alone``)."""
     proc = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve()),
-         "--serve-kernel-alone"],
+        [sys.executable, str(Path(__file__).resolve()), flag],
         capture_output=True, text=True, timeout=300,
     )
     if proc.returncode != 0:
@@ -987,7 +1008,7 @@ def phase_serve() -> list:
 
     wmask = attention_mask(ATTN_CHECK_S, ATTN_CHECK_S, causal=True,
                            window=ww, q_offset=0, device="cuda")
-    alone_ms = kernel_alone_times()
+    alone_ms = kernel_alone_times("--serve-kernel-alone")
     entries = []
     for case, (q, k, v, w), mask in (("global", attn_calls[0], None),
                                      ("window", attn_calls[1], wmask)):
@@ -1043,6 +1064,327 @@ def phase_serve() -> list:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# the segmented-min arbitration kernel through segmin / arbitrate
+# ---------------------------------------------------------------------------
+def xsim_id_space(n: int, B: int, rng) -> tuple:
+    """Keys and segments of one arbitration round of xsim's fused link +
+    ejection id space on B instances of an n x n mesh. Per instance the
+    candidates are the 2V VC FIFO heads of every directed link, each asking
+    for an output link of the link's head router or its ejection port, and
+    the 2 NI lanes of every node, each asking for an output link of its
+    router; the segments are the directed links and one ejection port per
+    node. Keys: ~30% NOC_INF, the rest below 2^22 (as tests/test_kernels.py
+    makes them). Returns (keys, segs, L) as int32 numpy arrays."""
+    import numpy as np
+
+    from repro_torch.kernels.noc_step import NOC_INF
+    from repro_torch.noc import NoCConfig
+
+    NN = n * n
+    node = np.arange(NN)
+    x, y = node % n, node // n
+    src, dst = [], []
+    for dx, dy in ((1, 0), (-1, 0), (0, 1), (0, -1)):
+        ok = (x + dx >= 0) & (x + dx < n) & (y + dy >= 0) & (y + dy < n)
+        src.append(node[ok])
+        dst.append((y[ok] + dy) * n + x[ok] + dx)
+    src, dst = np.concatenate(src), np.concatenate(dst)
+    R = len(src)  # directed links
+    order = np.argsort(src, kind="stable")  # links grouped by router
+    deg = np.bincount(src, minlength=NN)
+    start = np.cumsum(deg) - deg
+    W = 2 * NoCConfig().vcs_per_class
+    head = np.repeat(dst, W)  # router of each VC FIFO head
+    k = (rng.random((B, R * W)) * (deg[head] + 1)).astype(np.int64)
+    vc_seg = np.where(k < deg[head],
+                      order[np.minimum(start[head] + k, R - 1)], R + head)
+    lane = np.repeat(node, 2)
+    k = (rng.random((B, 2 * NN)) * deg[lane]).astype(np.int64)
+    lane_seg = order[start[lane] + k]
+    per = R + NN
+    segs = (np.concatenate([vc_seg, lane_seg], axis=1)
+            + per * np.arange(B)[:, None]).reshape(-1).astype(np.int32)
+    N = segs.size
+    keys = rng.integers(0, 2**22, N).astype(np.int32)
+    keys[rng.random(N) < 0.3] = NOC_INF
+    return keys, segs, B * per
+
+
+def segmin_cases() -> list:
+    """The ten ``[segmin]`` cases as (name, keys, segs, L), int32 numpy,
+    each from its own seed: tests/test_kernels.py's shapes, xsim's id space
+    at the 8x8 (B = 4), 16x16 (B = 16) and 32x32 (B = 132) grids, the 16x16
+    case with 10% of entries padded (segment -1 or L, key NOC_INF), and the
+    32x32 case with every live key in 64 segments (a hot spot)."""
+    import numpy as np
+
+    from repro_torch.kernels.noc_step import NOC_INF
+
+    cases = []
+    for N, L in SEGMIN_SHAPES:
+        rng = np.random.default_rng(N * L)
+        keys = rng.integers(0, 2**22, N).astype(np.int32)
+        keys[rng.random(N) < 0.3] = NOC_INF
+        segs = rng.integers(0, L, N).astype(np.int32)
+        cases.append((f"{N}x{L}", keys, segs, L))
+    grids = {}
+    for seed, (name, n, B) in enumerate(SEGMIN_GRIDS):
+        keys, segs, L = xsim_id_space(n, B, np.random.default_rng(seed))
+        grids[name] = (keys, segs, L)
+        cases.append((f"xsim_{name}_B{B}", keys, segs, L))
+    rng = np.random.default_rng(100)
+    keys, segs, L = grids["scale16x16"]
+    keys, segs = keys.copy(), segs.copy()
+    pad = rng.random(keys.size) < 0.1
+    segs[pad] = np.where(rng.random(int(pad.sum())) < 0.5, -1, L)
+    keys[pad] = NOC_INF
+    cases.append(("xsim_scale16x16_padded", keys, segs, L))
+    keys, segs, L = grids["mesh32x32"]
+    keys, segs = keys.copy(), segs.copy()
+    live = keys < NOC_INF
+    hot = rng.choice(L, 64, replace=False).astype(np.int32)
+    segs[live] = hot[rng.integers(0, 64, int(live.sum()))]
+    cases.append(("xsim_mesh32x32_hotspot64", keys, segs, L))
+    return cases
+
+
+def segmin_bound_ms(N: int, L: int) -> tuple[float, str, int, int]:
+    """Least time the card could take for one segmented minimum: the larger
+    of keys and segments read once and the output written once (8 N + 4 L
+    bytes) over HBM bandwidth, and 5 int32 operations per candidate (the
+    key test, two range tests, the comparison, the minimum) plus one per
+    output over the int32 issue rate."""
+    nbytes = 8 * N + 4 * L
+    ops = 5 * N + L
+    return roofline(nbytes, ops, INT32_OPS_PER_S)
+
+
+def segmin_kernel_alone() -> None:
+    """``--segmin-kernel-alone``: print one JSON line with the profiler's
+    device time of one ``segmin`` call (its fill and scatter kernels) on
+    each ``[segmin]`` case. Run in a fresh process by ``phase_segmin``, as
+    ``serve_kernel_alone`` is."""
+    import torch
+
+    from repro_torch.kernels.noc_step import segmin
+
+    out = {}
+    for name, keys, segs, L in segmin_cases():
+        k, sg = torch.from_numpy(keys).cuda(), torch.from_numpy(segs).cuda()
+        out[name] = profiled_ms(lambda: segmin(k, sg, L, device="cuda"),
+                                "segmin")[0]
+    print(json.dumps(out), flush=True)
+
+
+def phase_segmin() -> list:
+    """``segmin`` and ``arbitrate`` on the card (the entry points, the launch
+    count set to 0 just before and read just after), each output held
+    against the plain version on the same CUDA tensors and on the CPU with
+    exact equality, then the times of each case. Returns the kernels-line
+    entry of ``segmented_min``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.noc_step import (
+        KERNEL as SEGMIN_KERNEL, NOC_INF, arbitrate, segmented_min_ref, segmin,
+    )
+
+    cases = segmin_cases()
+    on_card = [(name, torch.from_numpy(k).cuda(), torch.from_numpy(sg).cuda(),
+                L) for name, k, sg, L in cases]
+    rng = np.random.default_rng(9)
+    AN, AL = 777, 61
+    a_keys = rng.permutation(AN).astype(np.int32)  # unique
+    a_segs = rng.integers(0, AL, AN).astype(np.int32)
+    a_adm = rng.random(AN) < 0.4
+    a_card = [torch.from_numpy(t).cuda() for t in (a_adm, a_keys, a_segs)]
+    torch.cuda.synchronize()
+
+    # ---- the path: every case through the entry points ---------------------
+    SEGMIN_KERNEL.launches = 0
+    outs = [segmin(k, sg, L, device="cuda") for _, k, sg, L in on_card]
+    win = arbitrate(*a_card, AL, device="cuda")
+    torch.cuda.synchronize()
+    launches = SEGMIN_KERNEL.launches
+    if launches <= 0:
+        fail("segmin/arbitrate never launched the segmented_min kernel")
+    say("segmin_path", cases=len(on_card), arbitrate_cases=1,
+        launches=launches)
+
+    # ---- each output against the plain version -----------------------------
+    worst = 0.0  # the largest error measured over every case below
+    for (name, k, sg, L), got, (_, kn, sn, _) in zip(on_card, outs, cases):
+        plain = segmented_min_ref(k, sg, L)
+        host = segmin(torch.from_numpy(kn), torch.from_numpy(sn), L,
+                      device="cpu")
+        eq_p, err_p = tensor_diff(got, plain)
+        eq_h, err_h = tensor_diff(got.cpu(), host)
+        err = max(err_p, err_h)
+        worst = max(worst, err)
+        say("kernel_vs_plain", kernel="segmented_min", case=name,
+            N=k.numel(), L=L, live=int((kn < NOC_INF).sum()),
+            equal=eq_p and eq_h, max_abs_err=f"{err:.0f}")
+        if not (eq_p and eq_h):
+            fail(f"segmented_min != plain on {name}: max abs {err}")
+    want = arbitrate(*(torch.from_numpy(t) for t in (a_adm, a_keys, a_segs)),
+                     AL, device="cpu")
+    w = win.cpu()
+    eq, err = tensor_diff(w.to(torch.int32), want.to(torch.int32))
+    worst = max(worst, err)
+    wn = w.numpy()
+    mkeys = np.where(a_adm, a_keys, NOC_INF)
+    seg_min = np.full(AL, NOC_INF, np.int64)
+    np.minimum.at(seg_min, a_segs, mkeys)
+    winners = np.bincount(a_segs[wn], minlength=AL)
+    contested = np.bincount(a_segs[a_adm], minlength=AL) > 0
+    one_each = bool((winners == contested).all())
+    least = bool((mkeys[wn] == seg_min[a_segs[wn]]).all())
+    admissible = not (wn & ~a_adm).any()
+    say("kernel_vs_plain", kernel="segmented_min", case=f"arbitrate_{AN}x{AL}",
+        equal=eq, max_abs_err=f"{err:.0f}", one_winner_per_resource=one_each,
+        winner_is_admissible_min=least and admissible)
+    if not (eq and one_each and least and admissible):
+        fail("arbitrate on the card: winners differ from the plain version "
+             "or break the one-admissible-minimum rule")
+
+    # ---- times ---------------------------------------------------------------
+    alone = kernel_alone_times("--segmin-kernel-alone")
+    entry = None
+    for name, k, sg, L in on_card:
+        _, ms = median_ms(lambda: segmin(k, sg, L, device="cuda"))
+        _, p_ms = median_ms(lambda: segmented_min_ref(k, sg, L))
+        b_ms, b_by, nbytes, ops = segmin_bound_ms(k.numel(), L)
+        t_alone = alone[name]
+        say("kernel_time", kernel="segmented_min", case=name, ms=f"{ms:.4f}",
+            kernel_alone_ms="not measured" if t_alone is None
+            else f"{t_alone:.4f}", plain_ms=f"{p_ms:.4f}",
+            library_ms=f"{p_ms:.4f}", library="scatter_reduce_ amin "
+            "(= the plain version, one measurement)",
+            bound_ms=f"{b_ms:.5f}", bound_by=b_by, bytes=nbytes, ops=ops,
+            times_bound=f"{ms / b_ms:.1f}",
+            alone_times_bound="not measured" if t_alone is None
+            else f"{t_alone / b_ms:.1f}")
+        if name == "xsim_mesh32x32_B132":
+            entry = {
+                "name": "segmented_min", "route": "cuda",
+                "source": "src/repro_torch/kernels/noc_step/csrc/noc_step.cu",
+                "replaces": "src/repro/kernels/noc_step/noc_step.py:50",
+                "launches": launches, "max_abs_err": worst, "ms": ms,
+                "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": p_ms,
+            }
+    return [entry]
+
+
+# ---------------------------------------------------------------------------
+# the host NoC: WormholeSim at the paper's size, cross-checked with xsim
+# ---------------------------------------------------------------------------
+def host_delivered_sets(sim) -> dict:
+    """{pid: delivered node ids} of a finished ``WormholeSim``."""
+    return {p.pid: {sim.g.idx(c) for c in p.delivery_times}
+            for p in sim.packets}
+
+
+def same_stats(a, b) -> list[str]:
+    """Names of the ``SimStats`` fields and ``Telemetry`` arrays in which two
+    host runs differ."""
+    import dataclasses
+
+    import numpy as np
+
+    bad = [f.name for f in dataclasses.fields(a) if f.name != "telemetry"
+           and getattr(a, f.name) != getattr(b, f.name)]
+    ta, tb = a.telemetry, b.telemetry
+    for name in ("link_flits", "vc_class_flits", "occupancy_hwm",
+                 "link_conflicts", "credit_stalls"):
+        if not np.array_equal(getattr(ta, name), getattr(tb, name)):
+            bad.append(f"telemetry.{name}")
+    if not np.array_equal(ta.epoch_link_flits(), tb.epoch_link_flits()):
+        bad.append("telemetry.epoch_link_flits")
+    if not np.array_equal(ta.latency_hist.counts, tb.latency_hist.counts):
+        bad.append("telemetry.latency_hist")
+    if ta.to_dict() != tb.to_dict():
+        bad.append("telemetry.to_dict")
+    return bad
+
+
+def phase_host_sim() -> None:
+    """The paper's configuration (``NoCConfig()``: 8x8 mesh, Table I) at rate
+    0.02 for 300 injection cycles, MU and DPM: ``WormholeSim`` fed by
+    ``add_requests(device="cuda")`` (DPM planned in batches on the card by
+    ``bulk_plan``'s ``dpm_plan_exact``), ``simulate()`` (host planning) and
+    ``xsimulate(device="cuda")`` on the same workload. The two host runs
+    must give identical ``SimStats`` and ``Telemetry``; host and xsim the
+    same delivery sets, conserved counts and per-link flits, and average
+    latencies within 10%."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import arena_clear, plan_cache_clear, planner_for
+    from repro_torch.noc import (
+        NoCConfig, WormholeSim, simulate, synthetic_workload, xsimulate,
+    )
+
+    cfg = NoCConfig()
+    wl = synthetic_workload(cfg, HOST_SIM_RATE, HOST_SIM_CYCLES, seed=0)
+    algos = ("MU", "DPM")
+    t0 = time.monotonic()
+    res = xsimulate(cfg, [wl], algos, device="cuda")
+    xsim_s = time.monotonic() - t0
+    for a, algo in enumerate(algos):
+        arena_clear()
+        plan_cache_clear()
+        t0 = time.monotonic()
+        sim = WormholeSim(cfg, measure_window=(cfg.warmup, wl.horizon))
+        sim.add_requests(algo, wl.requests, device="cuda")
+        torch.cuda.synchronize()
+        admit_s = time.monotonic() - t0
+        info = planner_for(sim.g, algo, device="cuda").info()
+        if algo == "DPM" and info.batched_plans <= 0:
+            fail("WormholeSim.add_requests planned no DPM request on the card")
+        t0 = time.monotonic()
+        bulk = sim.run(wl.horizon + cfg.drain_grace, drain=True)
+        run_s = time.monotonic() - t0
+        plan_cache_clear()
+        t0 = time.monotonic()
+        host = simulate(cfg, wl, algo)
+        host_s = time.monotonic() - t0
+        bad = same_stats(bulk, host)
+        if bad:
+            fail(f"{algo}: add_requests and simulate differ in {bad}")
+        xst = res.stats(0, a)
+        checks = {
+            "delivered_sets": res.delivered_sets(0, a)
+            == host_delivered_sets(sim),
+            "flit_link_traversals": xst.flit_link_traversals
+            == host.flit_link_traversals,
+            "packets_created": xst.packets_created == host.packets_created,
+            "packets_finished": xst.packets_finished
+            == host.packets_finished,
+            "link_flits": bool(np.array_equal(res.link_utilization(0, a),
+                                              host.telemetry.link_flits)),
+            "latency_rel_0.10": abs(xst.avg_latency - host.avg_latency)
+            <= 0.10 * host.avg_latency,
+            "drained": host.packets_finished == host.packets_created
+            and res.all_drained(0, a),
+        }
+        say("host_sim", algo=algo, requests=len(wl.requests),
+            packets=host.packets_created, cycles=host.cycles,
+            avg_latency=f"{host.avg_latency:.4f}",
+            dyn_energy_pj=f"{host.dyn_energy_pj(cfg.energy):.1f}",
+            host_s=f"{host_s:.3f}", add_requests_s=f"{admit_s:.3f}",
+            run_s=f"{run_s:.3f}", batched_plans=info.batched_plans,
+            host_plans=info.host_plans, dispatches=info.dispatches,
+            add_requests_equal=True,
+            xsim_latency=f"{xst.avg_latency:.4f}", xsim_s=f"{xsim_s:.3f}",
+            p99_bucket=host.telemetry.latency_hist.quantile(0.99),
+            **{f"xsim_{k}": v for k, v in checks.items()})
+        failed = [k for k, v in checks.items() if not v]
+        if failed:
+            fail(f"{algo}: host and xsim differ in {failed}")
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the repo")
@@ -1053,6 +1395,9 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this script needs a GPU")
     if sys.argv[1:] == ["--serve-kernel-alone"]:
         serve_kernel_alone()
+        return
+    if sys.argv[1:] == ["--segmin-kernel-alone"]:
+        segmin_kernel_alone()
         return
 
     # ---- 1. environment ---------------------------------------------------
@@ -1258,7 +1603,13 @@ def main() -> None:
     # ---- 7. the ML serving path: hymba-1.5b, flash attention, SSD --------
     serve_entries = phase_serve()
 
-    # ---- 8. kernels line and result ---------------------------------------
+    # ---- 8. the segmented-min kernel through segmin / arbitrate ----------
+    segmin_entries = phase_segmin()
+
+    # ---- 9. the host NoC: WormholeSim, simulate, against xsim -------------
+    phase_host_sim()
+
+    # ---- 10. kernels line and result --------------------------------------
     if "jax" in sys.modules or "repro" in sys.modules:
         fail("the port imported jax or the reference package")
     print(json.dumps({"kernels": [{
@@ -1273,7 +1624,7 @@ def main() -> None:
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": None,
-    }] + dpm_entries + serve_entries}), flush=True)
+    }] + dpm_entries + serve_entries + segmin_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

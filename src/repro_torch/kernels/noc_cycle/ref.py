@@ -37,9 +37,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-# Sentinel above every real age key (the reference's
-# ``kernels.noc_step.noc_step.NOC_INF``); compile.py keeps keys below it.
-NOC_INF = 2**30
+# sentinel above every real age key; compile.py keeps keys below it
+from ..noc_step.noc_step import NOC_INF
 
 # counter indices (named after the SimStats fields they feed; slots_hwm is
 # xsim-only: the in-flight-worm high-water mark)

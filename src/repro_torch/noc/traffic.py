@@ -10,8 +10,7 @@ the published workload characteristics.
 
 Twin of ``repro.noc.traffic``: the generators copy the reference's
 ``random.Random(seed)`` draws exactly, so both packages build identical
-workloads. ``simulate``/``latency_vs_rate`` drive the host ``WormholeSim``
-and come with the host-NoC slice of the port.
+workloads; ``simulate``/``latency_vs_rate`` drive the host ``WormholeSim``.
 """
 from __future__ import annotations
 
@@ -22,6 +21,7 @@ from dataclasses import dataclass
 from ..core.grid import Coord
 from ..core.topology import make_topology
 from .config import NoCConfig
+from .simulator import SimStats, WormholeSim
 
 
 @dataclass
@@ -124,3 +124,53 @@ def parsec_workload(
                 dests = [rng.choice([d for d in nodes if d != src])]
             reqs.append(Request(t, src, dests))
     return Workload(benchmark, reqs, cycles)
+
+
+# ---------------------------------------------------------------------------
+# Runner
+# ---------------------------------------------------------------------------
+def simulate(
+    cfg: NoCConfig,
+    workload: Workload,
+    algo: str,
+    warmup: int | None = None,
+    drain_grace: int | None = None,
+    cost_model=None,
+) -> SimStats:
+    """Run one workload under one algorithm; measure post-warmup packets.
+
+    ``algo`` is any registered routing algorithm (``repro.core.algo``);
+    ``cost_model`` optionally overrides the objective cost-sensitive
+    algorithms plan under. ``warmup``/``drain_grace`` default from ``cfg`` —
+    NoCConfig is the single source of truth for the measurement window
+    shared with ``noc.xsim``.
+    """
+    warmup = cfg.warmup if warmup is None else warmup
+    drain_grace = cfg.drain_grace if drain_grace is None else drain_grace
+    sim = WormholeSim(cfg, measure_window=(warmup, workload.horizon))
+    for r in workload.requests:
+        sim.add_request(
+            algo, r.src, r.dests, r.time, cost_model=cost_model, flits=r.flits
+        )
+    sim.run(workload.horizon + drain_grace, drain=True)
+    return sim.stats
+
+
+def latency_vs_rate(
+    cfg: NoCConfig,
+    rates: list[float],
+    algo: str,
+    cycles: int = 1500,
+    seed: int = 0,
+    saturation_cap: float = 400.0,
+) -> list[tuple[float, float]]:
+    """Average latency per injection rate; stops once saturated (latency cap)."""
+    out = []
+    for rate in rates:
+        wl = synthetic_workload(cfg, rate, cycles, seed=seed)
+        st = simulate(cfg, wl, algo)
+        lat = st.avg_latency
+        out.append((rate, lat))
+        if lat > saturation_cap:
+            break
+    return out

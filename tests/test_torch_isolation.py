@@ -44,7 +44,11 @@ def test_importing_every_port_module_loads_neither_jax_nor_repro():
                  "repro_torch.kernels.flash_attention.flash_attention",
                  "repro_torch.kernels.ssd.ssd",
                  "repro_torch.serve.engine",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve",
+                 "repro_torch.kernels.noc_step.noc_step",
+                 "repro_torch.kernels.noc_step.ops",
+                 "repro_torch.noc.telemetry",
+                 "repro_torch.noc.simulator"):
         assert name in mods
     code = (
         "import importlib, sys\n"
