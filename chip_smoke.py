@@ -10,11 +10,14 @@ non-zero before the result line:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: the CUDA cycle kernel (``kernels/noc_cycle/csrc``), the two
-   cost-table kernels (``kernels/dpm_cost/csrc``), the flash-attention kernel
-   (``kernels/flash_attention/csrc``), the SSD intra-chunk kernel
+   cost-table kernels (``kernels/dpm_cost/csrc``), the flash-attention
+   kernels (``kernels/flash_attention/csrc``), the SSD intra-chunk kernels
    (``kernels/ssd/csrc``) and the segmented-min kernel
    (``kernels/noc_step/csrc``), one ``nvcc`` per source, all five in
-   parallel, with ptxas' register and spill report;
+   parallel; one ``[build] ptxas:`` line per compiled kernel instance
+   (registers, stack, spill stores and loads, static shared memory) and the
+   attention and SSD instances' dynamic shared memory, held equal to the
+   Python mirror that the CPU tests bound by 227 KB;
 3. kernel vs plain: on an 8x8 mesh and torus with the paper's Table I
    (``NoCConfig()`` defaults), MU and DPM at two injection rates, the kernel
    must equal the plain PyTorch cycle on every output and final plane; the
@@ -39,16 +42,28 @@ non-zero before the result line:
    seed 0, f32 parameters, bf16 activations) answers 8 requests of
    1,100-2,000 prompt tokens and 16 new tokens each through
    ``BatchServer(device="cuda")`` in 2 batches of 4; each prefill must
-   launch the flash-attention and SSD kernels once per layer (32 each), the
-   launch counts set to 0 just before and read just after. Then one batch's
-   prefill runs with f32 activations on the kernel path and on the plain
-   path (each kernel's plain version in its place), whose logits must
-   agree within 1e-3 x max |logit|; greedy tokens of the two paths are
-   printed, not asserted (random weights give near-ties). Both kernels are
-   held against their plain versions on q/k/v and SSD inputs captured from
-   a full-width prefill (B = 4, S = 2,000: a global and a window layer, a
-   q_offset case; the SSD at hymba's N = 16 and mamba2's N = 128), in bf16
-   and f32, and timed beside SDPA (attention) and their bounds;
+   launch the flash-attention and SSD kernels once per layer (32 each), and
+   by variant the bf16 tensor-core kernels (``wgmma_bf16``, ``mma_bf16``)
+   32 times each and the f32 kernels never, the launch counts set to 0 just
+   before and read just after. Then one batch's prefill runs with f32
+   activations (the f32 kernels, 32 each) and bf16 activations (the
+   tensor-core kernels) on the kernel path and on the plain path (each
+   kernel's plain version in its place); the f32 logits must agree within
+   1e-3 x max |logit|; greedy tokens of the two paths are printed, not
+   asserted (random weights give near-ties). Both kernels are held against
+   their plain versions, in bf16 and f32, on q/k/v and SSD inputs captured
+   from a full-width prefill (B = 4, S = 2,000: a global and a window
+   layer, each also cut to batch 1's 1,377 and as a 64-query q_offset
+   chunk; the SSD at hymba's N = 16 and 50 heads in one group, its last
+   chunk 208 steps) and on seeded random edge cases (a window whose rows
+   start on a fully masked key tile, Sk below one tile, D = 16, 32, 128;
+   mamba2's N = 128, two groups at N = 16, the smoke widths' P = 32 at
+   N = 32 and at N = 16 with a 100-step chunk);
+   then timed, both dtypes, beside SDPA (attention, ``vs_sdpa``) and their
+   bounds (``times_bound``), the kernel alone from a child process; and
+   one bf16 prefill at batch 0's shape split by kernel family
+   (``[prefill_split]``: attention, SSD, matrix products, the rest, and the
+   device-busy share of the wall time);
 8. segmented min: ``segmin`` and ``arbitrate`` on the card over ten cases
    (tests/test_kernels.py's shapes; xsim's fused link + ejection id space
    at the 8x8, 16x16 and 32x32 grids with B = 4, 16 and 132 instances; the
@@ -68,7 +83,8 @@ non-zero before the result line:
 
 Phases 7 and 8 read their kernels' profiler times from a child process of
 this script (``python3 chip_smoke.py --serve-kernel-alone`` and
-``--segmin-kernel-alone``).
+``--segmin-kernel-alone``), and phase 7 the split of one prefill's time by
+kernel family (``--prefill-profile``).
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -76,6 +92,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -91,8 +108,10 @@ SRC = ROOT / "src"
 # per SM x 132 SMs x 1.98 GHz boost, one operation per lane and clock)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
-# dense bf16 tensor-core peak (NVIDIA's H100 SXM data sheet)
+# dense bf16 tensor-core peak and the f32 peak outside the tensor cores
+# (NVIDIA's H100 SXM data sheet)
 BF16_FLOPS_PER_S = 989e12
+F32_FLOPS_PER_S = 67e12
 
 MAIN_RATES = (0.01, 0.02, 0.03, 0.05)
 MAIN_ALGOS = ("MU", "MP", "NMP", "DPM")
@@ -122,6 +141,21 @@ ATTN_CHECK_B, ATTN_CHECK_S = 4, 2000  # the prefill the kernels' inputs
 #                                       are captured from
 ATTN_ATOL = {"torch.bfloat16": 2e-2, "torch.float32": 1e-4}
 SSD_ATOL = {"torch.bfloat16": 1e-1, "torch.float32": 5e-4}
+# edge cases of the kernels' tiles on seeded random inputs:
+# attention (label, B, S, H, KH, D, window),
+# SSD (label, B, S, H, G, N, P, chunk)
+ATTN_EDGE_CASES = (
+    ("window_dead_first_tile", 2, 300, 4, 2, 64, 70),
+    ("sk_below_one_tile", 2, 40, 4, 2, 64, None),
+    ("d16", 2, 333, 4, 2, 16, None),
+    ("d32", 2, 333, 4, 1, 32, 100),
+    ("d128", 2, 333, 4, 2, 128, 100),
+)
+SSD_EDGE_CASES = (
+    ("groups2_n16", 2, 777, 8, 2, 16, 64, 256),
+    ("mamba2_smoke_n32_p32", 2, 100, 8, 1, 32, 32, 32),
+    ("short_chunk_n16_p32", 2, 100, 4, 1, 16, 32, 100),
+)
 # the segmented-min phase: tests/test_kernels.py's shapes (candidates,
 # segments), then xsim's fused link + ejection id space at the repo's grids
 # (name, mesh side, instances B)
@@ -314,9 +348,85 @@ def build_kernels() -> None:
     for name, k in kernels:
         say("build", library=name, seconds=f"{wall:.2f}",
             nvcc_seconds=f"{k.build_seconds:.2f}")
-        for line in k.build_log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"[build] ptxas: {line.strip()}", flush=True)
+        for kernel, report in ptxas_report(k.build_log):
+            print(f"[build] ptxas: library={name} kernel={kernel} {report}",
+                  flush=True)
+    check_smem_mirrors(FLASH_KERNEL.build(), SSD_KERNEL.build())
+
+
+def kernel_name(mangled: str) -> str:
+    """``name<args>`` of a kernel from its mangled name: the last
+    identifier of the nested name and the template arguments (``f32`` for
+    float, integers as they are)."""
+    s, p, name = mangled, 3 if mangled.startswith("_ZN") else 2, mangled
+    while p < len(s) and s[p].isdigit():
+        q = p
+        while s[q].isdigit():
+            q += 1
+        n = int(s[p:q])
+        name, p = s[q:q + n], q + n
+    if p >= len(s) or s[p] != "I":
+        return name
+    block = s[p:s.find("EEv", p) + 1]
+    args = (["f32"] if block.startswith("If") else []) + re.findall(
+        r"Li(\d+)E", block)
+    return f"{name}<{','.join(args)}>"
+
+
+def ptxas_report(log: str) -> list[tuple[str, str]]:
+    """(kernel, report) per kernel from ``nvcc -Xptxas -v``: registers,
+    stack, spill stores and loads (bytes) and static shared memory; the
+    dynamic shared memory of the attention and SSD kernels is checked and
+    printed by ``check_smem_mirrors``."""
+    out, name, frame = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = f"stack={m[1]} spill_stores={m[2]} spill_loads={m[3]}"
+            continue
+        m = re.search(r"Used (\d+) registers(.*)", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", m[2])
+            out.append((name, f"registers={m[1]} {frame} "
+                              f"static_smem={smem[1] if smem else 0}"))
+            name = None
+    return out
+
+
+def check_smem_mirrors(flash_lib, ssd_lib) -> None:
+    """Print each attention and SSD kernel instance's dynamic shared memory
+    as its library computes it, and fail if the Python mirror that the CPU
+    tests hold to the 227 KB limit says otherwise."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        HEAD_DIMS, smem_bytes as flash_smem,
+    )
+    from repro_torch.kernels.ssd.ssd import (
+        TC_MAX_CHUNK, TC_SHAPES, smem_bytes as ssd_smem,
+    )
+
+    for dtype in (torch.bfloat16, torch.float32):
+        bf16 = int(dtype == torch.bfloat16)
+        name = "flash_fwd_tc_kernel" if bf16 else "flash_fwd_kernel<f32>"
+        for D in HEAD_DIMS:
+            got = flash_lib.flash_attention_smem_bytes(bf16, D)
+            say("build", smem=f"{name}<{D}>", dynamic_smem=got)
+            if got != flash_smem(dtype, D):
+                fail(f"flash smem mirror: {got} != {flash_smem(dtype, D)}")
+        name = "ssd_intra_tc_kernel" if bf16 else "ssd_intra_kernel<f32>"
+        for N, P in TC_SHAPES:
+            args = (TC_MAX_CHUNK, N, P)
+            got = ssd_lib.ssd_intra_chunk_smem_bytes(bf16, *args)
+            say("build", smem=f"{name}<{N},{P}>", chunk=TC_MAX_CHUNK,
+                dynamic_smem=got)
+            if got != ssd_smem(dtype, *args):
+                fail(f"SSD smem mirror: {got} != {ssd_smem(dtype, *args)}")
 
 
 def profiled_ms(fn, match: str = "") -> tuple[float | None, int]:
@@ -746,11 +856,32 @@ def ssd_bound_ms(x, Bm, L) -> tuple[float, str, int, int]:
     return roofline(nbytes, ops, BF16_FLOPS_PER_S)
 
 
+def dead_first_tile_rows(Sq: int, Sk: int, window, q_offset: int) -> int:
+    """Query rows whose first walked key tile sees none of their keys, under
+    the bf16 kernel's tile walk (128-row query tiles, 64-key tiles from the
+    window's first live tile up): the rows whose -1e30 terms the online
+    softmax must cancel."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        TC_BK, TC_BQ,
+    )
+
+    n = 0
+    for q0 in range(0, Sq, TC_BQ):
+        kt0 = max(0, (q_offset + q0 - window + 1) // TC_BK) if window else 0
+        first, last = kt0 * TC_BK, kt0 * TC_BK + TC_BK - 1
+        for r in range(q0, min(q0 + TC_BQ, Sq)):
+            qp = q_offset + r
+            lo = qp - window if window else -1
+            n += last <= lo or first > min(qp, Sk - 1)
+    return n
+
+
 def check_attention(label, q, k, v, window, q_offset, dtype) -> dict:
     """The flash kernel against its plain version on the card."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_cuda, flash_attention_ref,
     )
+    from repro_torch.kernels.flash_attention.flash_attention import VARIANTS
 
     q, k, v = (t.to(dtype) for t in (q, k, v))
     kw = dict(causal=True, window=window, q_offset=q_offset)
@@ -758,9 +889,11 @@ def check_attention(label, q, k, v, window, q_offset, dtype) -> dict:
     want, p_ms = median_ms(lambda: flash_attention_ref(q, k, v, **kw))
     err = float((got.float() - want.float()).abs().max())
     atol = ATTN_ATOL[str(dtype)]
+    dead = dead_first_tile_rows(q.shape[1], k.shape[1], window, q_offset)
     say("kernel_vs_plain", kernel="flash_attention", case=label,
-        dtype=str(dtype).removeprefix("torch."), shape=tuple(q.shape),
-        kv=tuple(k.shape), window=window, q_offset=q_offset,
+        dtype=str(dtype).removeprefix("torch."), variant=VARIANTS[dtype],
+        shape=tuple(q.shape), kv=tuple(k.shape), window=window,
+        q_offset=q_offset, dead_first_tile_rows=dead,
         max_abs_err=err, atol=atol, finite=bool(got.isfinite().all()),
         kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}")
     if not err <= atol or not bool(got.isfinite().all()):
@@ -772,6 +905,7 @@ def check_ssd(label, args, dtype) -> dict:
     """The SSD intra-chunk kernel against its plain version on the card,
     all four outputs."""
     from repro_torch.kernels.ssd import ssd_intra_chunk_cuda, ssd_intra_chunk_ref
+    from repro_torch.kernels.ssd.ssd import VARIANTS
 
     x, dt, A, Bm, Cm, L = args
     x, Bm, Cm = (t.to(dtype) for t in (x, Bm, Cm))
@@ -782,9 +916,11 @@ def check_ssd(label, args, dtype) -> dict:
     err = max(errs)
     atol = SSD_ATOL[str(dtype)]
     finite = all(bool(t.isfinite().all()) for t in got)
+    S = x.shape[1]
     say("kernel_vs_plain", kernel="ssd_intra_chunk", case=label,
-        dtype=str(dtype).removeprefix("torch."), x=tuple(x.shape),
-        B=tuple(Bm.shape), chunk=L,
+        dtype=str(dtype).removeprefix("torch."), variant=VARIANTS[dtype],
+        x=tuple(x.shape), B=tuple(Bm.shape), chunk=L,
+        last_chunk_steps=S - (-(-S // L) - 1) * L,
         max_abs_err_y_sc_dec_cum=",".join(f"{e:.3g}" for e in errs),
         max_abs_err=err, atol=atol, finite=finite,
         kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}")
@@ -813,35 +949,118 @@ def serve_kernel_alone() -> None:
     randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
     hy, mb = ARCHS["hymba-1.5b"], ARCHS["mamba2-1.3b"]
     B, S = ATTN_CHECK_B, ATTN_CHECK_S
-    q = randn(B, S, hy.n_heads, hy.head_dim).bfloat16()
-    k, v = (randn(B, S, hy.n_kv_heads, hy.head_dim).bfloat16()
-            for _ in range(2))
     out = {}
-    for case, w in (("global", None), ("window", hy.window)):
-        out[f"flash_attention/{case}"] = profiled_ms(
-            lambda: flash_attention_cuda(q, k, v, window=w), "flash_fwd")[0]
-    for case, cfg in (("hymba", hy), ("mamba2", mb)):
-        H, N, P = cfg.ssm.n_heads(cfg.d_model), cfg.ssm.d_state, cfg.ssm.head_dim
-        x = randn(B, S, H, P).bfloat16()
-        dt = F.softplus(randn(B, S, H) - 2.0)
-        A = -torch.exp(randn(H))
-        Bm, Cm = (randn(B, S, 1, N).bfloat16() for _ in range(2))
-        out[f"ssd_intra_chunk/{case}"] = profiled_ms(
-            lambda: ssd_intra_chunk_cuda(x, dt, A, Bm, Cm, cfg.ssm.chunk),
-            "ssd_intra")[0]
+    # each dtype's own kernel: flash_fwd_tc_kernel / flash_fwd_kernel,
+    # ssd_intra_tc_kernel / ssd_intra_kernel
+    for dtype, tc in ((torch.bfloat16, "_tc"), (torch.float32, "")):
+        dt_name = str(dtype).removeprefix("torch.")
+        q = randn(B, S, hy.n_heads, hy.head_dim).to(dtype)
+        k, v = (randn(B, S, hy.n_kv_heads, hy.head_dim).to(dtype)
+                for _ in range(2))
+        for case, w in (("global", None), ("window", hy.window)):
+            out[f"flash_attention/{case}/{dt_name}"] = profiled_ms(
+                lambda: flash_attention_cuda(q, k, v, window=w),
+                f"flash_fwd{tc}_kernel")[0]
+        for case, cfg in (("hymba", hy), ("mamba2", mb)):
+            H = cfg.ssm.n_heads(cfg.d_model)
+            N, P = cfg.ssm.d_state, cfg.ssm.head_dim
+            x = randn(B, S, H, P).to(dtype)
+            dt = F.softplus(randn(B, S, H) - 2.0)
+            A = -torch.exp(randn(H))
+            Bm, Cm = (randn(B, S, 1, N).to(dtype) for _ in range(2))
+            out[f"ssd_intra_chunk/{case}/{dt_name}"] = profiled_ms(
+                lambda: ssd_intra_chunk_cuda(x, dt, A, Bm, Cm,
+                                             cfg.ssm.chunk),
+                f"ssd_intra{tc}_kernel")[0]
     print(json.dumps(out), flush=True)
 
 
-def kernel_alone_times(flag: str) -> dict:
-    """The profiler times a child process of this script prints when run
-    with ``flag`` (``--serve-kernel-alone``, ``--segmin-kernel-alone``)."""
+def prefill_profile() -> None:
+    """``--prefill-profile``: print one JSON line with where one bf16
+    prefill of hymba-1.5b at batch 0's shape (B = 4, S = 1,866, random
+    weights) spends its time, from ``torch.profiler`` in a fresh process:
+    the wall time, the device-busy time (the sum of the kernels' device
+    time), each kernel family's time and launches (the port's attention and
+    SSD kernels, matrix products, the rest) and the largest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import RunConfig, model_init, prefill
+
+    cfg, run = ARCHS["hymba-1.5b"], RunConfig()
+    params = model_init(0, cfg, run, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    toks = torch.randint(0, cfg.vocab, (SERVE_MAX_BATCH, 1866),
+                         generator=gen, device="cuda", dtype=torch.int32)
+    prefill(params, {"tokens": toks}, cfg, run)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        prefill(params, {"tokens": toks}, cfg, run)
+        torch.cuda.synchronize()
+        wall = (time.monotonic() - t0) * 1e3
+    rows = [(e.key, e.device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+    families = {"flash_attention": ("flash_fwd",),
+                "ssd_intra_chunk": ("ssd_intra",),
+                "matmul": ("gemm", "nvjet", "xmma", "cutlass", "splitK")}
+    split = {f: [0.0, 0] for f in (*families, "other")}
+    for key, ms, n in rows:
+        fam = next((f for f, subs in families.items()
+                    if any(x in key for x in subs)), "other")
+        split[fam][0] += ms
+        split[fam][1] += n
+    top = sorted(rows, key=lambda r: -r[1])[:8]
+    print(json.dumps({
+        "wall_ms": wall, "device_busy_ms": sum(r[1] for r in rows),
+        "split": {f: {"ms": v[0], "launches": v[1]} for f, v in split.items()},
+        "top": [{"kernel": k[:90], "ms": ms, "launches": n}
+                for k, ms, n in top]}), flush=True)
+
+
+def child_json(flag: str) -> dict:
+    """The JSON line a child process of this script prints when run with
+    ``flag`` (``--serve-kernel-alone``, ``--segmin-kernel-alone``,
+    ``--prefill-profile``): profiler times taken in a fresh process."""
     proc = subprocess.run(
         [sys.executable, str(Path(__file__).resolve()), flag],
         capture_output=True, text=True, timeout=300,
     )
     if proc.returncode != 0:
-        fail(f"the kernel-alone child failed:\n{proc.stderr[-2000:]}")
+        fail(f"the child {flag} failed:\n{proc.stderr[-2000:]}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def variant_counts() -> dict:
+    """Launches of each kernel of the attention and SSD wrappers, by
+    ``kernel/variant`` (the bf16 tensor-core kernels and the f32 ones)."""
+    from repro_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
+    from repro_torch.kernels.ssd import KERNEL as SSD_KERNEL
+
+    return {f"{name}/{v}": n
+            for name, k in (("flash_attention", FLASH_KERNEL),
+                            ("ssd_intra_chunk", SSD_KERNEL))
+            for v, n in k.variant_launches.items()}
+
+
+def variant_delta(before: dict) -> dict:
+    return {k: n - before[k] for k, n in variant_counts().items()}
+
+
+def expect_variants(where: str, delta: dict, dtype: str, layers: int) -> None:
+    """Fail unless a prefill in ``dtype`` launched each kernel of that
+    dtype once per layer and the other dtype's kernels never."""
+    tc = dtype == "bfloat16"
+    want = {"flash_attention/wgmma_bf16": layers if tc else 0,
+            "flash_attention/cuda_core_f32": 0 if tc else layers,
+            "ssd_intra_chunk/mma_bf16": layers if tc else 0,
+            "ssd_intra_chunk/cuda_core_f32": 0 if tc else layers}
+    if delta != want:
+        fail(f"{where}: kernel variants launched {delta}, expected {want}")
 
 
 def phase_serve() -> list:
@@ -883,31 +1102,38 @@ def phase_serve() -> list:
     for r in reqs:
         server.submit(r)
     FLASH_KERNEL.launches = SSD_KERNEL.launches = 0
+    for k in (FLASH_KERNEL, SSD_KERNEL):
+        k.variant_launches = dict.fromkeys(k.variant_launches, 0)
     t0 = time.monotonic()
     responses, per_batch = [], []
     while len(responses) < len(reqs):
         f0, s0 = FLASH_KERNEL.launches, SSD_KERNEL.launches
+        v0 = variant_counts()
         out = server.serve_once()
         torch.cuda.synchronize()
         res = server.last_result
         per_batch.append((len(out), res, FLASH_KERNEL.launches - f0,
                           SSD_KERNEL.launches - s0,
-                          max(len(reqs[o.rid].prompt) for o in out)))
+                          max(len(reqs[o.rid].prompt) for o in out),
+                          variant_delta(v0)))
         responses += out
     serve_s = time.monotonic() - t0
     launches = {"flash_attention": FLASH_KERNEL.launches,
                 "ssd_intra_chunk": SSD_KERNEL.launches}
-    for i, (n, res, fl, sl, S) in enumerate(per_batch):
+    for i, (n, res, fl, sl, S, var) in enumerate(per_batch):
         B = res.tokens.shape[0]
         say("serve", batch=i, requests=n, prompt_len=S,
             prefill_ms=f"{res.prefill_ms:.2f}",
             prefill_tokens_per_s=f"{B * S / res.prefill_ms * 1e3:.0f}",
             decode_ms_per_token=f"{res.decode_ms_per_token:.3f}",
             decode_tokens_per_s=f"{B / res.decode_ms_per_token * 1e3:.1f}",
-            flash_launches=fl, ssd_launches=sl)
+            flash_launches=fl, ssd_launches=sl,
+            variants=",".join(f"{k}:{v}" for k, v in var.items()))
         if fl != cfg.n_layers or sl != cfg.n_layers:
             fail(f"batch {i}: {fl} flash and {sl} SSD launches per prefill, "
                  f"expected {cfg.n_layers} each")
+        expect_variants(f"batch {i}", var, run.activations_dtype,
+                        cfg.n_layers)
     bad = [o.rid for o in responses
            if o.tokens.shape != (SERVE_MAX_TOKENS,)
            or not ((0 <= o.tokens) & (o.tokens < cfg.vocab)).all()]
@@ -937,7 +1163,10 @@ def phase_serve() -> list:
     toks = torch.from_numpy(prompts).cuda()
     for act in ("float32", "bfloat16"):
         r = RunConfig(activations_dtype=act)
+        v0 = variant_counts()
         lk, _ = prefill(params, {"tokens": toks}, cfg, r)
+        var = variant_delta(v0)
+        expect_variants(f"{act} prefill", var, act, cfg.n_layers)
         with plain_path():
             f0 = FLASH_KERNEL.launches + SSD_KERNEL.launches
             lp, _ = prefill(params, {"tokens": toks}, cfg, r)
@@ -951,7 +1180,8 @@ def phase_serve() -> list:
             max_abs_logit_diff=diff, max_abs_logit=scale,
             ratio=f"{diff / scale:.3g}",
             bound="1e-3" if act == "float32" else "not asserted",
-            finite=finite)
+            finite=finite,
+            variants=",".join(f"{k}:{v}" for k, v in var.items() if v))
         if not finite or (act == "float32" and not diff <= 1e-3 * scale):
             fail(f"{act} logits: kernel path vs plain path {diff} > "
                  f"1e-3 x {scale}")
@@ -981,10 +1211,22 @@ def phase_serve() -> list:
         attn["window", dtype] = check_attention("hymba_w", qw, kw_, vw, ww,
                                                 0, dtype)
         off = ATTN_CHECK_S - 64
+        ragged = int(lens[SERVE_MAX_BATCH:].max())  # batch 1's length
         for lab, (q, k, v, w) in (("hymba_g", attn_calls[0]),
                                   ("hymba_w", attn_calls[1])):
             check_attention(f"{lab}_q_offset", q[:, off:], k, v, w, off,
                             dtype)
+            check_attention(f"{lab}_S{ragged}", q[:, :ragged], k[:, :ragged],
+                            v[:, :ragged], w, 0, dtype)
+    edge = torch.Generator(device="cuda").manual_seed(1)
+    for lab, B_, S_, H_, KH_, D_, w in ATTN_EDGE_CASES:
+        q, k, v = (torch.randn((B_, S_, h, D_), generator=edge, device="cuda")
+                   for h in (H_, KH_, KH_))
+        if lab == "window_dead_first_tile" and not dead_first_tile_rows(
+                S_, S_, w, 0):
+            fail(f"{lab}: no row has a fully masked first key tile")
+        for dtype in (torch.bfloat16, torch.float32):
+            check_attention(lab, q, k, v, w, 0, dtype)
     ssd = {}
     for dtype in (torch.bfloat16, torch.float32):
         ssd["hymba", dtype] = check_ssd("hymba", scan_calls[0], dtype)
@@ -999,6 +1241,12 @@ def phase_serve() -> list:
                   randn(B_, S_, 1, N), L)
     for dtype in (torch.bfloat16, torch.float32):
         ssd["mamba2", dtype] = check_ssd("mamba2", mamba_args, dtype)
+    for lab, B_, S_, H_, G_, N_, P_, L_ in SSD_EDGE_CASES:
+        args = (randn(B_, S_, H_, P_), F.softplus(randn(B_, S_, H_) - 2.0),
+                -torch.exp(randn(H_)), randn(B_, S_, G_, N_),
+                randn(B_, S_, G_, N_), L_)
+        for dtype in (torch.bfloat16, torch.float32):
+            check_ssd(lab, args, dtype)
 
     # times: kernel alone (profiler), library yardstick, bound
     def sdpa(q, k, v, mask=None):
@@ -1008,59 +1256,101 @@ def phase_serve() -> list:
 
     wmask = attention_mask(ATTN_CHECK_S, ATTN_CHECK_S, causal=True,
                            window=ww, q_offset=0, device="cuda")
-    alone_ms = kernel_alone_times("--serve-kernel-alone")
+    alone_ms = child_json("--serve-kernel-alone")
+    split = child_json("--prefill-profile")
+    say("prefill_split", arch=cfg.name, batch=SERVE_MAX_BATCH, prompt_len=1866,
+        activations=run.activations_dtype,
+        wall_ms=f"{split['wall_ms']:.2f}",
+        device_busy_ms=f"{split['device_busy_ms']:.2f}",
+        device_busy_share=f"{split['device_busy_ms'] / split['wall_ms']:.3f}",
+        **{f"{f}_ms": f"{v['ms']:.3f}" for f, v in split["split"].items()},
+        **{f"{f}_launches": v["launches"]
+           for f, v in split["split"].items()})
+    for row in split["top"]:
+        say("prefill_split", top_kernel=repr(row["kernel"]),
+            ms=f"{row['ms']:.3f}", launches=row["launches"])
     entries = []
+
+    def alone_fields(alone, b_ms, b32_ms):
+        """The kernel-alone time and its multiple of the bound(s)."""
+        if alone is None:
+            return dict(kernel_alone_ms="not measured")
+        out = dict(kernel_alone_ms=f"{alone:.4f}",
+                   alone_times_bound=f"{alone / b_ms:.2f}")
+        if b32_ms is not None:
+            out["alone_times_f32_core_bound"] = f"{alone / b32_ms:.2f}"
+        return out
+
     for case, (q, k, v, w), mask in (("global", attn_calls[0], None),
                                      ("window", attn_calls[1], wmask)):
-        (lib_out, lib_ms) = median_ms(lambda: sdpa(q, k, v, mask))
-        alone = alone_ms[f"flash_attention/{case}"]
-        b_ms, b_by, nbytes, ops = attention_bound_ms(q, k, v, w)
-        t = attn[case, torch.bfloat16]
-        lib_err = float((lib_out.transpose(1, 2).float()
-                         - flash_attention_cuda(q, k, v, window=w).float())
-                        .abs().max())
-        say("kernel_time", kernel="flash_attention", case=case,
-            dtype="bfloat16", ms=f"{t['ms']:.4f}",
-            kernel_alone_ms="not measured" if alone is None
-            else f"{alone:.4f}", plain_ms=f"{t['plain_ms']:.4f}",
-            sdpa_ms=f"{lib_ms:.4f}", sdpa_vs_kernel_max_abs=f"{lib_err:.3g}",
-            bound_ms=f"{b_ms:.5f}", bound_by=b_by, bytes=nbytes, ops=ops,
-            times_bound=f"{t['ms'] / b_ms:.1f}",
-            f32_ms=f"{attn[case, torch.float32]['ms']:.4f}")
-        if case == "global":
-            entries.append({
-                "name": "flash_attention", "route": "cuda",
-                "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                          "flash_attention.cu",
-                "replaces": "src/repro/kernels/flash_attention/"
-                            "flash_attention.py:95",
-                "launches": launches["flash_attention"],
-                "max_abs_err": max(v["err"] for v in attn.values()),
-                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": lib_ms,
-            })
+        for dtype in (torch.bfloat16, torch.float32):
+            dt_name = str(dtype).removeprefix("torch.")
+            qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+            lib_out, lib_ms = median_ms(lambda: sdpa(qd, kd, vd, mask))
+            alone = alone_ms[f"flash_attention/{case}/{dt_name}"]
+            b_ms, b_by, nbytes, ops = attention_bound_ms(qd, kd, vd, w)
+            # the f32 kernel computes on the CUDA cores: its operations
+            # over their f32 peak, beside the bf16 tensor-core bound
+            b32_ms = (max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S)
+                      * 1e3 if dtype == torch.float32 else None)
+            t = attn[case, dtype]
+            lib_err = float((lib_out.transpose(1, 2).float()
+                             - flash_attention_cuda(qd, kd, vd, window=w)
+                             .float()).abs().max())
+            say("kernel_time", kernel="flash_attention", case=case,
+                dtype=dt_name, ms=f"{t['ms']:.4f}",
+                **alone_fields(alone, b_ms, b32_ms),
+                plain_ms=f"{t['plain_ms']:.4f}", sdpa_ms=f"{lib_ms:.4f}",
+                vs_sdpa=f"{t['ms'] / lib_ms:.3f}",
+                alone_vs_sdpa="not measured" if alone is None
+                else f"{alone / lib_ms:.3f}",
+                sdpa_vs_kernel_max_abs=f"{lib_err:.3g}",
+                bound_ms=f"{b_ms:.5f}", bound_by=b_by, bytes=nbytes, ops=ops,
+                times_bound=f"{t['ms'] / b_ms:.1f}",
+                **({} if b32_ms is None
+                   else {"f32_core_bound_ms": f"{b32_ms:.5f}"}))
+            if case == "global" and dtype == torch.bfloat16:
+                entries.append({
+                    "name": "flash_attention", "route": "cuda",
+                    "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                              "flash_attention.cu",
+                    "replaces": "src/repro/kernels/flash_attention/"
+                                "flash_attention.py:95",
+                    "launches": launches["flash_attention"],
+                    "max_abs_err": max(v["err"] for v in attn.values()),
+                    "ms": t["ms"], "plain_ms": t["plain_ms"],
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                })
     for case, args in (("hymba", scan_calls[0]), ("mamba2", mamba_args)):
         x, _, _, Bm, _, L = args
-        t = ssd[case, torch.bfloat16]
-        alone = alone_ms[f"ssd_intra_chunk/{case}"]
-        b_ms, b_by, nbytes, ops = ssd_bound_ms(x.bfloat16(), Bm.bfloat16(), L)
-        say("kernel_time", kernel="ssd_intra_chunk", case=case,
-            dtype="bfloat16", ms=f"{t['ms']:.4f}",
-            kernel_alone_ms="not measured" if alone is None
-            else f"{alone:.4f}", plain_ms=f"{t['plain_ms']:.4f}",
-            library_ms="none", bound_ms=f"{b_ms:.5f}", bound_by=b_by,
-            bytes=nbytes, ops=ops, times_bound=f"{t['ms'] / b_ms:.1f}")
-        if case == "hymba":
-            entries.append({
-                "name": "ssd_intra_chunk", "route": "cuda",
-                "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
-                "replaces": "src/repro/kernels/ssd/ssd.py:68",
-                "launches": launches["ssd_intra_chunk"],
-                "max_abs_err": max(ssd["hymba", d]["err"]
-                                   for d in (torch.bfloat16, torch.float32)),
-                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": None,
-            })
+        for dtype in (torch.bfloat16, torch.float32):
+            dt_name = str(dtype).removeprefix("torch.")
+            t = ssd[case, dtype]
+            alone = alone_ms[f"ssd_intra_chunk/{case}/{dt_name}"]
+            b_ms, b_by, nbytes, ops = ssd_bound_ms(x.to(dtype), Bm.to(dtype),
+                                                   L)
+            b32_ms = (max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S)
+                      * 1e3 if dtype == torch.float32 else None)
+            say("kernel_time", kernel="ssd_intra_chunk", case=case,
+                dtype=dt_name, ms=f"{t['ms']:.4f}",
+                **alone_fields(alone, b_ms, b32_ms),
+                plain_ms=f"{t['plain_ms']:.4f}", library_ms="none",
+                bound_ms=f"{b_ms:.5f}", bound_by=b_by, bytes=nbytes, ops=ops,
+                times_bound=f"{t['ms'] / b_ms:.1f}",
+                **({} if b32_ms is None
+                   else {"f32_core_bound_ms": f"{b32_ms:.5f}"}))
+            if case == "hymba" and dtype == torch.bfloat16:
+                entries.append({
+                    "name": "ssd_intra_chunk", "route": "cuda",
+                    "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+                    "replaces": "src/repro/kernels/ssd/ssd.py:68",
+                    "launches": launches["ssd_intra_chunk"],
+                    "max_abs_err": max(ssd["hymba", d]["err"]
+                                       for d in (torch.bfloat16,
+                                                 torch.float32)),
+                    "ms": t["ms"], "plain_ms": t["plain_ms"],
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                })
     return entries
 
 
@@ -1249,7 +1539,7 @@ def phase_segmin() -> list:
              "or break the one-admissible-minimum rule")
 
     # ---- times ---------------------------------------------------------------
-    alone = kernel_alone_times("--segmin-kernel-alone")
+    alone = child_json("--segmin-kernel-alone")
     entry = None
     for name, k, sg, L in on_card:
         _, ms = median_ms(lambda: segmin(k, sg, L, device="cuda"))
@@ -1395,6 +1685,9 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this script needs a GPU")
     if sys.argv[1:] == ["--serve-kernel-alone"]:
         serve_kernel_alone()
+        return
+    if sys.argv[1:] == ["--prefill-profile"]:
+        prefill_profile()
         return
     if sys.argv[1:] == ["--segmin-kernel-alone"]:
         segmin_kernel_alone()

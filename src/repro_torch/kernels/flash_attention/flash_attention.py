@@ -1,14 +1,19 @@
-"""Loader and wrapper of the CUDA flash-attention kernel
+"""Loader and wrapper of the CUDA flash-attention kernels
 (``csrc/flash_attention.cu``).
 
-Replaces the reference's Pallas kernel
+Replace the reference's Pallas kernel
 ``repro.kernels.flash_attention.flash_attention.flash_attention_bhsd``:
 causal GQA attention (KV head ``h // G``) with an optional sliding
-``window`` and a ``q_offset``, f32 inside, output in ``q.dtype``. The kernel
-reads the model layout ``(B, S, H, D)`` through strides, so the reference
-wrapper's transposes are gone. The library is built at first use
-(``kernels.build``); ``flash_attention_cuda`` takes CUDA tensors only and
-``KERNEL.launches`` counts its launches.
+``window`` and a ``q_offset``, f32 softmax inside, output in ``q.dtype``.
+Two kernels, chosen by the input type (``VARIANTS``): bf16 inputs run the
+Hopper kernel (wgmma on the tensor cores, K/V tiles by TMA), f32 inputs the
+CUDA-core kernel in f32. Both read the model layout ``(B, S, H, D)`` through
+strides, so the reference wrapper's transposes are gone; the TMA maps of
+the bf16 kernel need 16-byte aligned tensors whose strides are multiples of
+8 elements, and the wrapper raises on any other. The library is built at
+first use (``kernels.build``); ``flash_attention_cuda`` takes CUDA tensors
+only. ``KERNEL.launches`` counts its launches, ``KERNEL.variant_launches``
+each kernel's.
 """
 from __future__ import annotations
 
@@ -22,14 +27,30 @@ from ..build import CudaLibrary, check_tensor
 _SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
+# the kernel each input type runs
+VARIANTS = {torch.bfloat16: "wgmma_bf16", torch.float32: "cuda_core_f32"}
+# the bf16 kernel's tiles: query rows per block, keys per K/V tile
+TC_BQ, TC_BK = 128, 64
+
+
+def smem_bytes(dtype: torch.dtype, D: int) -> int:
+    """Dynamic shared memory of one block of ``dtype``'s kernel at head dim
+    ``D``, as ``flash_attention_smem_bytes`` in the source computes it. bf16:
+    1 KB to align the swizzled tiles, the Q tile, 3 stages of K and V (2 at
+    D = 128) and the mbarriers; f32: the Q, K^T, V and P tiles of 64 rows."""
+    if dtype == torch.bfloat16:
+        stages = 2 if D == 128 else 3
+        return 1024 + TC_BQ * D * 2 + stages * 2 * TC_BK * D * 2 + 128
+    return 4 * (64 * D + D * 65 + 64 * D + 64 * 64)
 
 
 class FlashAttentionKernel(CudaLibrary):
-    """The built library, its build report and the launch counter."""
+    """The built library, its build report and the launch counters."""
 
     def __init__(self):
         super().__init__("flash_attention", _SRC)
         self.launches = 0
+        self.variant_launches = dict.fromkeys(VARIANTS.values(), 0)
 
     def bind(self, lib: ctypes.CDLL) -> None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -37,6 +58,8 @@ class FlashAttentionKernel(CudaLibrary):
             [p] * 4 + [i] * 7 + [ll] * 9 + [i] * 3 + [ctypes.c_float, p]
         )
         lib.flash_attention_launch.restype = ctypes.c_int
+        lib.flash_attention_smem_bytes.argtypes = [i, i]
+        lib.flash_attention_smem_bytes.restype = ctypes.c_int
 
 
 KERNEL = FlashAttentionKernel()
@@ -60,6 +83,21 @@ def _check(q, k, v) -> None:
     for name, t, shape in (("q", q, (B, Sq, H, D)), ("k", k, (B, Sk, KH, D)),
                            ("v", v, (B, Sk, KH, D))):
         check_tensor(name, t, q.dtype, shape, q.device, strided=True)
+        if q.dtype == torch.bfloat16:
+            check_tma(name, t)
+
+
+def check_tma(name: str, t: torch.Tensor) -> None:
+    """Raise unless TMA can read ``t`` (bf16, last dim contiguous): a base
+    address aligned to 16 bytes, batch, sequence and head strides that are
+    multiples of 8 elements (16 bytes)."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}'s data is not 16-byte aligned, which the "
+                         "TMA loads of the bf16 kernel need")
+    bad = [st for st in t.stride()[:3] if st % 8]
+    if bad:
+        raise ValueError(f"{name} has strides {tuple(t.stride())}: the TMA "
+                         "loads of the bf16 kernel need multiples of 8")
 
 
 def flash_attention_cuda(
@@ -95,4 +133,5 @@ def flash_attention_cuda(
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError {err}")
     KERNEL.launches += 1
+    KERNEL.variant_launches[VARIANTS[q.dtype]] += 1
     return out

@@ -1,12 +1,18 @@
-"""Loader and wrapper of the CUDA SSD intra-chunk kernel (``csrc/ssd.cu``).
+"""Loader and wrapper of the CUDA SSD intra-chunk kernels (``csrc/ssd.cu``).
 
-Replaces the reference's Pallas kernel ``repro.kernels.ssd.ssd.
-ssd_intra_chunk``. The kernel reads the model layout through strides (x
-``(B, S, H, P)``, dt ``(B, S, H)``, Bm and Cm ``(B, S, G, N)``; head ``h``
-reads group ``h // (H / G)``), pads the sequence to whole chunks itself and
-writes the outputs of ``ref.ssd_intra_chunk_ref``. The library is built at
-first use (``kernels.build``); ``ssd_intra_chunk_cuda`` takes CUDA tensors
-only and ``KERNEL.launches`` counts its launches.
+Replace the reference's Pallas kernel ``repro.kernels.ssd.ssd.
+ssd_intra_chunk``. Two kernels, chosen by the input type (``VARIANTS``):
+bf16 x, Bm and Cm run the tensor-core kernel (mma.sync tiles, the chunk
+resident in shared memory; (N, P) in ``TC_SHAPES``, chunks of at most
+``TC_MAX_CHUNK`` steps, 16-byte aligned rows), f32 inputs the CUDA-core
+kernel; the wrapper raises on what its kernel does not take. Both read the
+model layout through strides (x ``(B, S, H, P)``, dt ``(B, S, H)``, Bm and
+Cm ``(B, S, G, N)``; head ``h`` reads group ``h // (H / G)``), pad the
+sequence to whole chunks themselves and write the outputs of
+``ref.ssd_intra_chunk_ref``. The library is built at first use
+(``kernels.build``); ``ssd_intra_chunk_cuda`` takes CUDA tensors only.
+``KERNEL.launches`` counts its launches, ``KERNEL.variant_launches`` each
+kernel's.
 """
 from __future__ import annotations
 
@@ -19,16 +25,35 @@ from ..build import CudaLibrary, check_tensor
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
 DTYPES = (torch.float32, torch.bfloat16)
+# the kernel each input type runs
+VARIANTS = {torch.bfloat16: "mma_bf16", torch.float32: "cuda_core_f32"}
+# the (state N, head dim P) the bf16 kernel is built for: those of the
+# port's models (hymba and mamba2, full and smoke width)
+TC_SHAPES = ((16, 32), (32, 32), (16, 64), (128, 64))
+TC_MAX_CHUNK = 256
 # dynamic shared memory a block may use on an H100 (227 KB)
 MAX_SMEM = 232_448
 
 
+def smem_bytes(dtype: torch.dtype, L: int, N: int, P: int) -> int:
+    """Shared memory of one block of ``dtype``'s kernel, as
+    ``ssd_intra_chunk_smem_bytes`` in the source computes it. bf16: the
+    chunk's C, B (rows of N + 8) and X (rows of P + 8) in bf16 over L
+    rounded up to 16, cum, dt and w in f32, 8 warp sums; f32: the streamed
+    64-row tiles, the output tile and the state in f32."""
+    if dtype == torch.bfloat16:
+        Lp = -(-L // 16) * 16
+        return Lp * (2 * (N + 8) + (P + 8)) * 2 + 3 * Lp * 4 + 8 * 4
+    return 4 * (3 * L + 64 * N + N * 65 + 64 * P + 64 * 64 + 64 * P + N * P)
+
+
 class SsdKernel(CudaLibrary):
-    """The built library, its build report and the launch counter."""
+    """The built library, its build report and the launch counters."""
 
     def __init__(self):
         super().__init__("ssd", _SRC)
         self.launches = 0
+        self.variant_launches = dict.fromkeys(VARIANTS.values(), 0)
 
     def bind(self, lib: ctypes.CDLL) -> None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -36,7 +61,7 @@ class SsdKernel(CudaLibrary):
             [p] * 9 + [i] * 9 + [ll] * 12 + [p]
         )
         lib.ssd_intra_chunk_launch.restype = ctypes.c_int
-        lib.ssd_intra_chunk_smem_bytes.argtypes = [i] * 3
+        lib.ssd_intra_chunk_smem_bytes.argtypes = [i] * 4
         lib.ssd_intra_chunk_smem_bytes.restype = ctypes.c_size_t
 
 
@@ -62,6 +87,16 @@ def _check(x, dt, A, Bm, Cm) -> None:
     check_tensor("A", A, f32, (H,), dev)
     check_tensor("Bm", Bm, x.dtype, (B_, S, G, N), dev, strided=True)
     check_tensor("Cm", Cm, x.dtype, (B_, S, G, N), dev, strided=True)
+    if x.dtype == torch.bfloat16:
+        if (N, P) not in TC_SHAPES:
+            raise ValueError(f"the bf16 kernel takes (N, P) in {TC_SHAPES}, "
+                             f"got ({N}, {P})")
+        for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
+            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+                raise ValueError(
+                    f"{name} (strides {tuple(t.stride())}) must be 16-byte "
+                    "aligned with strides in multiples of 8 for the bf16 "
+                    "kernel's 16-byte copies")
 
 
 def ssd_intra_chunk_cuda(x, dt, A, Bm, Cm, chunk: int):
@@ -74,8 +109,12 @@ def ssd_intra_chunk_cuda(x, dt, A, Bm, Cm, chunk: int):
     G, N = Bm.shape[2], Bm.shape[3]
     L = chunk
     nc = -(-S // L)
+    bf16 = x.dtype == torch.bfloat16
+    if bf16 and L > TC_MAX_CHUNK:
+        raise ValueError(f"the bf16 kernel takes chunks of at most "
+                         f"{TC_MAX_CHUNK} steps, got {L}")
     lib = KERNEL.build()
-    smem = lib.ssd_intra_chunk_smem_bytes(L, N, P)
+    smem = lib.ssd_intra_chunk_smem_bytes(int(bf16), L, N, P)
     if smem > MAX_SMEM:
         raise ValueError(f"L={L}, N={N}, P={P} needs {smem} bytes of shared "
                          f"memory, over {MAX_SMEM}")
@@ -92,7 +131,7 @@ def ssd_intra_chunk_cuda(x, dt, A, Bm, Cm, chunk: int):
         err = lib.ssd_intra_chunk_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), y.data_ptr(), sc.data_ptr(), dec.data_ptr(),
-            cum.data_ptr(), int(x.dtype == torch.bfloat16), B_, S, H, G, N,
+            cum.data_ptr(), int(bf16), B_, S, H, G, N,
             P, L, nc, *x.stride()[:3], *dt.stride(), *Bm.stride()[:3],
             *Cm.stride()[:3], stream,
         )
@@ -100,4 +139,5 @@ def ssd_intra_chunk_cuda(x, dt, A, Bm, Cm, chunk: int):
         raise RuntimeError(f"ssd_intra_chunk kernel launch failed: "
                            f"cudaError {err}")
     KERNEL.launches += 1
+    KERNEL.variant_launches[VARIANTS[x.dtype]] += 1
     return y, sc, dec, cum

@@ -5,14 +5,21 @@ reference's Pallas flash kernel in interpret mode and its jnp oracle
 ``q_offset`` case.
 
 On the CPU ``flash_attention`` runs the plain version, the function the
-CUDA kernel is held to on the card. Tolerances are the reference's own
+CUDA kernels are held to on the card. Tolerances are the reference's own
 (``test_kernels.py``): f32 atol 2e-5, bf16 atol 2e-2. Inputs are drawn with
 numpy and cast to bf16 by both frameworks (round to nearest even).
+
+The bf16 tensor-core kernel's arithmetic (128-row query tiles walking
+64-key tiles in ascending order, exp2, P rounded to bf16 before P V) is
+emulated here, not in the package, and held to the JAX oracle at the chip's
+bf16 tolerance on its edge cases; each kernel instance's shared memory is
+held to the 227 KB a block may use.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import attention_ref
@@ -22,6 +29,14 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_cuda,
     flash_attention_ref,
 )
+from repro_torch.kernels.flash_attention.flash_attention import (
+    HEAD_DIMS,
+    TC_BK,
+    TC_BQ,
+    check_tma,
+    smem_bytes,
+)
+from repro_torch.kernels.flash_attention.ref import NEG_INF
 
 ATTN_SHAPES = [
     # (B, S, H, KH, D, bq, bk, window), as test_kernels.py
@@ -117,3 +132,126 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 8, 8, 2, 2, 16, 0))
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_attention_cuda(q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 Hopper kernel's arithmetic, emulated on the CPU
+# ---------------------------------------------------------------------------
+LOG2E = 1.4426950408889634
+
+
+def _tc_kernel_emulation(q, k, v, *, window=None, q_offset=0):
+    """What ``flash_fwd_tc_kernel`` computes, in plain PyTorch: 128-row query
+    tiles walk their live 64-key tiles in ascending order (the reference's
+    tile skipping), keys past ``Sk`` read as zeros and are masked, scores in
+    f32 masked with the finite -1e30, an online softmax in exp2 with the
+    scale folded into the exponent, and P rounded to bf16 before P V (l
+    sums the unrounded p). Returns the output and, per query row, whether
+    its first walked tile was fully masked."""
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    BQ, BK = TC_BQ, TC_BK
+    nk = -(-Sk // BK)
+    pad = nk * BK - Sk
+    kf = F.pad(k.float(), (0, 0, 0, 0, 0, pad)).repeat_interleave(G, 2)
+    vf = F.pad(v.float(), (0, 0, 0, 0, 0, pad)).repeat_interleave(G, 2)
+    qf = q.float()
+    scale = D**-0.5 * LOG2E
+    out = torch.empty((B, Sq, H, D), dtype=torch.float32)
+    first_masked = torch.zeros(Sq, dtype=torch.bool)
+    for q0 in range(0, Sq, BQ):
+        rows = torch.arange(q0, min(q0 + BQ, Sq))
+        first_q, last_q = q_offset + q0, q_offset + q0 + BQ - 1
+        kt1 = min(nk, last_q // BK + 1)
+        kt0 = 0
+        if window is not None and first_q - window + 1 > 0:
+            kt0 = (first_q - window + 1) // BK
+        qp = q_offset + rows
+        m = torch.full((B, H, len(rows)), NEG_INF)
+        l = torch.zeros((B, H, len(rows)))
+        acc = torch.zeros((B, H, len(rows), D))
+        for kt in range(kt0, kt1):
+            keys = torch.arange(kt * BK, (kt + 1) * BK)
+            s = torch.einsum("bqhd,bkhd->bhqk", qf[:, rows],
+                             kf[:, kt * BK:(kt + 1) * BK])
+            vis = (keys[None, :] < Sk) & (keys[None, :] <= qp[:, None])
+            if window is not None:
+                vis &= keys[None, :] > qp[:, None] - window
+            if kt == kt0:
+                first_masked[rows] = ~vis.any(1)
+            s = torch.where(vis, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            # a row that has seen no visible key takes p = 1 (exp(0))
+            c = torch.where(m_new == NEG_INF, 0.0, scale)
+            corr = torch.exp2((m - m_new) * scale)
+            p = torch.exp2(s * c[..., None] - (m_new * c)[..., None])
+            l = l * corr + p.sum(-1)
+            pv = torch.einsum("bhqk,bkhd->bhqd", p.bfloat16().float(),
+                              vf[:, kt * BK:(kt + 1) * BK])
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        o = acc / l.clamp(min=1e-30)[..., None]
+        out[:, rows] = o.permute(0, 2, 1, 3)
+    return out.to(q.dtype), first_masked
+
+
+TC_CASES = [
+    # (B, Sq, Sk, H, KH, D, window, q_offset)
+    (1, 300, 300, 2, 2, 64, 70, 0),  # window rows whose first tile is dead
+    (2, 200, 200, 4, 2, 16, None, 0),  # D = 16, ragged Sq and Sk
+    (1, 200, 200, 4, 1, 32, 40, 0),  # D = 32, MQA, window
+    (1, 333, 333, 2, 2, 128, 100, 0),  # D = 128, two column blocks
+    (2, 64, 1377, 4, 2, 64, 1024, 1313),  # a 64-query q_offset chunk
+    (1, 40, 40, 2, 2, 64, None, 0),  # Sk below one key tile
+]
+
+
+@pytest.mark.parametrize("case", TC_CASES)
+def test_tc_kernel_emulation_matches_oracle(case):
+    """The bf16 kernel's arithmetic (bf16 P, exp2, tile walk) stays within
+    the chip tolerance of the JAX oracle (atol 2e-2)."""
+    B, Sq, Sk, H, KH, D, window, off = case
+    np_in = _inputs(B, Sq, Sk, H, KH, D, seed=Sq + D)
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in np_in)
+    got, _ = _tc_kernel_emulation(q, k, v, window=window, q_offset=off)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in np_in)
+    want = _bhsd(attention_ref(_bhsd(jq), _bhsd(jk), _bhsd(jv), window=window,
+                               q_offset=off))
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=2e-2)
+
+
+def test_tc_emulation_window_case_has_a_fully_masked_first_tile():
+    """The window case of ``TC_CASES`` does reach the -1e30 cancellation:
+    rows whose first walked key tile is fully masked, and the output there
+    still equals the oracle's."""
+    B, Sq, Sk, H, KH, D, window, off = TC_CASES[0]
+    np_in = _inputs(B, Sq, Sk, H, KH, D, seed=1)
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in np_in)
+    got, first_masked = _tc_kernel_emulation(q, k, v, window=window)
+    assert first_masked.sum() > 50
+    want = flash_attention_ref(q, k, v, window=window)
+    rows = first_masked.nonzero()[:, 0]
+    torch.testing.assert_close(got[:, rows].float(), want[:, rows].float(),
+                               rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_kernel_shared_memory_fits_a_block(D, dtype):
+    """Each kernel instance's shared memory fits the 227 KB a block may use
+    on an H100."""
+    assert 0 < smem_bytes(dtype, D) <= 232_448
+
+
+def test_tma_check_refuses_unaligned_strides():
+    """The bf16 kernel's wrapper raises on what TMA cannot read: a stride
+    that is not a multiple of 8 elements, or a base not 16-byte aligned."""
+    t = torch.zeros((1, 16, 3, 72), dtype=torch.bfloat16)
+    check_tma("q", t[..., :64])  # strides (3456, 216, 72): multiples of 8
+    with pytest.raises(ValueError, match="multiples of 8"):
+        check_tma("q", torch.zeros((1, 16, 3, 68), dtype=torch.bfloat16)
+                  [..., :64])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        check_tma("q", t[..., 1:65])
