@@ -9,7 +9,7 @@ Phases, each printing what it found on its own line; any failure exits
 non-zero before the result line:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
-2. build: the CUDA cycle kernel (``kernels/noc_cycle/csrc``), the two
+2. build: the CUDA cycle kernels (``kernels/noc_cycle/csrc``), the two
    cost-table kernels (``kernels/dpm_cost/csrc``), the flash-attention
    kernels (``kernels/flash_attention/csrc``), the SSD intra-chunk kernels
    (``kernels/ssd/csrc``) and the segmented-min kernel
@@ -19,16 +19,24 @@ non-zero before the result line:
    attention and SSD instances' dynamic shared memory, held equal to the
    Python mirror that the CPU tests bound by 227 KB;
 3. kernel vs plain: on an 8x8 mesh and torus with the paper's Table I
-   (``NoCConfig()`` defaults), MU and DPM at two injection rates, the kernel
-   must equal the plain PyTorch cycle on every output and final plane; the
-   same on an 8x8 mesh with 2-flit buffers under worms of 1 to 6 flits
-   (the credit-limited branch that Table I's 4-flit buffers never take);
+   (``NoCConfig()`` defaults), MU and DPM at two injection rates, both
+   routes of the cycle kernel (``cluster_smem``: a thread-block cluster per
+   instance; ``block``: one block per instance) must equal the plain
+   PyTorch cycle on every output and final plane, each run launching its
+   own route once; the same on an 8x8 mesh with 2-flit buffers under worms
+   of 1 to 6 flits (the credit-limited branch that Table I's 4-flit
+   buffers never take), and on a 32x32 mesh (MU and DPM at rates 0.01 and
+   0.03) and torus (rate 0.02), the mesh's two routes timed in turns;
+   ``[noc_cycle_layout]`` gives each cluster launch's layout and shared
+   memory, held equal to the Python mirror;
 4. main path: ``latency_vs_rate_batched`` on a 16x16 mesh, MU/MP/NMP/DPM x 4
    rates in one batched launch through ``xsimulate(device="cuda")``, DPM
    planned in batches on the card (``bulk_plan``); the lowest rate must
-   drain, the kernel's launch counter must move, the kernel must equal the
-   plain cycle on the same inputs, and the latencies and energies must
-   equal the ones the port gave before batched planning;
+   drain, the launch counts (set to 0 just before) must show the cluster
+   kernel alone, both routes must equal the plain cycle on the same
+   inputs, and the latencies and energies must equal the ones the port
+   gave before batched planning; the two routes timed in turns, and alone
+   in a child process;
 5. cost tables: ``dpm_cost_table`` and ``dpm_cost_table_weighted`` (hops,
    weighted; energy within rtol 1e-6) and ``dpm_plan`` against their plain
    versions on every request of the 16x16 sweep, an 8x8 torus and an 8x4
@@ -81,10 +89,10 @@ non-zero before the result line:
    average latency within 10%;
 10. the ``kernels`` JSON line (six kernels), then the result line.
 
-Phases 7 and 8 read their kernels' profiler times from a child process of
-this script (``python3 chip_smoke.py --serve-kernel-alone`` and
-``--segmin-kernel-alone``), and phase 7 the split of one prefill's time by
-kernel family (``--prefill-profile``).
+Phases 4, 7 and 8 read their kernels' profiler times from a child process
+of this script (``python3 chip_smoke.py --noc-cycle-alone``,
+``--serve-kernel-alone`` and ``--segmin-kernel-alone``), and phase 7 the
+split of one prefill's time by kernel family (``--prefill-profile``).
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -230,14 +238,15 @@ def timed(fn):
     return out, a.elapsed_time(b)
 
 
-def run_both(tr, geom, kw):
-    """The kernel (through ``run_cycles``) and the plain version by name,
-    on the same CUDA tensors; returns both outputs and their times (ms)."""
+def run_both(tr, geom, kw, variant=None):
+    """The kernel (through ``run_cycles``, on route ``variant``) and the
+    plain version by name, on the same CUDA tensors; returns both outputs
+    and their times (ms)."""
     from repro_torch.kernels.noc_cycle import (
         TABLE_FIELDS, geometry_tensors, run_cycles, run_cycles_ref,
     )
 
-    kern, k_ms = timed(lambda: run_cycles(tr, geom, **kw))
+    kern, k_ms = timed(lambda: run_cycles(tr, geom, variant=variant, **kw))
     T = kw["T"]
     EPL = max(kw["epoch_len"] or T, 1)
     E = max(1, -(-T // EPL))
@@ -257,20 +266,85 @@ def run_both(tr, geom, kw):
     return kern, plain, k_ms, p_ms
 
 
-def first_divergence(tr, geom, kw) -> None:
+def first_divergence(tr, geom, kw, variant) -> None:
     """Bisect the first cycle count after which kernel and plain differ and
     print what differs there (a diagnostic for a failed comparison)."""
     lo, hi = 0, kw["T"]  # equal after lo cycles, different after hi
     while hi - lo > 1:
         mid = (lo + hi) // 2
-        kern, plain, _, _ = run_both(tr, geom, dict(kw, T=mid))
+        kern, plain, _, _ = run_both(tr, geom, dict(kw, T=mid), variant)
         if compare(kern, plain)[0]:
             hi = mid
         else:
             lo = mid
-    kern, plain, _, _ = run_both(tr, geom, dict(kw, T=hi))
-    say("divergence", first_bad_cycle=hi - 1,
+    kern, plain, _, _ = run_both(tr, geom, dict(kw, T=hi), variant)
+    say("divergence", variant=variant, first_bad_cycle=hi - 1,
         differs=",".join(compare(kern, plain)[0]))
+
+
+def check_routes(grid: str, tr, geom, kw, **extra) -> tuple[dict, dict, float]:
+    """Both routes of the cycle kernel (``cluster_smem``, ``block``) against
+    one run of the plain cycle on the same inputs: every output and final
+    plane equal, and each run launching its own route once (the counts set
+    to 0 just before and read just after). Prints one ``[kernel_vs_plain]``
+    line per route and the cluster's ``[noc_cycle_layout]``; returns the
+    kernels' outputs, the plain output and its time (ms)."""
+    from repro_torch.kernels.noc_cycle import KERNEL, VARIANTS, run_cycles
+
+    kerns, plain, p_ms = {}, None, 0.0
+    for variant in VARIANTS:
+        KERNEL.reset()
+        if plain is None:
+            kern, plain, k_ms, p_ms = run_both(tr, geom, kw, variant)
+        else:
+            kern, k_ms = timed(
+                lambda: run_cycles(tr, geom, variant=variant, **kw))
+        counts = dict(KERNEL.variants)
+        if counts != {v: int(v == variant) for v in VARIANTS}:
+            fail(f"{grid}: route {variant} launched {counts}")
+        bad, err = compare(kern, plain)
+        say("kernel_vs_plain", grid=grid, variant=variant,
+            instances=tr["link"].shape[0], cycles=kw["T"], equal=not bad,
+            max_abs_err=err, kernel_ms=f"{k_ms:.3f}", plain_ms=f"{p_ms:.1f}",
+            **extra)
+        if variant == "cluster_smem":
+            layout_line(grid)
+        if bad:
+            first_divergence(tr, geom, kw, variant)
+            fail(f"{variant} kernel != plain on {grid}: {', '.join(bad)}")
+        kerns[variant] = kern
+    return kerns, plain, p_ms
+
+
+def layout_line(grid: str) -> None:
+    """The last cluster launch's layout, its per-rank dynamic shared memory
+    as the library computes it, and a failure if the Python mirror that the
+    CPU tests bound says otherwise."""
+    from repro_torch.kernels.noc_cycle import KERNEL
+    from repro_torch.kernels.noc_cycle.noc_cycle import cluster_smem_bytes
+
+    c = KERNEL.cluster
+    got = KERNEL.build().noc_cycle_cluster_smem_bytes(c["NR"], c["D"],
+                                                      c["W"], c["CC"])
+    say("noc_cycle_layout", grid=grid, cluster_k=c["K"],
+        routers_per_rank=c["NR"], children_per_rank=c["CC"],
+        dynamic_smem=got, threads=c["threads"],
+        resident_clusters=c["resident_clusters"])
+    if got != c["smem"] or got != cluster_smem_bytes(c["NR"], c["D"],
+                                                     c["W"], c["CC"]):
+        fail(f"cluster smem mirror: library {got}, wrapper {c['smem']}")
+
+
+def time_routes(tr, geom, kw) -> dict:
+    """Each route's time on the same inputs, in turns (block, cluster,
+    cluster, block, block, cluster): ``{variant: (median ms, runs)}``."""
+    from repro_torch.kernels.noc_cycle import VARIANTS, run_cycles
+
+    runs = {v: [] for v in VARIANTS}
+    for v in ("block", "cluster_smem", "cluster_smem", "block", "block",
+              "cluster_smem"):
+        runs[v].append(timed(lambda: run_cycles(tr, geom, variant=v, **kw))[1])
+    return {v: (sorted(r)[len(r) // 2], r) for v, r in runs.items()}
 
 
 def roofline(nbytes: int, ops: int, ops_per_s: float) -> tuple[float, str, int, int]:
@@ -355,16 +429,19 @@ def build_kernels() -> None:
 
 
 def kernel_name(mangled: str) -> str:
-    """``name<args>`` of a kernel from its mangled name: the last
-    identifier of the nested name and the template arguments (``f32`` for
-    float, integers as they are)."""
-    s, p, name = mangled, 3 if mangled.startswith("_ZN") else 2, mangled
+    """``name<args>`` of a kernel from its mangled name: the identifier
+    (the last one of a nested name, never a parameter type) and the
+    template arguments (``f32`` for float, integers as they are)."""
+    nested = mangled.startswith("_ZN")
+    s, p, name = mangled, 3 if nested else 2, mangled
     while p < len(s) and s[p].isdigit():
         q = p
         while s[q].isdigit():
             q += 1
         n = int(s[p:q])
         name, p = s[q:q + n], q + n
+        if not nested:
+            break
     if p >= len(s) or s[p] != "I":
         return name
     block = s[p:s.find("EEv", p) + 1]
@@ -1024,8 +1101,9 @@ def prefill_profile() -> None:
 
 def child_json(flag: str) -> dict:
     """The JSON line a child process of this script prints when run with
-    ``flag`` (``--serve-kernel-alone``, ``--segmin-kernel-alone``,
-    ``--prefill-profile``): profiler times taken in a fresh process."""
+    ``flag`` (``--noc-cycle-alone``, ``--serve-kernel-alone``,
+    ``--segmin-kernel-alone``, ``--prefill-profile``): profiler times taken
+    in a fresh process."""
     proc = subprocess.run(
         [sys.executable, str(Path(__file__).resolve()), flag],
         capture_output=True, text=True, timeout=300,
@@ -1467,6 +1545,28 @@ def segmin_kernel_alone() -> None:
     print(json.dumps(out), flush=True)
 
 
+NOC_CYCLE_CASES = ROOT / "build" / "noc_cycle_cases.pt"
+
+
+def noc_cycle_alone() -> None:
+    """``--noc-cycle-alone``: print one JSON line with the profiler's device
+    time of one launch of each cycle-kernel route on each case that the
+    parent saved to ``build/noc_cycle_cases.pt`` (the paper's 8x8 mesh, the
+    32x32 mesh and the 16x16 main path's inputs), taken in a fresh
+    process."""
+    import torch
+
+    from repro_torch.kernels.noc_cycle import VARIANTS, run_cycles
+
+    cases = torch.load(NOC_CYCLE_CASES, weights_only=False)
+    out = {}
+    for name, (tr, geom, kw) in cases.items():
+        out[name] = {v: profiled_ms(
+            lambda: run_cycles(tr, geom, variant=v, **kw), "noc_cycle")[0]
+            for v in VARIANTS}
+    print(json.dumps(out), flush=True)
+
+
 def phase_segmin() -> list:
     """``segmin`` and ``arbitrate`` on the card (the entry points, the launch
     count set to 0 just before and read just after), each output held
@@ -1692,6 +1792,9 @@ def main() -> None:
     if sys.argv[1:] == ["--segmin-kernel-alone"]:
         segmin_kernel_alone()
         return
+    if sys.argv[1:] == ["--noc-cycle-alone"]:
+        noc_cycle_alone()
+        return
 
     # ---- 1. environment ---------------------------------------------------
     smi = subprocess.run(
@@ -1718,27 +1821,20 @@ def main() -> None:
     build_kernels()
 
     # ---- 3. kernel vs plain on the paper's 8x8 ----------------------------
+    cycle_cases = {}  # inputs whose kernel-alone times a child process takes
     for topo in ("mesh", "torus"):
         cfg = NoCConfig(topology=topo, warmup=100, drain_grace=700)
         wls = [synthetic_workload(cfg, r, 300, seed=11) for r in (0.02, 0.08)]
         res = xsimulate(cfg, wls, ("MU", "DPM"), device="cuda")
         tr, geom, kw = engine_inputs(res, cfg, "cuda")
-        kern, plain, k_ms, p_ms = run_both(tr, geom, kw)
-        bad, err = compare(kern, plain)
-        B = tr["link"].shape[0]
-        same_main = bool(
-            (kern["ctr"].cpu().numpy() == res.ctr).all()
-            and (kern["crel"].cpu().numpy() == res.crel).all()
-        )
-        say("kernel_vs_plain", grid=f"{topo}8x8", instances=B,
-            cycles=kw["T"], equal=not bad, max_abs_err=err,
-            kernel_ms=f"{k_ms:.3f}", plain_ms=f"{p_ms:.1f}",
-            repeat_matches_xsimulate=same_main)
-        if bad:
-            first_divergence(tr, geom, kw)
-            fail(f"kernel != plain on {topo} 8x8: {', '.join(bad)}")
-        if not same_main:
-            fail(f"a second kernel run differs from xsimulate's on {topo}")
+        kerns, _, _ = check_routes(f"{topo}8x8", tr, geom, kw)
+        if topo == "mesh":
+            cycle_cases["mesh8x8"] = (tr, geom, kw, kerns["cluster_smem"])
+        for variant, kern in kerns.items():
+            if not ((kern["ctr"].cpu().numpy() == res.ctr).all()
+                    and (kern["crel"].cpu().numpy() == res.crel).all()):
+                fail(f"the {variant} kernel differs from xsimulate's run "
+                     f"on {topo}")
         for w, rate in enumerate((0.02, 0.08)):
             for a, algo in enumerate(res.algos):
                 st = res.stats(w, a)
@@ -1761,16 +1857,34 @@ def main() -> None:
     tr, geom, kw = engine_inputs(res, cfg, "cuda")
     if not kw["BD"] < kw["F"]:
         fail(f"credit-limited case has BD={kw['BD']} >= F={kw['F']}")
-    kern, plain, k_ms, p_ms = run_both(tr, geom, kw)
-    bad, err = compare(kern, plain)
-    say("kernel_vs_plain", grid="mesh8x8-bd2-flits1to6",
-        instances=tr["link"].shape[0], cycles=kw["T"], BD=kw["BD"],
-        F=kw["F"], equal=not bad, max_abs_err=err,
-        kernel_ms=f"{k_ms:.3f}", plain_ms=f"{p_ms:.1f}",
-        flit_hops=int(res.ctr[:, 0].astype("int64").sum()))
-    if bad:
-        first_divergence(tr, geom, kw)
-        fail(f"kernel != plain with BD < F: {', '.join(bad)}")
+    check_routes("mesh8x8-bd2-flits1to6", tr, geom, kw, BD=kw["BD"],
+                 F=kw["F"],
+                 flit_hops=int(res.ctr[:, 0].astype("int64").sum()))
+
+    # 32x32: the largest grid, 128 routers a rank (the block kernel's
+    # scratch no longer fits shared memory); the torus's wrap links join
+    # ranks 0 and K - 1
+    for grid, topo, rates in (("mesh32x32", "mesh", (0.01, 0.03)),
+                              ("torus32x32", "torus", (0.02,))):
+        cfg = NoCConfig(n=32, topology=topo, warmup=100, drain_grace=400)
+        wls = [synthetic_workload(cfg, r, 300, seed=13) for r in rates]
+        res = xsimulate(cfg, wls, ("MU", "DPM"), device="cuda")
+        tr, geom, kw = engine_inputs(res, cfg, "cuda")
+        kerns, _, p_ms = check_routes(
+            grid, tr, geom, kw,
+            flit_hops=int(res.ctr[:, 0].astype("int64").sum()))
+        if grid == "mesh32x32":
+            cycle_cases[grid] = (tr, geom, kw, kerns["cluster_smem"])
+            routes = time_routes(tr, geom, kw)
+            b_ms, b_by, _, _ = bound_ms(tr, kerns["cluster_smem"], kw)
+            blk, cl = routes["block"][0], routes["cluster_smem"][0]
+            say("noc_cycle_routes", grid=grid, block_ms=f"{blk:.3f}",
+                cluster_ms=f"{cl:.3f}",
+                block_ms_runs=",".join(f"{t:.3f}" for t in routes["block"][1]),
+                cluster_ms_runs=",".join(
+                    f"{t:.3f}" for t in routes["cluster_smem"][1]),
+                block_over_cluster=f"{blk / cl:.2f}", plain_ms=f"{p_ms:.1f}",
+                bound_ms=f"{b_ms:.4f}", bound_by=b_by)
 
     # ---- 4. main path: the 16x16 four-algorithm sweep ---------------------
     from repro_torch.core import arena_clear, plan_cache_clear
@@ -1778,16 +1892,19 @@ def main() -> None:
     cfg = NoCConfig(n=16, dest_range=(4, 8), warmup=100, drain_grace=400)
     arena_clear()
     plan_cache_clear()
-    KERNEL.launches = 0
+    KERNEL.reset()
     t0 = time.monotonic()
     curves, res = noc.latency_vs_rate_batched(
         cfg, list(MAIN_RATES), MAIN_ALGOS, cycles=MAIN_CYCLES, seed=0,
         device="cuda",
     )
     wall = time.monotonic() - t0
-    launches = KERNEL.launches
+    launches, routes = KERNEL.launches, dict(KERNEL.variants)
     if launches <= 0:
         fail("the main path never launched the noc_cycle kernel")
+    if routes != {"cluster_smem": launches, "block": 0}:
+        fail(f"the main path took another route than cluster_smem: {routes}")
+    cluster = dict(KERNEL.cluster)
     B = len(MAIN_RATES) * len(MAIN_ALGOS)
     for algo, pts in curves.items():
         for rate, lat in pts:
@@ -1814,8 +1931,11 @@ def main() -> None:
         hops_per_device_s=f"{flit / res.device_s:.0f}",
         hops_per_wall_s=f"{flit / wall:.0f}",
         device_us_per_cycle_instance=f"{res.device_s / (res.cycles * B) * 1e6:.4f}",
-        scratch_in_smem=KERNEL.scratch_in_smem,
-        idle_sms=max(0, torch.cuda.get_device_properties(0).multi_processor_count - B))
+        variant="cluster_smem", cluster_k=cluster["K"],
+        threads=cluster["threads"],
+        resident_clusters=cluster["resident_clusters"],
+        idle_sms=max(0, torch.cuda.get_device_properties(0).multi_processor_count
+                     - B * cluster["K"]))
 
     # host breakdown: the planning share of compile_s, replayed cold as
     # compile_workload plans (bulk_plan per workload and algorithm): MU, MP
@@ -1860,18 +1980,17 @@ def main() -> None:
         device_busy_share_of_wall=f"{res.device_s / wall:.6f}",
         requests=sum(len(wl.requests) for wl in wls))
 
-    # the kernel against the plain version on the main path's own inputs
+    # both routes against the plain version on the main path's own inputs,
+    # then timed in turns
     tr, geom, kw = engine_inputs(res, cfg, "cuda")
-    kern, plain, k_ms, p_ms = run_both(tr, geom, kw)
-    bad, err = compare(kern, plain)
-    if bad:
-        fail(f"kernel != plain on the 16x16 main path: {', '.join(bad)}")
-    if not (kern["ctr"].cpu().numpy() == res.ctr).all():
-        fail("a second kernel run differs from the main path's counters")
-    from repro_torch.kernels.noc_cycle import run_cycles
-
-    times = [timed(lambda: run_cycles(tr, geom, **kw))[1] for _ in range(3)]
-    ms = sorted(times)[1]
+    kerns, plain, p_ms = check_routes("mesh16x16", tr, geom, kw)
+    err = max(compare(k, plain)[1] for k in kerns.values())
+    kern = kerns["cluster_smem"]
+    for variant, k in kerns.items():
+        if not (k["ctr"].cpu().numpy() == res.ctr).all():
+            fail(f"a {variant} run differs from the main path's counters")
+    routes = time_routes(tr, geom, kw)
+    ms, times = routes["cluster_smem"]
     b_ms, b_by, nbytes, ops = bound_ms(tr, kern, kw)
     # the state-streaming bound: every cycle reads all CycleState planes
     # once from HBM (one epoch row of the telemetry planes), over T cycles
@@ -1880,9 +1999,26 @@ def main() -> None:
                 if f not in ("lutil", "rconf"))
     state += (pl.lutil[:, 0].numel() + pl.rconf[:, 0].numel()) * 4
     stream_ms = kw["T"] * state / HBM_BYTES_PER_S * 1e3
-    say("kernel_vs_plain", grid="mesh16x16", instances=B, cycles=kw["T"],
-        equal=True, max_abs_err=err, kernel_ms=f"{ms:.3f}",
-        kernel_ms_runs=",".join(f"{t:.3f}" for t in times),
+    blk = routes["block"][0]
+    cycle_cases["mesh16x16"] = (tr, geom, kw, kern)
+    NOC_CYCLE_CASES.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({k: v[:3] for k, v in cycle_cases.items()}, NOC_CYCLE_CASES)
+    alone = child_json("--noc-cycle-alone")
+    NOC_CYCLE_CASES.unlink()
+    for grid, (c_tr, _, c_kw, c_kern) in cycle_cases.items():
+        c_bound = bound_ms(c_tr, c_kern, c_kw)[0]
+        for variant, a_ms in alone[grid].items():
+            if a_ms is None:
+                fail(f"no device time for the {variant} kernel on {grid}")
+            say("kernel_time", kernel="noc_cycle", grid=grid,
+                variant=variant, kernel_alone_ms=f"{a_ms:.4f}",
+                bound_ms=f"{c_bound:.4f}",
+                alone_times_bound=f"{a_ms / c_bound:.1f}")
+    say("noc_cycle_routes", grid="mesh16x16", instances=B, cycles=kw["T"],
+        block_ms=f"{blk:.3f}", cluster_ms=f"{ms:.3f}",
+        block_ms_runs=",".join(f"{t:.3f}" for t in routes["block"][1]),
+        cluster_ms_runs=",".join(f"{t:.3f}" for t in times),
+        block_over_cluster=f"{blk / ms:.2f}", max_abs_err=err,
         plain_ms=f"{p_ms:.1f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by,
         bytes=nbytes, ops=ops, state_bytes_per_cycle=state,
         state_stream_bound_ms=f"{stream_ms:.4f}")

@@ -370,20 +370,36 @@ register_algorithm(
 
 
 class PlanCacheInfo(NamedTuple):
-    """Plan-cache stats, field-compatible with ``lru_cache.cache_info()``."""
+    """Aggregate plan-cache stats plus the per-(algorithm, cost-model)
+    breakdown (``by_key``: ``(algo, cm) -> {hits, misses, evictions}``;
+    cost-insensitive algorithms key with ``cm = ""`` — they share one entry
+    across models). Field-compatible with ``lru_cache.cache_info()``."""
 
     hits: int
     misses: int
     maxsize: int
     currsize: int
+    by_key: dict[tuple[str, str], dict[str, int]]
 
 
-# LRU cache over normalized plan keys (an OrderedDict, so the maxsize is a
-# module-level value a test can shrink).
+# LRU cache over normalized plan keys. An OrderedDict instead of
+# functools.lru_cache, so hits, misses and evictions can be attributed to
+# the (algorithm, cost-model) pair inside each key, and the maxsize is a
+# module-level value a test can shrink to exercise eviction.
 _PLAN_CACHE_MAXSIZE = 200_000
 _plan_cache: "OrderedDict[tuple, MulticastPlan]" = OrderedDict()
 _plan_hits = 0
 _plan_misses = 0
+_plan_by_key: dict[tuple[str, str], dict[str, int]] = {}
+
+
+def _key_stats(algo: str, cost_model: str) -> dict[str, int]:
+    st = _plan_by_key.get((algo, cost_model))
+    if st is None:
+        st = _plan_by_key[(algo, cost_model)] = {
+            "hits": 0, "misses": 0, "evictions": 0,
+        }
+    return st
 
 
 def _plan_cached(
@@ -403,8 +419,10 @@ def _plan_cached(
     if cached is not None:
         _plan_cache.move_to_end(key)
         _plan_hits += 1
+        _key_stats(algo, cost_model)["hits"] += 1
         return cached
     _plan_misses += 1
+    _key_stats(algo, cost_model)["misses"] += 1
     a = get_algorithm(algo)
     topo = make_topology(kind, n, m, faults, params)
     p = a.plan(
@@ -415,20 +433,26 @@ def _plan_cached(
         p = segment_plan_for_faults(p, topo)
     _plan_cache[key] = p
     while len(_plan_cache) > _PLAN_CACHE_MAXSIZE:
-        _plan_cache.popitem(last=False)
+        evicted, _ = _plan_cache.popitem(last=False)
+        _key_stats(evicted[5], evicted[6])["evictions"] += 1
     return p
 
 
 def plan_cache_info() -> PlanCacheInfo:
-    """(hits, misses, maxsize, currsize) of the shared plan cache."""
+    """(hits, misses, maxsize, currsize, by_key) of the shared plan cache."""
     return PlanCacheInfo(
-        _plan_hits, _plan_misses, _PLAN_CACHE_MAXSIZE, len(_plan_cache)
+        _plan_hits,
+        _plan_misses,
+        _PLAN_CACHE_MAXSIZE,
+        len(_plan_cache),
+        {k: dict(v) for k, v in _plan_by_key.items()},
     )
 
 
 def plan_cache_clear() -> None:
     global _plan_hits, _plan_misses
     _plan_cache.clear()
+    _plan_by_key.clear()
     _plan_hits = 0
     _plan_misses = 0
 

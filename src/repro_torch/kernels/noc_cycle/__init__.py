@@ -5,7 +5,7 @@ plain PyTorch cycle over packed router-centric planes (the CPU path and the
 kernel's oracle), ``noc_cycle.py`` loads and launches the CUDA kernel in
 ``csrc/noc_cycle.cu``, ``ops.py`` dispatches by the device of the tensors.
 """
-from .noc_cycle import KERNEL, run_cycles_cuda
+from .noc_cycle import KERNEL, VARIANTS, run_cycles_cuda
 from .ops import run_cycles
 from .ref import (
     CTR,
@@ -19,7 +19,8 @@ from .ref import (
 )
 
 __all__ = [
-    "CTR", "CycleState", "KERNEL", "NOC_INF", "TABLE_FIELDS", "cycle_core",
+    "CTR", "CycleState", "KERNEL", "NOC_INF", "TABLE_FIELDS", "VARIANTS",
+    "cycle_core",
     "geometry_tensors", "init_planes", "run_cycles", "run_cycles_cuda",
     "run_cycles_ref",
 ]

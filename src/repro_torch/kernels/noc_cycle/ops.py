@@ -17,8 +17,8 @@ __all__ = ["CTR", "CycleState", "init_planes", "run_cycles"]
 
 
 def run_cycles(tr: dict, geom: dict, *, T: int, F: int, V: int, BD: int,
-               L: int, NN: int, ND: int,
-               epoch_len: int | None = None) -> dict:
+               L: int, NN: int, ND: int, epoch_len: int | None = None,
+               variant: str | None = None) -> dict:
     """Run ``T`` cycles over a batch of compiled-traffic tensors ``tr``
     (``{field: (B, ...)}`` int32 tensors on one device, ``dslot`` included).
 
@@ -28,7 +28,9 @@ def run_cycles(tr: dict, geom: dict, *, T: int, F: int, V: int, BD: int,
     ``dslot`` table (slot ``ND`` is the discard slot). ``lutil``/``rconf``
     bucket on ``cycle // epoch_len`` with ``E = ceil(T / epoch_len)``
     (``epoch_len=None``: one epoch spanning the run). ``geom`` is the numpy
-    router geometry of ``compile.geometry_tables``.
+    router geometry of ``compile.geometry_tables``. ``variant`` forces one
+    of the CUDA kernel's routes (``noc_cycle.VARIANTS``); the plain version
+    has none.
     """
     P, S = tr["link"].shape[1:]
     C = tr["child_parent"].shape[1]
@@ -43,9 +45,12 @@ def run_cycles(tr: dict, geom: dict, *, T: int, F: int, V: int, BD: int,
     gt = geometry_tensors(geom, device)
     kw = dict(T=T, F=F, V=V, BD=BD, L=L, NN=NN, ND=ND, EPL=EPL, E=E)
     if device.type == "cpu":
+        if variant is not None:
+            raise ValueError("variant= selects a CUDA kernel route")
         planes, dtime = run_cycles_ref(tb, tr["dslot"], gt, **kw)
     elif device.type == "cuda":
-        planes, dtime = run_cycles_cuda(tb, tr["dslot"], gt, **kw)
+        planes, dtime = run_cycles_cuda(tb, tr["dslot"], gt, variant=variant,
+                                        node_ports=geom["node_ports"], **kw)
     else:
         raise ValueError(f"no cycle engine for device {device}")
     crel = (planes.crtime >= 0) & (planes.crtime < T)

@@ -105,3 +105,42 @@ def test_route_cost_matrices_match_reference(fabric, cost_model):
     np.testing.assert_array_equal(td, jd)
     np.testing.assert_array_equal(tw, jw)
     assert to == jo
+
+
+def test_plan_cache_info_matches_reference(monkeypatch):
+    """The same plan sequence through both packages, with the cache shrunk
+    so that it evicts: ``plan_cache_info()`` equal field by field, the
+    per-(algorithm, cost-model) ``by_key`` breakdown included, and
+    ``plan_cache_clear()`` zeroing it in both."""
+    from repro.core import planner as jplanner
+    from repro_torch.core import planner as tplanner
+
+    assert tplanner.PlanCacheInfo._fields == jplanner.PlanCacheInfo._fields
+    reqs = _requests(4, seed=21)[:6]
+    # DPM under two cost models, cost-insensitive MU and MP, re-plans that
+    # hit, and re-plans of evicted entries that miss again
+    calls = (
+        [("DPM", None, r) for r in reqs[:4]]
+        + [("DPM", "energy", r) for r in reqs[:2]]
+        + [("MU", None, r) for r in reqs[:3]]
+        + [("DPM", None, reqs[3]), ("MU", None, reqs[2])]
+        + [("MP", None, r) for r in reqs]
+        + [("DPM", None, reqs[0]), ("DPM", "energy", reqs[1])]
+    )
+    infos = []
+    for pkg, planner in ((jcore, jplanner), (tcore, tplanner)):
+        monkeypatch.setattr(planner, "_PLAN_CACHE_MAXSIZE", 5)
+        planner.plan_cache_clear()
+        g = pkg.make_topology("mesh", 4)
+        for algo, cm, (src, dests) in calls:
+            pkg.plan(algo, g, src, dests, cost_model=cm)
+        infos.append(planner.plan_cache_info())
+        planner.plan_cache_clear()
+        cleared = planner.plan_cache_info()
+        assert (cleared.hits, cleared.misses, cleared.currsize,
+                cleared.by_key) == (0, 0, 0, {})
+    want, got = infos
+    assert want.by_key and sum(v["evictions"] for v in want.by_key.values())
+    assert any(v["hits"] for v in want.by_key.values())
+    for field in jplanner.PlanCacheInfo._fields:
+        assert getattr(got, field) == getattr(want, field), field

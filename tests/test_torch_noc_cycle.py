@@ -7,15 +7,28 @@
 * one small case against the reference's ``pallas_interpret`` backend, the
   Pallas kernel run on the CPU;
 * the credit-limited path (buffers shallower than the longest worm) with
-  per-packet worm lengths that differ from the configured one.
+  per-packet worm lengths that differ from the configured one;
+* the CUDA cluster kernel's per-rank layout (bands of routers, their FIFOs,
+  lanes, output links and children; which ranks read which; shared memory
+  per rank against the 227 KB a block may hold) and its route choice, at
+  the repo's grids;
+* the cluster kernel itself, compiled as C++ with ``g++`` and run with each
+  CTA thread as a host thread (``tests/cuda_host``), against the reference's
+  outputs and the plain cycle's final planes.
 
 Everything is integer arithmetic: the tolerance is exact equality.
 """
+
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import repro.noc as jnoc
 from repro.kernels.noc_cycle import ref as jref
@@ -27,12 +40,17 @@ from repro.noc.xsim.compile import (
 from repro.noc.xsim.run import _run_batch
 from repro_torch.kernels.noc_cycle import (
     KERNEL,
+    TABLE_FIELDS,
+    VARIANTS,
     cycle_core,
     geometry_tensors,
     init_planes,
     run_cycles,
     run_cycles_cuda,
+    run_cycles_ref,
 )
+from repro_torch.kernels.noc_cycle import noc_cycle as nc
+from repro_torch.noc.xsim.compile import geometry_tables as tgeometry_tables
 from repro_torch.noc.xsim.compile import traffic_from_numpy
 
 CYCLES = 100
@@ -161,15 +179,236 @@ def test_kernel_wrapper_never_falls_back_to_the_plain_version():
     geom = geometry_tensors(
         geometry_tables(ref.kind, ref.n, ref.m, ref.params, kw["V"]), "cpu"
     )
-    launches = KERNEL.launches
-    with pytest.raises(ValueError, match="CUDA"):
-        run_cycles_cuda(
-            {k: v for k, v in tr.items() if k != "dslot"}, tr["dslot"], geom,
-            EPL=kw["T"], E=1, **kw,
-        )
-    assert KERNEL.launches == launches
+    launches, variants = KERNEL.launches, dict(KERNEL.variants)
+    for variant in (None, *VARIANTS):
+        with pytest.raises(ValueError, match="CUDA"):
+            run_cycles_cuda(
+                {k: v for k, v in tr.items() if k != "dslot"}, tr["dslot"],
+                geom, EPL=kw["T"], E=1, variant=variant, **kw,
+            )
+    with pytest.raises(ValueError, match="CUDA kernel route"):
+        run_cycles(tr, geometry_tables(ref.kind, ref.n, ref.m, ref.params, 2),
+                   variant="block", **kw)
+    assert KERNEL.launches == launches and KERNEL.variants == variants
     assert KERNEL._lib is None
     with pytest.raises(ValueError, match="no cycle engine"):
         run_cycles({k: v.to("meta") for k, v in tr.items()},
                    geometry_tables(ref.kind, ref.n, ref.m, ref.params, 2),
                    **kw)
+
+
+# ------------------------------------------------------------ cluster kernel
+# (kind, side, VCs per class): the repo's grids, mesh and torus
+LAYOUT_GRIDS = [(k, n, 2) for k in ("mesh", "torus") for n in (4, 8, 16, 32)]
+LAYOUT_GRIDS += [("mesh", 8, 1), ("torus", 8, 1)]
+# children per rank: the chip cases, compiled on the CPU, put at most 38
+# (8x8), 152 (16x16) and 236 (32x32) children of one instance on one rank;
+# the bound is 2.5 times that
+CHILDREN_BOUND = {4: 100, 8: 100, 16: 400, 32: 600}
+
+
+def _geometry(kind, n, V):
+    geom = tgeometry_tables(kind, n, n, (), V)
+    return geom["node_ports"], n * n, n * n * 4
+
+
+def _worst_children(CC):
+    """A ``cluster_plan`` children function whose per-rank count is ``CC``."""
+    def children(layout):
+        return nc.ChildLayout(None, None, None, CC, True)
+    return children
+
+
+def _plan(kind, n, V):
+    ports, NN, L = _geometry(kind, n, V)
+    plan = nc.cluster_plan(ports, _worst_children(CHILDREN_BOUND[n]), NN=NN,
+                           L=L, V=V)
+    return plan, ports, NN, L
+
+
+@pytest.mark.parametrize("kind,n,V", LAYOUT_GRIDS,
+                         ids=[f"{k}{n}x{n}-V{V}" for k, n, V in LAYOUT_GRIDS])
+def test_cluster_layout_owns_everything_once(kind, n, V):
+    """Every router, FIFO, lane and output link has exactly one rank; a
+    router's input FIFOs sit in its own rank in port order; remote reads
+    and pushes join only neighbouring bands (ranks 0 and K - 1 too on a
+    torus); the rank's shared memory fits 227 KB; the route is the
+    cluster kernel, with 8 ranks from 8 rows up."""
+    plan, ports, NN, L = _plan(kind, n, V)
+    assert plan is not None  # the route chooser takes cluster_smem
+    lay = plan.layout
+    K, NR, D, W = lay.K, lay.NR, L // NN, 2 * V
+    assert K == (8 if n >= 8 else n) and K * NR == NN
+    assert plan.smem == nc.cluster_smem_bytes(NR, D, W, CHILDREN_BOUND[n])
+    assert plan.smem <= 232_448 and plan.threads <= 512
+    # routers and lanes: contiguous bands, one per rank
+    node_rank = np.arange(NN) // NR
+    assert np.array_equal(np.bincount(node_rank, minlength=K), [NR] * K)
+    # links (and so FIFOs, W per link) and output links: one home each
+    slots = lay.slot_link[lay.slot_link >= 0]
+    assert np.array_equal(np.sort(slots), np.arange(L))
+    src, home = nc.link_ranks(lay, D)
+    assert np.array_equal(np.bincount(src, minlength=K), [NR * D] * K)
+    for r in range(K):
+        for s_, l in enumerate(lay.slot_link[r]):
+            assert lay.link_home[l] == (r << 16) | s_
+    # a router's input FIFOs, port by port, are its own in-slots
+    LW = L * W
+    for v in range(NN):
+        r, vl = divmod(v, NR)
+        for d in range(D):
+            c = int(ports[v, d * W])
+            if c < LW:
+                assert lay.slot_link[r, vl * D + d] == c // W
+    # remote traffic only between neighbouring bands
+    gap = (home - src) % K
+    if kind == "mesh":
+        assert np.all(np.abs(home - src) <= 1)
+    else:
+        assert np.all((gap <= 1) | (gap == K - 1))
+        if K > 2:
+            assert np.any(gap == K - 1) and np.any(gap == 1)
+
+
+def test_cluster_route_needs_the_block_kernel_only_beyond_shared_memory():
+    """Where 8 ranks cannot hold a band the chooser takes 16 (the
+    non-portable cluster), and where no cluster can, the block kernel."""
+    ports, NN, L = _geometry("mesh", 32, 2)
+    plan = nc.cluster_plan(ports, _worst_children(1500), NN=NN, L=L, V=2)
+    assert plan.layout.K == 16 and plan.smem <= 232_448
+    assert nc.cluster_plan(ports, _worst_children(20_000), NN=NN, L=L,
+                           V=2) is None
+
+
+@pytest.mark.parametrize("topology", ["mesh", "torus"])
+def test_cluster_child_layout(topology):
+    """Each DPM child that a lane queues or an arrival can release has one
+    slot, in the rank of the router whose lane queues it; ``coff`` names
+    that slot; the link a child watches is held by its own rank; children
+    with no slot are the padding rows, which nothing releases or queues."""
+    cfg, ref, stacked = _compiled(topology, algos=("MU", "DPM"),
+                                  rates=(0.05, 0.2))
+    tr = traffic_from_numpy(stacked, "cpu")
+    ports, NN, L = _geometry(topology, 4, cfg.vcs_per_class)
+    lay = nc.band_layout(ports, NN, L, cfg.vcs_per_class, 4)
+    ch = nc.child_layout(tr["chl"], tr["watch_link"], tr["child_rs"], lay)
+    chl, crow = tr["chl"].numpy(), ch.crow.numpy()
+    B, C = tr["child_rs"].shape
+    assert ch.CC == max(int((crow[b, r] >= 0).sum()) for b in range(B)
+                        for r in range(lay.K))
+    queued = 0
+    for b in range(B):
+        held = crow[b][crow[b] >= 0]
+        assert len(held) == len(set(held.tolist()))  # one slot at most
+        owner = ch.owner[b]
+        for r in range(lay.K):
+            rows = crow[b, r][crow[b, r] >= 0]
+            assert np.all(owner[rows] == r)
+            assert np.array_equal(rows, np.sort(rows))
+            # slots are filled from 0
+            assert np.all(crow[b, r][len(rows):] == -1)
+        for v in range(NN):
+            for k, row in enumerate(chl[b, v]):
+                if row < 0:
+                    continue
+                queued += 1
+                r = v // lay.NR
+                assert crow[b, r, ch.coff[b, row]] == row
+                wl = tr["watch_link"][b, row]
+                assert lay.link_home[wl] >> 16 == r  # watched locally
+        rs = tr["child_rs"][b].numpy()
+        free = np.setdiff1d(np.arange(C), held)
+        assert np.all((rs[free] < 0) | (rs[free] >= 32768))
+        assert not np.isin(free, chl[b]).any()
+        assert np.all(ch.coff[b].numpy()[free] == -1)
+    assert queued > 0 and ch.local_watch
+
+
+_HOST = Path(__file__).resolve().parent / "cuda_host"
+_CU = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels"
+       / "noc_cycle" / "csrc" / "noc_cycle.cu")
+
+
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    """The cycle kernels compiled with g++ against ``tests/cuda_host``: the
+    cluster kernel runs with one host thread per CUDA thread."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed")
+    out = tmp_path_factory.mktemp("noc_cycle_host")
+    src = _CU.read_text()
+    decl = "  extern __shared__ __align__(16) unsigned char noc_cl_smem[];"
+    assert src.count(decl) == 1
+    (out / "noc_cycle.cu").write_text(
+        src.replace(decl, "  unsigned char* noc_cl_smem = emu::smem();"))
+    lib = out / "libnoc_cycle_host.so"
+    subprocess.run(
+        [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+         f"-I{_HOST}", f'-DNOC_CYCLE_SOURCE="{out / "noc_cycle.cu"}"',
+         "-o", str(lib), str(_HOST / "noc_cycle_host.cpp")],
+        check=True, capture_output=True, text=True,
+    )
+    so = ctypes.CDLL(str(lib))
+    so.emu_cluster_run.argtypes = [ctypes.POINTER(nc.ClArgs), ctypes.c_int]
+    so.emu_cluster_run.restype = ctypes.c_long
+    so.noc_cycle_cluster_smem_bytes.argtypes = [ctypes.c_int] * 4
+    so.noc_cycle_cluster_smem_bytes.restype = ctypes.c_size_t
+    return so
+
+
+def test_cluster_smem_mirror_matches_the_kernel(host_kernel):
+    """``cluster_smem_bytes`` is the kernel's own layout arithmetic."""
+    for NR, D, W, CC in [(1, 4, 2, 1), (8, 4, 4, 11), (32, 4, 4, 867),
+                         (128, 4, 4, 1349), (64, 4, 2, 4000), (7, 6, 4, 33)]:
+        assert host_kernel.noc_cycle_cluster_smem_bytes(NR, D, W, CC) \
+            == nc.cluster_smem_bytes(NR, D, W, CC)
+
+
+@pytest.mark.parametrize("topology,buffer_depth,flits,epoch_len", [
+    ("mesh", 4, None, None),
+    ("torus", 4, None, 32),
+    ("mesh", 2, _mixed_flits, 32),
+], ids=["mesh", "torus-epochs", "mesh-bd2-flits1to6"])
+def test_cluster_kernel_on_host_threads(host_kernel, topology, buffer_depth,
+                                        flits, epoch_len):
+    """The cluster kernel's arithmetic, barriers and cross-rank reads: its
+    outputs equal the reference's and its final planes the plain cycle's."""
+    cfg, ref, stacked = _compiled(topology, algos=("MU", "DPM", "MP"),
+                                  rates=(0.05, 0.2),
+                                  buffer_depth=buffer_depth, flits=flits)
+    kw = _engine_kw(cfg, ref, stacked, drain=200 if flits else 150)
+    want = _reference(stacked, ref, kw, "ref", epoch_len=epoch_len)
+    tr = traffic_from_numpy(stacked, "cpu")
+    tb = {f: tr[f] for f in TABLE_FIELDS}
+    geom = geometry_tables(ref.kind, ref.n, ref.m, ref.params, kw["V"])
+    T, V, L, NN = kw["T"], kw["V"], kw["L"], kw["NN"]
+    EPL = epoch_len or T
+    E = -(-T // EPL)
+    B, P, S = tb["link"].shape
+    C, QC = tb["child_parent"].shape[1], tb["chl"].shape[2]
+    plan = nc.cluster_plan(
+        geom["node_ports"],
+        lambda lay: nc.child_layout(tb["chl"], tb["watch_link"],
+                                    tb["child_rs"], lay),
+        NN=NN, L=L, V=V,
+    )
+    planes = init_planes(B, L, 2 * V, NN, C, E, device="cpu")
+    dtime = torch.full((B, kw["ND"] + 1), -1, dtype=torch.int32)
+    sizes = dict(B=B, P=P, S=S, Q=tb["lane_seq"].shape[2], QC=QC, C=C, NN=NN,
+                 L=L, V=V, D=L // NN, F=kw["F"], BD=kw["BD"], E=E, EPL=EPL,
+                 ND=kw["ND"], T=T)
+    args, keep = nc.cluster_args(plan, planes, dict(tb, dslot=tr["dslot"]),
+                                 dtime, sizes)
+    # 32 threads a CTA: every strided loop of the kernel takes several turns
+    assert host_kernel.emu_cluster_run(ctypes.byref(args), 32) == plan.smem
+    plain, plain_dtime = run_cycles_ref(
+        tb, tr["dslot"], geometry_tensors(geom, "cpu"), EPL=EPL, E=E, **kw)
+    for f, got, exp in zip(planes._fields, planes, plain):
+        assert torch.equal(got, exp), f
+    assert torch.equal(dtime, plain_dtime)
+    crel = (planes.crtime >= 0) & (planes.crtime < T)
+    _assert_outputs_equal(
+        {"dtime": dtime, "ctr": planes.ctr, "crel": crel,
+         "lutil": planes.lutil, "rconf": planes.rconf}, want)
+    assert int(want["ctr"][:, 0].sum()) > 0 and int(crel.sum()) > 0
