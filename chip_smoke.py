@@ -37,12 +37,20 @@ non-zero before the result line:
    inputs, and the latencies and energies must equal the ones the port
    gave before batched planning; the two routes timed in turns, and alone
    in a child process;
-5. cost tables: ``dpm_cost_table`` and ``dpm_cost_table_weighted`` (hops,
-   weighted; energy within rtol 1e-6) and ``dpm_plan`` against their plain
-   versions on every request of the 16x16 sweep, an 8x8 torus and an 8x4
-   mesh, source leg on and off; then the planning path ``dpm_plan`` /
+5. cost tables: both routes (``warp``: one warp per packet over its
+   destinations, the default; ``block``: one block per packet over all its
+   nodes) of ``dpm_cost_table`` and ``dpm_cost_table_weighted`` (hops,
+   weighted; energy within rtol 1e-6), and ``dpm_plan``, against their
+   plain versions on every request of the 16x16 sweep, an 8x8 torus and an
+   8x4 mesh, source leg on and off; then on edge cases: the sweep with an
+   empty packet, a packet that lists its own source and a fully dense one
+   (16,873 packets: a partial block of the warp route), the same rows 4
+   bytes off 16-byte alignment, a 5x3 mesh (rows of 15 nodes), and a dense
+   16x16 batch (90% of nodes); then the planning path ``dpm_plan`` /
    ``dpm_plan_weighted`` on the sweep's requests, with the launch counts
-   set to 0 before it and read after;
+   set to 0 before it and read after (the warp route only); the two routes
+   timed in turns on the sweep and the dense batch, and alone in a child
+   process;
 6. batched planning: the sweep's DPM requests through ``bulk_plan`` on the
    card, every plan equal to host ``plan()``, plans/s against host
    ``plan()``; then a few thousand requests through a ``PlanServer``;
@@ -89,10 +97,11 @@ non-zero before the result line:
    average latency within 10%;
 10. the ``kernels`` JSON line (six kernels), then the result line.
 
-Phases 4, 7 and 8 read their kernels' profiler times from a child process
-of this script (``python3 chip_smoke.py --noc-cycle-alone``,
-``--serve-kernel-alone`` and ``--segmin-kernel-alone``), and phase 7 the
-split of one prefill's time by kernel family (``--prefill-profile``).
+Phases 4, 5, 7 and 8 read their kernels' profiler times from a child
+process of this script (``python3 chip_smoke.py --noc-cycle-alone``,
+``--dpm-cost-alone``, ``--serve-kernel-alone`` and
+``--segmin-kernel-alone``), and phase 7 the split of one prefill's time by
+kernel family (``--prefill-profile``).
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -431,7 +440,8 @@ def build_kernels() -> None:
 def kernel_name(mangled: str) -> str:
     """``name<args>`` of a kernel from its mangled name: the identifier
     (the last one of a nested name, never a parameter type) and the
-    template arguments (``f32`` for float, integers as they are)."""
+    template arguments (``f32`` for float, integers and booleans as they
+    are)."""
     nested = mangled.startswith("_ZN")
     s, p, name = mangled, 3 if nested else 2, mangled
     while p < len(s) and s[p].isdigit():
@@ -446,7 +456,7 @@ def kernel_name(mangled: str) -> str:
         return name
     block = s[p:s.find("EEv", p) + 1]
     args = (["f32"] if block.startswith("If") else []) + re.findall(
-        r"Li(\d+)E", block)
+        r"L[ib](\d+)E", block)
     return f"{name}<{','.join(args)}>"
 
 
@@ -594,17 +604,115 @@ def sweep_requests(cfg) -> list:
     return [(r.src, r.dests) for wl in wls for r in wl.requests]
 
 
+DPM_COST_CASES = ROOT / "build" / "dpm_cost_cases.pt"
+DPM_TABLES = ("dpm_cost_table", "dpm_cost_table_weighted")
+# each cost-table kernel's name in the profiler, by (table, route)
+DPM_KERNEL_NAMES = {
+    ("dpm_cost_table", "warp"): "cost_table_warp_kernel",
+    ("dpm_cost_table", "block"): "cost_table_kernel",
+    ("dpm_cost_table_weighted", "warp"): "cost_table_weighted_warp_kernel",
+    ("dpm_cost_table_weighted", "block"): "cost_table_weighted_kernel",
+}
+
+
+def dpm_cost_calls(mask, sxy, dist, w, oh) -> dict:
+    """``{(table, route): call}`` on one 16x16 mesh batch, source leg on,
+    the weighted table under ``(dist, w, oh)``."""
+    import functools
+
+    from repro_torch.kernels.dpm_cost import (
+        VARIANTS, dpm_cost_table, dpm_cost_table_weighted,
+    )
+
+    calls = {}
+    for v in VARIANTS:
+        calls["dpm_cost_table", v] = functools.partial(
+            dpm_cost_table, mask, sxy, n=16, variant=v)
+        calls["dpm_cost_table_weighted", v] = functools.partial(
+            dpm_cost_table_weighted, mask, sxy, dist, w, n=16, overhead=oh,
+            variant=v)
+    return calls
+
+
+def dpm_cost_alone() -> None:
+    """``--dpm-cost-alone``: print one JSON line with the profiler's device
+    time of one launch of each route of each cost table on each batch that
+    the parent saved to ``build/dpm_cost_cases.pt`` (the sweep's requests
+    and the dense batch), taken in a fresh process."""
+    import torch
+
+    cases = torch.load(DPM_COST_CASES, weights_only=False)
+    out = {}
+    for name, args in cases.items():
+        out[name] = {f"{t}/{v}": profiled_ms(fn, DPM_KERNEL_NAMES[t, v])[0]
+                     for (t, v), fn in dpm_cost_calls(*args).items()}
+    print(json.dumps(out), flush=True)
+
+
+def time_dpm_routes(calls: dict) -> dict:
+    """Each table's routes through the wrapper on the same inputs, in turns
+    (block, warp, warp, block, block, warp): ``{(table, route): (median ms,
+    runs)}``."""
+    runs = {k: [] for k in calls}
+    for v in ("block", "warp", "warp", "block", "block", "warp"):
+        for t in DPM_TABLES:
+            runs[t, v].append(timed(calls[t, v])[1])
+    return {k: (sorted(r)[len(r) // 2], r) for k, r in runs.items()}
+
+
+def dpm_edge_batches(mask, sxy, device) -> list:
+    """(label, topology, wrap, mask, src_xy) of the edge cases: the sweep's
+    requests with packet 0 emptied, packet 1 listing its own source and
+    packet 2 listing every node; the same rows 4 bytes past 16-byte
+    alignment; a 5x3 mesh (rows of 15 nodes) and a 16x16 batch whose
+    packets list 90% of the nodes, both seeded."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import make_topology
+
+    P, NN = mask.shape
+    edge = mask.clone()
+    edge[0] = 0
+    edge[1, int(sxy[1, 1]) * 16 + int(sxy[1, 0])] = 1
+    edge[2] = 1
+    buf = torch.zeros(P * NN + 4, dtype=torch.int32, device=device)
+    unaligned = buf[1:1 + P * NN].view(P, NN)
+    unaligned.copy_(edge)
+    if unaligned.data_ptr() % 16 == 0:
+        fail("the unaligned rows are 16-byte aligned")
+    rng = np.random.default_rng(17)
+
+    def seeded(n, m, P, density):
+        mk = (rng.random((P, n * m)) < density).astype(np.int32)
+        xy = np.stack([rng.integers(0, n, P), rng.integers(0, m, P)], 1)
+        mk[0] = 0
+        mk[1, xy[1, 1] * n + xy[1, 0]] = 1
+        mk[2] = 1
+        return (torch.from_numpy(mk).to(device),
+                torch.from_numpy(xy.astype(np.int32)).to(device))
+
+    g16 = make_topology("mesh", 16, 16)
+    return [
+        ("sweep16x16_edges", g16, False, edge, sxy),
+        ("sweep16x16_unaligned", g16, False, unaligned, sxy),
+        ("mesh5x3", make_topology("mesh", 5, 3), False, *seeded(5, 3, 4099, 0.3)),
+        ("dense16x16", g16, False, *seeded(16, 16, P, 0.9)),
+    ]
+
+
 def phase_cost_tables(cfg16) -> list:
-    """Both cost-table kernels and ``dpm_plan`` against their plain versions
-    on three fabrics, then the planning path with the counts zeroed.
-    Returns the kernels-line entries of the two kernels."""
+    """Both routes of both cost-table kernels, and ``dpm_plan``, against
+    their plain versions on three fabrics and the edge cases; the planning
+    path with the counts zeroed; the routes' times. Returns the
+    kernels-line entries of the two kernels."""
     import torch
 
     from repro_torch.core import (
         get_cost_model, make_topology, route_cost_matrices,
     )
     from repro_torch.kernels.dpm_cost import (
-        KERNEL as DPM_KERNEL, dpm_cost_table, dpm_cost_table_ref,
+        KERNEL as DPM_KERNEL, VARIANTS, dpm_cost_table, dpm_cost_table_ref,
         dpm_cost_table_weighted, dpm_cost_table_weighted_ref, dpm_plan,
         dpm_plan_weighted,
     )
@@ -621,135 +729,160 @@ def phase_cost_tables(cfg16) -> list:
         return (torch.from_numpy(dist.astype("float32")).cuda(),
                 torch.from_numpy(w).cuda(), oh)
 
-    cases = [
-        ("sweep16x16", make_topology("mesh", 16, 16), False,
-         sweep_requests(cfg16)),
-        ("torus8x8", make_topology("torus", 8, 8), True,
-         small_requests(NoCConfig(topology="torus", dest_range=(4, 8)))),
-        ("mesh8x4", make_topology("mesh", 8, 4), False,
-         small_requests(NoCConfig(n=8, m=4, dest_range=(4, 8)))),
-    ]
-    timing: dict = {}
-    for grid_name, g, wrap, reqs in cases:
+    def plan_equal(plan_k, pc, pr) -> tuple[bool, float]:
+        diffs = [tensor_diff(a, b)
+                 for a, b in zip(plan_k, (_greedy_merge(pc, pr), pc, pr))]
+        return all(e for e, _ in diffs), max(d for _, d in diffs)
+
+    g16 = make_topology("mesh", 16, 16)
+    mask16, sxy16 = dpm_inputs(g16, sweep_requests(cfg16), "cuda")
+    batches = [("sweep16x16", g16, False, mask16, sxy16)]
+    for label, kind, n, m, cfg in (
+            ("torus8x8", "torus", 8, 8,
+             NoCConfig(topology="torus", dest_range=(4, 8))),
+            ("mesh8x4", "mesh", 8, 4, NoCConfig(n=8, m=4, dest_range=(4, 8)))):
+        g = make_topology(kind, n, m)
+        batches.append((label, g, kind == "torus",
+                        *dpm_inputs(g, small_requests(cfg), "cuda")))
+    batches += dpm_edge_batches(mask16, sxy16, "cuda")
+    errs = dict.fromkeys(DPM_TABLES, 0.0)
+    for label, g, wrap, mask, sxy in batches:
         n, m = g.n, g.rows
-        mask, sxy = dpm_inputs(g, reqs, "cuda")
         P, NN = mask.shape
         routes = {model: route_tensors(g, model)
                   for model in ("hops", "weighted", "energy")}
         for leg in (True, False):
             kw = dict(n=n, m=m, wrap=wrap, include_source_leg=leg)
-            (kc, kr), k_ms = median_ms(lambda: dpm_cost_table(mask, sxy, **kw))
-            (pc, pr), p_ms = median_ms(
-                lambda: dpm_cost_table_ref(mask, sxy, **kw))
-            eq_c, err_c = tensor_diff(kc, pc)
-            eq_r, err_r = tensor_diff(kr, pr)
-            err = max(err_c, err_r)
-            say("kernel_vs_plain", kernel="dpm_cost_table", grid=grid_name,
-                leg=leg, P=P, NN=NN, equal=eq_c and eq_r, max_abs_err=err,
-                kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}")
-            if not (eq_c and eq_r):
-                fail(f"dpm_cost_table != plain on {grid_name} leg={leg}")
-            if grid_name == "sweep16x16" and leg:
-                timing["dpm_cost_table"] = (k_ms, p_ms, err,
-                                            dpm_bound_ms(mask, wrap, False))
-            plan_k = dpm_plan(mask, sxy, **kw, device="cuda")
-            plan_p = (_greedy_merge(pc, pr), pc, pr)
-            diffs = [tensor_diff(a, b) for a, b in zip(plan_k, plan_p)]
-            say("kernel_vs_plain", kernel="dpm_plan", grid=grid_name,
-                leg=leg, P=P, outputs="chosen/costs/reps",
-                equal=all(e for e, _ in diffs),
-                max_abs_err=max(d for _, d in diffs))
-            if not all(e for e, _ in diffs):
-                fail(f"dpm_plan != plain on {grid_name} leg={leg}")
+            pc, pr = dpm_cost_table_ref(mask, sxy, **kw)
+            for v in VARIANTS:
+                kc, kr = dpm_cost_table(mask, sxy, **kw, variant=v)
+                (eq_c, err_c), (eq_r, err_r) = tensor_diff(kc, pc), tensor_diff(kr, pr)
+                err = max(err_c, err_r)
+                errs["dpm_cost_table"] = max(errs["dpm_cost_table"], err)
+                say("kernel_vs_plain", kernel="dpm_cost_table", route=v,
+                    grid=label, leg=leg, P=P, NN=NN, equal=eq_c and eq_r,
+                    max_abs_err=err)
+                if not (eq_c and eq_r):
+                    fail(f"dpm_cost_table ({v}) != plain on {label} leg={leg}")
+            eq, err = plan_equal(dpm_plan(mask, sxy, **kw, device="cuda"),
+                                 pc, pr)
+            say("kernel_vs_plain", kernel="dpm_plan", grid=label, leg=leg,
+                P=P, outputs="chosen/costs/reps", equal=eq, max_abs_err=err)
+            if not eq:
+                fail(f"dpm_plan != plain on {label} leg={leg}")
             for model, (dist, w, oh) in routes.items():
                 wkw = dict(kw, overhead=oh)
-                (kc, kr), k_ms = median_ms(lambda: dpm_cost_table_weighted(
-                    mask, sxy, dist, w, **wkw))
-                (pc, pr), p_ms = median_ms(
-                    lambda: dpm_cost_table_weighted_ref(
-                        mask, sxy, dist, w, **wkw))
-                eq_c, err_c = tensor_diff(kc, pc)
-                eq_r, err_r = tensor_diff(kr, pr)
-                err = max(err_c, err_r)
-                rel = float(((kc - pc).abs()
-                             / pc.abs().clamp(min=1e-30)).max())
+                pc, pr = dpm_cost_table_weighted_ref(mask, sxy, dist, w, **wkw)
                 exact = model != "energy"
-                ok = eq_r and (eq_c if exact else rel <= ENERGY_RTOL)
-                say("kernel_vs_plain", kernel="dpm_cost_table_weighted",
-                    grid=grid_name, model=model, leg=leg, P=P, NN=NN,
-                    equal=eq_c and eq_r, max_abs_err=err,
-                    max_rel_err=f"{rel:.3g}",
-                    tolerance="exact" if exact else f"rtol={ENERGY_RTOL}",
-                    kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}")
-                if not ok:
-                    fail(f"dpm_cost_table_weighted != plain on {grid_name} "
-                         f"{model} leg={leg}")
-                if grid_name == "sweep16x16" and leg and model == "hops":
-                    timing["dpm_cost_table_weighted"] = (
-                        k_ms, p_ms, err, dpm_bound_ms(mask, wrap, True))
+                for v in VARIANTS:
+                    kc, kr = dpm_cost_table_weighted(mask, sxy, dist, w, **wkw,
+                                                     variant=v)
+                    (eq_c, err_c), (eq_r, err_r) = (tensor_diff(kc, pc),
+                                                    tensor_diff(kr, pr))
+                    err = max(err_c, err_r)
+                    errs["dpm_cost_table_weighted"] = max(
+                        errs["dpm_cost_table_weighted"], err)
+                    rel = float(((kc - pc).abs()
+                                 / pc.abs().clamp(min=1e-30)).max())
+                    ok = eq_r and (eq_c if exact else rel <= ENERGY_RTOL)
+                    say("kernel_vs_plain", kernel="dpm_cost_table_weighted",
+                        route=v, grid=label, model=model, leg=leg, P=P,
+                        NN=NN, equal=eq_c and eq_r, max_abs_err=err,
+                        max_rel_err=f"{rel:.3g}",
+                        tolerance="exact" if exact else f"rtol={ENERGY_RTOL}")
+                    if not ok:
+                        fail(f"dpm_cost_table_weighted ({v}) != plain on "
+                             f"{label} {model} leg={leg}")
                 if exact:
-                    plan_k = dpm_plan_weighted(mask, sxy, dist, w, **wkw,
-                                               device="cuda")
-                    plan_p = (_greedy_merge(pc, pr), pc, pr)
-                    if not all(tensor_diff(a, b)[0]
-                               for a, b in zip(plan_k, plan_p)):
-                        fail(f"dpm_plan_weighted != plain on {grid_name} "
+                    eq, _ = plan_equal(dpm_plan_weighted(
+                        mask, sxy, dist, w, **wkw, device="cuda"), pc, pr)
+                    if not eq:
+                        fail(f"dpm_plan_weighted != plain on {label} "
                              f"{model} leg={leg}")
 
     # the planning path: dpm_plan and dpm_plan_weighted (hops, weighted) on
     # every request of the sweep, the launch counts set to 0 just before
     # and read just after
-    g, reqs = cases[0][1], cases[0][3]
-    mask, sxy = dpm_inputs(g, reqs, "cuda")
-    tensors = {model: route_tensors(g, model) for model in ("hops", "weighted")}
+    tensors = {model: route_tensors(g16, model) for model in ("hops", "weighted")}
     DPM_KERNEL.reset()
-    chosen, _, _ = dpm_plan(mask, sxy, n=16, device="cuda")
+    chosen, _, _ = dpm_plan(mask16, sxy16, n=16, device="cuda")
     for model, (dist, w, oh) in tensors.items():
-        dpm_plan_weighted(mask, sxy, dist, w, n=16, overhead=oh,
+        dpm_plan_weighted(mask16, sxy16, dist, w, n=16, overhead=oh,
                           device="cuda")
     torch.cuda.synchronize()
     launches = dict(DPM_KERNEL.launches)
-    for name, count in launches.items():
-        if count <= 0:
-            fail(f"the planning path never launched {name}")
-    say("dpm_path", requests=len(reqs),
-        launches=",".join(f"{k}:{v}" for k, v in launches.items()),
+    by_route = dict(DPM_KERNEL.variant_launches)
+    for name in DPM_TABLES:
+        if by_route[f"{name}/warp"] <= 0 or by_route[f"{name}/block"] != 0:
+            fail(f"the planning path launched {name} off the warp route: "
+                 f"{by_route}")
+    say("dpm_path", requests=mask16.shape[0],
+        launches=",".join(f"{k}:{v}" for k, v in by_route.items()),
         merged_partitions=int(chosen[:, 8:].sum()),
-        partitions_per_request=f"{float(chosen.sum()) / len(reqs):.4f}")
-    # the kernels alone, without the wrappers' checks and allocations
+        partitions_per_request=f"{float(chosen.sum()) / mask16.shape[0]:.4f}")
+
+    # times: the routes in turns through the wrappers, the plain versions,
+    # and each kernel alone from a child process, on the sweep and the
+    # dense batch (mesh, source leg on, hops prices)
     dist, w, oh = tensors["hops"]
-    alone = {
-        "dpm_cost_table": profiled_ms(
-            lambda: dpm_cost_table(mask, sxy, n=16), "cost_table_kernel"),
-        "dpm_cost_table_weighted": profiled_ms(
-            lambda: dpm_cost_table_weighted(mask, sxy, dist, w, n=16,
-                                            overhead=oh),
-            "cost_table_weighted_kernel"),
+    dense = next(b for b in batches if b[0] == "dense16x16")
+    timed_batches = {"sweep16x16": (mask16, sxy16),
+                     "dense16x16": (dense[3], dense[4])}
+    DPM_COST_CASES.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({k: (mk, xy, dist, w, oh)
+                for k, (mk, xy) in timed_batches.items()}, DPM_COST_CASES)
+    alone = child_json("--dpm-cost-alone")
+    DPM_COST_CASES.unlink()
+    plain_ms = {
+        "dpm_cost_table": median_ms(
+            lambda: dpm_cost_table_ref(mask16, sxy16, n=16))[1],
+        "dpm_cost_table_weighted": median_ms(
+            lambda: dpm_cost_table_weighted_ref(mask16, sxy16, dist, w, n=16,
+                                                overhead=oh))[1],
     }
-    entries = []
-    for name, (k_ms, p_ms, err, (b_ms, b_by, nbytes, ops)) in timing.items():
-        t_alone = alone[name][0]
-        say("dpm_bound", kernel=name, bound_ms=f"{b_ms:.5f}", bound_by=b_by,
-            bytes=nbytes, ops=ops, kernel_ms=f"{k_ms:.4f}",
-            times_bound=f"{k_ms / b_ms:.1f}",
-            kernel_alone_ms="not measured" if t_alone is None
-            else f"{t_alone:.4f}")
-        entries.append({
-            "name": name,
-            "route": "cuda",
-            "source": "src/repro_torch/kernels/dpm_cost/csrc/dpm_cost.cu",
-            "replaces": ("src/repro/kernels/dpm_cost/dpm_cost.py:169"
-                         if name == "dpm_cost_table"
-                         else "src/repro/kernels/dpm_cost/dpm_cost.py:213"),
-            "launches": launches[name],
-            "max_abs_err": err,
-            "ms": k_ms,
-            "plain_ms": p_ms,
-            "bound_ms": b_ms,
-            "bound_by": b_by,
-            "library_ms": None,
-        })
-    return entries
+    sweep_ms = {}
+    for batch, (mk, xy) in timed_batches.items():
+        routes = time_dpm_routes(dpm_cost_calls(mk, xy, dist, w, oh))
+        for name in DPM_TABLES:
+            b_ms, b_by, nbytes, ops = dpm_bound_ms(
+                mk, False, name == "dpm_cost_table_weighted")
+            (warp_ms, warp_runs), (blk_ms, blk_runs) = (
+                routes[name, "warp"], routes[name, "block"])
+            say("dpm_routes", kernel=name, batch=batch, P=mk.shape[0],
+                destinations=int(mk.sum()), warp_ms=f"{warp_ms:.4f}",
+                block_ms=f"{blk_ms:.4f}",
+                warp_ms_runs=",".join(f"{t:.4f}" for t in warp_runs),
+                block_ms_runs=",".join(f"{t:.4f}" for t in blk_runs),
+                block_over_warp=f"{blk_ms / warp_ms:.2f}")
+            for v, ms in (("warp", warp_ms), ("block", blk_ms)):
+                t_alone = alone[batch][f"{name}/{v}"]
+                if t_alone is None:
+                    fail(f"no device time for {name} ({v}) on {batch}")
+                say("dpm_bound", kernel=name, batch=batch, route=v,
+                    bound_ms=f"{b_ms:.5f}", bound_by=b_by, bytes=nbytes,
+                    ops=ops, kernel_alone_ms=f"{t_alone:.4f}",
+                    alone_times_bound=f"{t_alone / b_ms:.2f}",
+                    wrapper_ms=f"{ms:.4f}",
+                    wrapper_times_bound=f"{ms / b_ms:.2f}",
+                    **({"plain_ms": f"{plain_ms[name]:.4f}"}
+                       if batch == "sweep16x16" else {}))
+            if batch == "sweep16x16":
+                sweep_ms[name] = (warp_ms, b_ms, b_by)
+    return [{
+        "name": name,
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/dpm_cost/csrc/dpm_cost.cu",
+        "replaces": ("src/repro/kernels/dpm_cost/dpm_cost.py:169"
+                     if name == "dpm_cost_table"
+                     else "src/repro/kernels/dpm_cost/dpm_cost.py:213"),
+        "launches": launches[name],
+        "max_abs_err": errs[name],
+        "ms": sweep_ms[name][0],
+        "plain_ms": plain_ms[name],
+        "bound_ms": sweep_ms[name][1],
+        "bound_by": sweep_ms[name][2],
+        "library_ms": None,
+    } for name in DPM_TABLES]
 
 
 def phase_bulk_plan(cfg16) -> None:
@@ -1101,9 +1234,9 @@ def prefill_profile() -> None:
 
 def child_json(flag: str) -> dict:
     """The JSON line a child process of this script prints when run with
-    ``flag`` (``--noc-cycle-alone``, ``--serve-kernel-alone``,
-    ``--segmin-kernel-alone``, ``--prefill-profile``): profiler times taken
-    in a fresh process."""
+    ``flag`` (``--noc-cycle-alone``, ``--dpm-cost-alone``,
+    ``--serve-kernel-alone``, ``--segmin-kernel-alone``,
+    ``--prefill-profile``): profiler times taken in a fresh process."""
     proc = subprocess.run(
         [sys.executable, str(Path(__file__).resolve()), flag],
         capture_output=True, text=True, timeout=300,
@@ -1794,6 +1927,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--noc-cycle-alone"]:
         noc_cycle_alone()
+        return
+    if sys.argv[1:] == ["--dpm-cost-alone"]:
+        dpm_cost_alone()
         return
 
     # ---- 1. environment ---------------------------------------------------

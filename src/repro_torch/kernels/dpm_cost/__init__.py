@@ -6,7 +6,9 @@ plain PyTorch cost tables (the CPU path and the kernels' oracle),
 ``ops.py`` dispatches by the device of the tensors and adds the greedy merge
 and the batched planner's full-objective ``dpm_plan_exact``.
 """
-from .dpm_cost import CANDS, KERNEL, dpm_cost_table, dpm_cost_table_weighted
+from .dpm_cost import (
+    CANDS, KERNEL, VARIANTS, dpm_cost_table, dpm_cost_table_weighted,
+)
 from .ops import (
     NO_ORDER,
     dpm_plan,
@@ -20,7 +22,8 @@ from .ops import (
 from .ref import dpm_cost_table_ref, dpm_cost_table_weighted_ref
 
 __all__ = [
-    "CANDS", "KERNEL", "NO_ORDER", "dpm_cost_table", "dpm_cost_table_ref",
+    "CANDS", "KERNEL", "NO_ORDER", "VARIANTS", "dpm_cost_table",
+    "dpm_cost_table_ref",
     "dpm_cost_table_weighted", "dpm_cost_table_weighted_ref", "dpm_plan",
     "dpm_plan_exact", "dpm_plan_topo", "dpm_plan_weighted",
     "partition_membership", "snake_labels", "total_plan_cost",

@@ -15,10 +15,18 @@ tensors (``dist`` picks the representative, ``weight`` prices C_t and the
 leg, plus ``overhead`` per destination beyond the representative) into
 float32 costs.
 
+Each table has two routes (``VARIANTS``): ``"warp"``, the default, gives
+each packet one warp that streams its mask row once into a list of its
+destinations and works over those only; ``"block"``, the first design, gives each
+packet a thread block striding over all its nodes, and stays for
+comparison. ``variant=`` picks one; ``dpm_plan`` and ``dpm_plan_weighted``
+run the default.
+
 The library is built at first use (``kernels.build``). Both wrappers take
 CUDA tensors only and raise on anything else; ``ops.py`` dispatches CPU
 tensors to the plain versions in ``ref.py``. ``KERNEL.launches`` counts the
-launches of each kernel by name.
+launches of each kernel by name, ``KERNEL.variant_launches`` by name and
+route (``"dpm_cost_table/warp"``).
 """
 from __future__ import annotations
 
@@ -41,8 +49,11 @@ EMPTY_KEY = 1 << 30
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "dpm_cost.cu"
 NAMES = ("dpm_cost_table", "dpm_cost_table_weighted")
-# the per-node wedge bytes live in dynamic shared memory (48 KB without an
-# opt-in, a few KB of it taken by the reduction partials)
+VARIANTS = ("warp", "block")
+# the block route keeps one byte per node in dynamic shared memory (48 KB
+# without an opt-in, a few KB more taken by the reduction partials); the
+# warp route two per node and packet (8 packets a block up to ~2,600 nodes,
+# fewer above, one with an opt-in above ~24,000); node ids fit 16 bits
 MAX_NODES = 32_768
 
 
@@ -60,9 +71,10 @@ def _ring_delta(d, size: int, wrap: bool):
 
 
 class DpmCostKernels(CudaLibrary):
-    """The built library, its build report and one launch counter per
+    """The built library, its build report and launch counters per
     kernel (``launches["dpm_cost_table"]``, ``launches[
-    "dpm_cost_table_weighted"]``)."""
+    "dpm_cost_table_weighted"]``) and per kernel and route
+    (``variant_launches["dpm_cost_table/warp"]``)."""
 
     def __init__(self):
         super().__init__("dpm_cost", _SRC)
@@ -70,13 +82,15 @@ class DpmCostKernels(CudaLibrary):
 
     def reset(self) -> None:
         self.launches = dict.fromkeys(NAMES, 0)
+        self.variant_launches = {f"{k}/{v}": 0 for k in NAMES
+                                 for v in VARIANTS}
 
     def bind(self, lib: ctypes.CDLL) -> None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dpm_cost_table_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        lib.dpm_cost_table_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
         lib.dpm_cost_table_launch.restype = ctypes.c_int
         lib.dpm_cost_table_weighted_launch.argtypes = [
-            p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, p,
+            p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p,
         ]
         lib.dpm_cost_table_weighted_launch.restype = ctypes.c_int
 
@@ -84,7 +98,9 @@ class DpmCostKernels(CudaLibrary):
 KERNEL = DpmCostKernels()
 
 
-def _packets(dest_mask, src_xy, n, m):
+def _packets(dest_mask, src_xy, n, m, variant):
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown dpm_cost variant {variant!r}")
     device = dest_mask.device
     if device.type != "cuda":
         raise ValueError(f"the dpm_cost kernels need CUDA tensors, got {device}")
@@ -94,17 +110,19 @@ def _packets(dest_mask, src_xy, n, m):
     if P == 0:
         raise ValueError("the dpm_cost kernels need at least one packet")
     if NN > MAX_NODES:
-        raise ValueError(f"{NN} nodes > {MAX_NODES}: the kernels keep one "
-                         "byte per node in shared memory")
+        raise ValueError(f"{NN} nodes > {MAX_NODES}: the kernels keep "
+                         "each packet's nodes in shared memory")
     check_tensor("dest_mask", dest_mask, torch.int32, (P, NN), device)
     check_tensor("src_xy", src_xy, torch.int32, (P, 2), device)
     return device, P, NN
 
 
-def _launched(name: str, err: int) -> None:
+def _launched(name: str, variant: str, err: int) -> None:
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"{name} ({variant}) kernel launch failed: "
+                           f"cudaError {err}")
     KERNEL.launches[name] += 1
+    KERNEL.variant_launches[f"{name}/{variant}"] += 1
 
 
 def dpm_cost_table(
@@ -115,12 +133,13 @@ def dpm_cost_table(
     m: int | None = None,
     wrap: bool = False,
     include_source_leg: bool = True,
+    variant: str = "warp",
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Candidate cost tables through the CUDA kernel: ``(costs (P, 24)
-    int32, reps (P, 24) int32)``, the contract of
+    """Candidate cost tables through the CUDA kernel of route ``variant``:
+    ``(costs (P, 24) int32, reps (P, 24) int32)``, the contract of
     ``ref.dpm_cost_table_ref``. Runs on PyTorch's current stream."""
     m = m or n
-    device, P, NN = _packets(dest_mask, src_xy, n, m)
+    device, P, NN = _packets(dest_mask, src_xy, n, m, variant)
     # every representative key dist * 2^20 + label stays below the
     # sentinel, so the empty-candidate test and the argmin agree
     far = (n // 2 + m // 2) if wrap else (n - 1 + m - 1)
@@ -134,9 +153,9 @@ def dpm_cost_table(
         err = lib.dpm_cost_table_launch(
             dest_mask.data_ptr(), src_xy.data_ptr(), costs.data_ptr(),
             reps.data_ptr(), P, n, m, int(wrap), int(include_source_leg),
-            stream,
+            int(variant == "block"), stream,
         )
-        _launched("dpm_cost_table", err)
+        _launched("dpm_cost_table", variant, err)
     return costs, reps
 
 
@@ -151,14 +170,16 @@ def dpm_cost_table_weighted(
     wrap: bool = False,
     overhead: float = 0.0,
     include_source_leg: bool = True,
+    variant: str = "warp",
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Candidate cost tables over route tensors through the CUDA kernel:
-    ``(costs (P, 24) float32, reps (P, 24) int32)``, the contract of
+    """Candidate cost tables over route tensors through the CUDA kernel of
+    route ``variant``: ``(costs (P, 24) float32, reps (P, 24) int32)``,
+    the contract of
     ``ref.dpm_cost_table_weighted_ref``. ``dist`` must hold hop counts
     small enough for the int32 rep key (checked: one device-to-host read
     of its maximum)."""
     m = m or n
-    device, P, NN = _packets(dest_mask, src_xy, n, m)
+    device, P, NN = _packets(dest_mask, src_xy, n, m, variant)
     check_tensor("dist", dist, torch.float32, (NN, NN), device)
     check_tensor("weight", weight, torch.float32, (NN, NN), device)
     if int(dist.max()) * BIG + NN >= EMPTY_KEY:
@@ -171,7 +192,8 @@ def dpm_cost_table_weighted(
         err = lib.dpm_cost_table_weighted_launch(
             dest_mask.data_ptr(), src_xy.data_ptr(), dist.data_ptr(),
             weight.data_ptr(), costs.data_ptr(), reps.data_ptr(), P, n, m,
-            int(wrap), int(include_source_leg), float(overhead), stream,
+            int(wrap), int(include_source_leg), float(overhead),
+            int(variant == "block"), stream,
         )
-        _launched("dpm_cost_table_weighted", err)
+        _launched("dpm_cost_table_weighted", variant, err)
     return costs, reps

@@ -263,6 +263,23 @@ def test_kernel_wrappers_take_cuda_tensors_only():
     with pytest.raises(ValueError, match="CUDA"):
         tkern.dpm_cost_table_weighted(_t(mask), _t(sxy), d, d, n=4)
     assert tkern.KERNEL.launches == dict.fromkeys(tkern.NAMES, 0)
+    assert set(tkern.KERNEL.variant_launches.values()) == {0}
     assert tkern._ring_delta(torch.tensor([-3, -2, 2, 3]), 4, True).tolist() \
         == [1, -2, -2, -1]
     assert [tcore.ring_delta(d, 4) for d in (-3, -2, 2, 3)] == [1, -2, -2, -1]
+
+
+def test_kernel_wrappers_refuse_an_unknown_route():
+    """``variant=`` names one of the two routes; anything else raises
+    before a tensor is looked at, and no route is counted."""
+    mask, sxy = _packets(4, 4, 4, seed=1)
+    with pytest.raises(ValueError, match="variant"):
+        tkern.dpm_cost_table(_t(mask), _t(sxy), n=4, variant="grid")
+    d = torch.zeros((16, 16))
+    with pytest.raises(ValueError, match="variant"):
+        tkern.dpm_cost_table_weighted(_t(mask), _t(sxy), d, d, n=4,
+                                      variant="")
+    assert tkern.VARIANTS == ("warp", "block")
+    assert sorted(tkern.KERNEL.variant_launches) == sorted(
+        f"{k}/{v}" for k in tkern.NAMES for v in tkern.VARIANTS)
+    assert set(tkern.KERNEL.variant_launches.values()) == {0}
