@@ -84,11 +84,16 @@ non-zero before the result line:
    (tests/test_kernels.py's shapes; xsim's fused link + ejection id space
    at the 8x8, 16x16 and 32x32 grids with B = 4, 16 and 132 instances; the
    16x16 case with padded entries; a 32x32 hot spot of 64 segments) and
-   one arbitration round, the launch count set to 0 just before and read
-   just after; every output equal to the plain version (``scatter_reduce_``
-   amin) on the card and on the CPU, one admissible minimum winner per
-   contested resource; each case timed beside the plain version and its
-   bound;
+   three arbitration rounds (777 x 61, and xsim's 16x16 and 32x32 id spaces
+   with unique keys), the launch counts by route (``[segmin_routes]``:
+   ``grid``, ``atomic``) set to 0 just before and read just after: the
+   one-launch ``grid`` route must launch, the first kernel pair (``atomic``)
+   never. Then both routes on each case must equal the plain version
+   (``scatter_reduce_`` amin) on the card and on the CPU, and each round,
+   fused (``grid``) and unfused (the torch winner test around the
+   ``atomic`` pair, the first port's path), the plain path and the
+   one-admissible-minimum rule; each route timed alone and through its
+   wrapper beside its bound, the rounds fused and unfused;
 9. host NoC: ``WormholeSim`` on the paper's configuration (8x8, Table I,
    rate 0.02, 300 cycles), MU and DPM, fed by ``add_requests(device=
    "cuda")`` (DPM planned in batches on the card) and by ``simulate()``:
@@ -179,6 +184,9 @@ SSD_EDGE_CASES = (
 SEGMIN_SHAPES = ((64, 7), (1000, 256), (4096, 64), (37, 300), (512, 320))
 SEGMIN_GRIDS = (("paper8x8", 8, 4), ("scale16x16", 16, 16),
                 ("mesh32x32", 32, 132))
+# arbitrate rounds with unique keys at xsim's id spaces (name, side, B)
+SEGMIN_ARBITRATE_GRIDS = (("scale16x16", 16, 16), ("mesh32x32", 32, 132))
+SEGMIN_ALONE_REPS = 5  # calls per profiled window of the kernel-alone times
 # the host-simulator phase: the paper's configuration
 HOST_SIM_RATE, HOST_SIM_CYCLES = 0.02, 300
 
@@ -1661,20 +1669,128 @@ def segmin_bound_ms(N: int, L: int) -> tuple[float, str, int, int]:
     return roofline(nbytes, ops, INT32_OPS_PER_S)
 
 
-def segmin_kernel_alone() -> None:
-    """``--segmin-kernel-alone``: print one JSON line with the profiler's
-    device time of one ``segmin`` call (its fill and scatter kernels) on
-    each ``[segmin]`` case. Run in a fresh process by ``phase_segmin``, as
-    ``serve_kernel_alone`` is."""
+def arbitrate_bound_ms(N: int) -> tuple[float, str, int, int]:
+    """Least time the card could take for one arbitration round: keys,
+    segments and the mask read once and the winner mask written once (10 N
+    bytes; the minima are not an output) over HBM bandwidth, and 9 int32
+    operations per candidate (the masked key, the segmented minimum's five,
+    the clip, the comparison, the winner's and) over the int32 issue
+    rate."""
+    return roofline(10 * N, 9 * N, INT32_OPS_PER_S)
+
+
+def arbitrate_rounds() -> list:
+    """The ``[segmin]`` arbitration rounds as (name, adm, keys, segs, L),
+    numpy: a 777 x 61 round (unique keys, 40% admissible) and xsim's
+    id space at 16x16 (B = 16) and 32x32 (B = 132) with unique keys (a
+    permutation) and 70% of candidates admissible."""
+    import numpy as np
+
+    rng = np.random.default_rng(9)
+    AN, AL = 777, 61
+    keys = rng.permutation(AN).astype(np.int32)
+    segs = rng.integers(0, AL, AN).astype(np.int32)
+    adm = rng.random(AN) < 0.4
+    rounds = [(f"arbitrate_{AN}x{AL}", adm, keys, segs, AL)]
+    for seed, (name, n, B) in enumerate(SEGMIN_ARBITRATE_GRIDS, start=200):
+        rng = np.random.default_rng(seed)
+        _, segs, L = xsim_id_space(n, B, rng)
+        keys = rng.permutation(segs.size).astype(np.int32)
+        adm = rng.random(segs.size) < 0.7
+        rounds.append((f"arbitrate_xsim_{name}_B{B}", adm, keys, segs, L))
+    return rounds
+
+
+def winner_test(adm, keys, segs, L, seg_min_fn):
+    """One arbitration round in torch around ``seg_min_fn(keys, segs, L)``:
+    the masked keys' segmented minimum, then the winner test."""
     import torch
 
-    from repro_torch.kernels.noc_step import segmin
+    from repro_torch.kernels.noc_step import NOC_INF
 
-    out = {}
+    mkeys = torch.where(adm, keys, NOC_INF).to(torch.int32)
+    seg_min = seg_min_fn(mkeys, segs, L)
+    won = mkeys == seg_min[segs.to(torch.int64).clamp(0, L - 1)]
+    return adm & won & (mkeys < NOC_INF)
+
+
+def arbitrate_plain(adm, keys, segs, L):
+    """The plain arbitration round on the tensors' device: the winner test
+    around ``segmented_min_ref``."""
+    from repro_torch.kernels.noc_step import segmented_min_ref
+
+    return winner_test(adm, keys, segs, L, segmented_min_ref)
+
+
+def arbitrate_unfused(adm, keys, segs, L):
+    """The unfused arbitration round on the card: the winner test in torch
+    around the ``atomic`` kernel pair."""
+    from repro_torch.kernels.noc_step import segmented_min
+
+    return winner_test(adm, keys, segs, L, lambda k, sg, n: segmented_min(
+        k, sg, n, variant="atomic"))
+
+
+def arbitrate_rules(win, adm, keys, segs, L) -> tuple[bool, bool]:
+    """(one winner per contested resource and none elsewhere, every winner
+    admissible and its resource's least admissible key) of a winner mask;
+    CPU tensors, segments in range."""
+    import torch
+
+    from repro_torch.kernels.noc_step import NOC_INF
+
+    s64 = segs.to(torch.int64)
+    mkeys = torch.where(adm, keys, NOC_INF).to(torch.int32)
+    seg_min = torch.full((L,), NOC_INF, dtype=torch.int32).scatter_reduce_(
+        0, s64, mkeys, "amin")
+    winners = torch.bincount(s64[win], minlength=L)
+    contested = torch.bincount(s64[adm], minlength=L) > 0
+    one_each = bool((winners == contested.to(winners.dtype)).all())
+    least = bool((mkeys[win] == seg_min[s64[win]]).all())
+    return one_each, least and not bool((win & ~adm).any())
+
+
+def time_turns(fns: dict, reps: int = 3) -> dict:
+    """Each function of ``fns`` timed ``2 reps`` times with CUDA events, in
+    turns (forward, then backward order): ``{name: (median ms, runs)}``."""
+    runs = {k: [] for k in fns}
+    order = list(fns)
+    for r in range(2 * reps):
+        for k in (order if r % 2 == 0 else order[::-1]):
+            runs[k].append(timed(fns[k])[1])
+    return {k: (sorted(v)[len(v) // 2], v) for k, v in runs.items()}
+
+
+def segmin_kernel_alone() -> None:
+    """``--segmin-kernel-alone``: print one JSON line with the profiler's
+    device time per call (mean of ``SEGMIN_ALONE_REPS`` calls in one
+    window) of both routes on each ``[segmin]`` case (the kernels whose
+    names hold "segmin") and of every arbitration round, fused
+    (``arbitrate_kernel``) and unfused (``arbitrate_unfused``; every kernel
+    of the call, its torch launches too). Run in a fresh process by
+    ``phase_segmin``, as ``serve_kernel_alone`` is."""
+    import torch
+
+    from repro_torch.kernels.noc_step import (
+        VARIANTS, arbitrate_kernel, segmented_min,
+    )
+
+    def alone(fn, match):
+        ms, _ = profiled_ms(lambda: [fn() for _ in range(SEGMIN_ALONE_REPS)],
+                            match)
+        return None if ms is None else ms / SEGMIN_ALONE_REPS
+
+    out = {"cases": {}, "rounds": {}}
     for name, keys, segs, L in segmin_cases():
         k, sg = torch.from_numpy(keys).cuda(), torch.from_numpy(segs).cuda()
-        out[name] = profiled_ms(lambda: segmin(k, sg, L, device="cuda"),
-                                "segmin")[0]
+        out["cases"][name] = {v: alone(
+            lambda: segmented_min(k, sg, L, variant=v), "segmin")
+            for v in VARIANTS}
+    for name, adm, keys, segs, L in arbitrate_rounds():
+        a, k, sg = (torch.from_numpy(t).cuda() for t in (adm, keys, segs))
+        out["rounds"][name] = {
+            "grid": alone(lambda: arbitrate_kernel(a, k, sg, L), ""),
+            "atomic": alone(lambda: arbitrate_unfused(a, k, sg, L), "")}
     print(json.dumps(out), flush=True)
 
 
@@ -1701,102 +1817,148 @@ def noc_cycle_alone() -> None:
 
 
 def phase_segmin() -> list:
-    """``segmin`` and ``arbitrate`` on the card (the entry points, the launch
-    count set to 0 just before and read just after), each output held
-    against the plain version on the same CUDA tensors and on the CPU with
-    exact equality, then the times of each case. Returns the kernels-line
-    entry of ``segmented_min``."""
-    import numpy as np
+    """``segmin`` and ``arbitrate`` on the card through the entry points
+    (the launch counts, by route, set to 0 just before and read just
+    after), then both routes on each case held against the plain version
+    on the same CUDA tensors and on the CPU with exact equality, the
+    arbitration rounds, fused and unfused, against the plain path and the
+    one-admissible-minimum rule, then the times: each route alone and
+    through its wrapper beside its bound and ``scatter_reduce_``, the rounds
+    fused and unfused. Returns the kernels-line entry of
+    ``segmented_min``."""
     import torch
 
     from repro_torch.kernels.noc_step import (
-        KERNEL as SEGMIN_KERNEL, NOC_INF, arbitrate, segmented_min_ref, segmin,
+        KERNEL as SEGMIN_KERNEL, NOC_INF, VARIANTS, arbitrate,
+        arbitrate_kernel, segmented_min, segmented_min_ref, segmin,
     )
 
+    SEGMIN_KERNEL.build()
     cases = segmin_cases()
     on_card = [(name, torch.from_numpy(k).cuda(), torch.from_numpy(sg).cuda(),
                 L) for name, k, sg, L in cases]
-    rng = np.random.default_rng(9)
-    AN, AL = 777, 61
-    a_keys = rng.permutation(AN).astype(np.int32)  # unique
-    a_segs = rng.integers(0, AL, AN).astype(np.int32)
-    a_adm = rng.random(AN) < 0.4
-    a_card = [torch.from_numpy(t).cuda() for t in (a_adm, a_keys, a_segs)]
+    rounds = arbitrate_rounds()
+    r_card = [(name, *(torch.from_numpy(t).cuda() for t in (a, k, sg)), L)
+              for name, a, k, sg, L in rounds]
     torch.cuda.synchronize()
 
-    # ---- the path: every case through the entry points ---------------------
+    # ---- the path: every case and round through the entry points ----------
     SEGMIN_KERNEL.launches = 0
+    SEGMIN_KERNEL.launches_by_route = dict.fromkeys(VARIANTS, 0)
     outs = [segmin(k, sg, L, device="cuda") for _, k, sg, L in on_card]
-    win = arbitrate(*a_card, AL, device="cuda")
+    wins = [arbitrate(a, k, sg, L, device="cuda") for _, a, k, sg, L in r_card]
     torch.cuda.synchronize()
     launches = SEGMIN_KERNEL.launches
-    if launches <= 0:
-        fail("segmin/arbitrate never launched the segmented_min kernel")
-    say("segmin_path", cases=len(on_card), arbitrate_cases=1,
+    by_route = dict(SEGMIN_KERNEL.launches_by_route)
+    say("segmin_path", cases=len(on_card), arbitrate_cases=len(r_card),
         launches=launches)
+    say("segmin_routes", **by_route)
+    if launches != len(on_card) + len(r_card):
+        fail(f"segmin/arbitrate launched {launches} times, expected "
+             f"{len(on_card) + len(r_card)}")
+    if by_route != {"grid": launches, "atomic": 0}:
+        fail(f"the entry points' routes: {by_route}")
 
-    # ---- each output against the plain version -----------------------------
+    # ---- each route against the plain version --------------------------------
     worst = 0.0  # the largest error measured over every case below
     for (name, k, sg, L), got, (_, kn, sn, _) in zip(on_card, outs, cases):
         plain = segmented_min_ref(k, sg, L)
         host = segmin(torch.from_numpy(kn), torch.from_numpy(sn), L,
                       device="cpu")
-        eq_p, err_p = tensor_diff(got, plain)
-        eq_h, err_h = tensor_diff(got.cpu(), host)
-        err = max(err_p, err_h)
-        worst = max(worst, err)
-        say("kernel_vs_plain", kernel="segmented_min", case=name,
-            N=k.numel(), L=L, live=int((kn < NOC_INF).sum()),
-            equal=eq_p and eq_h, max_abs_err=f"{err:.0f}")
-        if not (eq_p and eq_h):
-            fail(f"segmented_min != plain on {name}: max abs {err}")
-    want = arbitrate(*(torch.from_numpy(t) for t in (a_adm, a_keys, a_segs)),
-                     AL, device="cpu")
-    w = win.cpu()
-    eq, err = tensor_diff(w.to(torch.int32), want.to(torch.int32))
-    worst = max(worst, err)
-    wn = w.numpy()
-    mkeys = np.where(a_adm, a_keys, NOC_INF)
-    seg_min = np.full(AL, NOC_INF, np.int64)
-    np.minimum.at(seg_min, a_segs, mkeys)
-    winners = np.bincount(a_segs[wn], minlength=AL)
-    contested = np.bincount(a_segs[a_adm], minlength=AL) > 0
-    one_each = bool((winners == contested).all())
-    least = bool((mkeys[wn] == seg_min[a_segs[wn]]).all())
-    admissible = not (wn & ~a_adm).any()
-    say("kernel_vs_plain", kernel="segmented_min", case=f"arbitrate_{AN}x{AL}",
-        equal=eq, max_abs_err=f"{err:.0f}", one_winner_per_resource=one_each,
-        winner_is_admissible_min=least and admissible)
-    if not (eq and one_each and least and admissible):
-        fail("arbitrate on the card: winners differ from the plain version "
-             "or break the one-admissible-minimum rule")
+        for route in VARIANTS:
+            r_out = got if route == "grid" else segmented_min(
+                k, sg, L, variant=route)
+            eq_p, err_p = tensor_diff(r_out, plain)
+            eq_h, err_h = tensor_diff(r_out.cpu(), host)
+            err = max(err_p, err_h)
+            worst = max(worst, err)
+            say("kernel_vs_plain", kernel="segmented_min", case=name,
+                route=route, default=route == "grid", N=k.numel(), L=L,
+                live=int((kn < NOC_INF).sum()), equal=eq_p and eq_h,
+                max_abs_err=f"{err:.0f}")
+            if not (eq_p and eq_h):
+                fail(f"segmented_min/{route} != plain on {name}: "
+                     f"max abs {err}")
+    for (name, a, k, sg, L), win, (_, an, kn, sn, _) in zip(r_card, wins,
+                                                           rounds):
+        plain = arbitrate_plain(a, k, sg, L)
+        host = arbitrate(*(torch.from_numpy(t) for t in (an, kn, sn)), L,
+                         device="cpu")
+        for route in VARIANTS:
+            w = win if route == "grid" else arbitrate_unfused(a, k, sg, L)
+            eq_p, err_p = tensor_diff(w.to(torch.int32), plain.to(torch.int32))
+            wc = w.cpu()
+            eq_h, err_h = tensor_diff(wc.to(torch.int32), host.to(torch.int32))
+            err = max(err_p, err_h)
+            worst = max(worst, err)
+            one_each, least = arbitrate_rules(
+                wc, *(torch.from_numpy(t) for t in (an, kn, sn)), L)
+            say("kernel_vs_plain", kernel="segmented_min", case=name,
+                route=route, fused=route == "grid", default=route == "grid",
+                N=k.numel(), L=L, admissible=int(an.sum()),
+                winners=int(wc.sum()), equal=eq_p and eq_h,
+                max_abs_err=f"{err:.0f}", one_winner_per_resource=one_each,
+                winner_is_admissible_min=least)
+            if not (eq_p and eq_h and one_each and least):
+                fail(f"arbitrate/{route} on {name}: winners differ from the "
+                     "plain path or break the one-admissible-minimum rule")
 
     # ---- times ---------------------------------------------------------------
     alone = child_json("--segmin-kernel-alone")
     entry = None
     for name, k, sg, L in on_card:
-        _, ms = median_ms(lambda: segmin(k, sg, L, device="cuda"))
-        _, p_ms = median_ms(lambda: segmented_min_ref(k, sg, L))
+        fns = {v: (lambda v=v: segmented_min(k, sg, L, variant=v))
+               for v in VARIANTS}
+        fns["entry"] = lambda: segmin(k, sg, L, device="cuda")
+        fns["plain"] = lambda: segmented_min_ref(k, sg, L)
+        t = time_turns(fns)
         b_ms, b_by, nbytes, ops = segmin_bound_ms(k.numel(), L)
-        t_alone = alone[name]
-        say("kernel_time", kernel="segmented_min", case=name, ms=f"{ms:.4f}",
-            kernel_alone_ms="not measured" if t_alone is None
-            else f"{t_alone:.4f}", plain_ms=f"{p_ms:.4f}",
-            library_ms=f"{p_ms:.4f}", library="scatter_reduce_ amin "
-            "(= the plain version, one measurement)",
-            bound_ms=f"{b_ms:.5f}", bound_by=b_by, bytes=nbytes, ops=ops,
-            times_bound=f"{ms / b_ms:.1f}",
-            alone_times_bound="not measured" if t_alone is None
-            else f"{t_alone / b_ms:.1f}")
+        p_ms = t["plain"][0]
+        for route in VARIANTS:
+            ms, a_ms = t[route][0], alone["cases"][name][route]
+            if a_ms is None:
+                fail(f"no device time for segmented_min/{route} on {name}")
+            say("kernel_time", kernel="segmented_min", case=name, route=route,
+                default=route == "grid", ms=f"{ms:.4f}",
+                kernel_alone_ms=f"{a_ms:.4f}", plain_ms=f"{p_ms:.4f}",
+                library_ms=f"{p_ms:.4f}", library="scatter_reduce_ amin "
+                "(= the plain version, one measurement)",
+                bound_ms=f"{b_ms:.5f}", bound_by=b_by, bytes=nbytes, ops=ops,
+                times_bound=f"{ms / b_ms:.1f}",
+                alone_times_bound=f"{a_ms / b_ms:.2f}",
+                **({"entry_ms": f"{t['entry'][0]:.4f}"}
+                   if route == "grid" else {}))
         if name == "xsim_mesh32x32_B132":
             entry = {
                 "name": "segmented_min", "route": "cuda",
                 "source": "src/repro_torch/kernels/noc_step/csrc/noc_step.cu",
                 "replaces": "src/repro/kernels/noc_step/noc_step.py:50",
-                "launches": launches, "max_abs_err": worst, "ms": ms,
-                "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": p_ms,
+                "launches": launches, "max_abs_err": worst,
+                "ms": t["grid"][0], "plain_ms": p_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": p_ms,
+                "default_routes": ["grid"], "launches_by_route": by_route,
             }
+    for name, a, k, sg, L in r_card:
+        t = time_turns({
+            "grid": lambda: arbitrate_kernel(a, k, sg, L),
+            "atomic": lambda: arbitrate_unfused(a, k, sg, L),
+            "entry": lambda: arbitrate(a, k, sg, L, device="cuda"),
+            "plain": lambda: arbitrate_plain(a, k, sg, L)})
+        b_ms, b_by, nbytes, ops = arbitrate_bound_ms(k.numel())
+        unfused = t["atomic"][0]
+        for route in VARIANTS:
+            ms, d_ms = t[route][0], alone["rounds"][name][route]
+            if d_ms is None:
+                fail(f"no device time for arbitrate/{route} on {name}")
+            say("arbitrate_time", case=name, route=route,
+                fused=route == "grid", default=route == "grid",
+                ms=f"{ms:.4f}", device_ms=f"{d_ms:.4f}",
+                unfused_over_this=f"{unfused / ms:.2f}",
+                plain_ms=f"{t['plain'][0]:.4f}", bound_ms=f"{b_ms:.5f}",
+                bound_by=b_by, times_bound=f"{ms / b_ms:.1f}",
+                device_times_bound=f"{d_ms / b_ms:.2f}",
+                **({"entry_ms": f"{t['entry'][0]:.4f}"}
+                   if route == "grid" else {}))
     return [entry]
 
 

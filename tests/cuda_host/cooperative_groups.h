@@ -1,4 +1,4 @@
-// Host stand-in for the cluster part of cooperative_groups (see
+// Host stand-in for the cluster and grid parts of cooperative_groups (see
 // cuda_runtime.h).
 #pragma once
 #include "cuda_runtime.h"
@@ -12,4 +12,9 @@ struct cluster_group {
   }
 };
 inline cluster_group this_cluster() { return {}; }
+// a cooperative launch's grid (run_grid runs all its blocks together)
+struct grid_group {
+  void sync() const { emu::cl->bar->arrive_and_wait(); }
+};
+inline grid_group this_grid() { return {}; }
 }  // namespace cooperative_groups
