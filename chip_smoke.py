@@ -100,7 +100,19 @@ non-zero before the result line:
    identical ``SimStats`` and ``Telemetry``; against ``xsimulate`` on the
    card the same delivery sets, conserved counts and per-link flits, and
    average latency within 10%;
-10. the ``kernels`` JSON line (six kernels), then the result line.
+10. 3-D and chiplet fabrics (``[topo3d]``): ``benchmarks/results/
+    topo3d_sweep.json``'s latency grid (mesh3d and torus3d 4x4x4, the
+    2x2-die chiplet package; uniform and hotspot traffic, MU/MP/NMP/DPM in
+    one batched launch per fabric) reproduced exactly; then full size,
+    ``torus3d`` 8x8x8 (512 six-port routers) and a 16-die package of 4x4
+    routers, MU/MP/NMP/DPM at rates 0.01 and 0.03: every DPM plan of
+    ``bulk_plan`` (batched on the card where ``batch_support`` admits the
+    fabric) equal to host ``plan()``, the lowest rate drained, the cluster
+    route alone (8 ranks) with the counts set to 0 just before, both routes
+    equal to the plain cycle and timed in turns beside their bound; then
+    ``WormholeSim`` against ``xsimulate`` on mesh3d 4x4x4 and the 2x2-die
+    package (the same delivery sets and per-link flits);
+11. the ``kernels`` JSON line (six kernels), then the result line.
 
 Phases 4, 5, 7 and 8 read their kernels' profiler times from a child
 process of this script (``python3 chip_smoke.py --noc-cycle-alone``,
@@ -226,16 +238,19 @@ def compare(kern: dict, plain: dict) -> tuple[list[str], float]:
 
 
 def engine_inputs(res, cfg, device):
-    """The inputs ``xsimulate`` handed the engine, rebuilt from its results."""
+    """The inputs ``xsimulate`` handed the engine, rebuilt from its results
+    (any registered fabric: ``L`` is routers times the topology's ports)."""
     from repro_torch.noc.xsim.compile import geometry_tables, traffic_from_numpy
 
     tr = traffic_from_numpy(res.traffic, device)
     st = res.traffic
-    geom = geometry_tables(cfg.topology, cfg.n, cfg.rows, (), cfg.vcs_per_class)
+    g = cfg.make_topology()
+    geom = geometry_tables(g.kind, g.n, g.m or g.rows, g.params,
+                           cfg.vcs_per_class)
     kw = dict(
         T=res.cycles, F=max(cfg.flits_per_packet, int(st["flits"].max())),
-        V=cfg.vcs_per_class, BD=cfg.buffer_depth, L=cfg.num_nodes * 4,
-        NN=cfg.num_nodes, ND=int(st["dslot"].max()) + 1,
+        V=cfg.vcs_per_class, BD=cfg.buffer_depth, L=g.num_nodes * g.ports,
+        NN=g.num_nodes, ND=int(st["dslot"].max()) + 1,
         epoch_len=res.epoch_len,
     )
     return tr, geom, kw
@@ -344,7 +359,7 @@ def layout_line(grid: str) -> None:
     got = KERNEL.build().noc_cycle_cluster_smem_bytes(c["NR"], c["D"],
                                                       c["W"], c["CC"])
     say("noc_cycle_layout", grid=grid, cluster_k=c["K"],
-        routers_per_rank=c["NR"], children_per_rank=c["CC"],
+        routers_per_rank=c["NR"], ports=c["D"], children_per_rank=c["CC"],
         dynamic_smem=got, threads=c["threads"],
         resident_clusters=c["resident_clusters"])
     if got != c["smem"] or got != cluster_smem_bytes(c["NR"], c["D"],
@@ -2070,6 +2085,294 @@ def phase_host_sim() -> None:
             fail(f"{algo}: host and xsim differ in {failed}")
 
 
+# ---------------------------------------------------------------------------
+# 3-D and chiplet fabrics: the committed JAX artifact, full size, host sim
+# ---------------------------------------------------------------------------
+TOPO3D_ARTIFACT = ROOT / "benchmarks" / "results" / "topo3d_sweep.json"
+# topo3d_sweep.json's latency grid: (artifact name, NoCConfig fabric, rate)
+TOPO3D_GRID = (
+    ("mesh3d-4x4x4", dict(n=4, m=4, topology="mesh3d",
+                          topology_params=(4,)), 0.02),
+    ("torus3d-4x4x4", dict(n=4, m=4, topology="torus3d",
+                           topology_params=(4,)), 0.02),
+    ("chiplet-2x2x4x4", dict(n=8, m=8, topology="chiplet",
+                             topology_params=(2, 2)), 0.012),
+)
+TOPO3D_GRID_CYCLES = 160
+# full size: a 3-D torus of 512 six-port routers and a package of 16 dies
+# of 4x4 routers (default boundary routers and NoI weight), each with its
+# drain grace; both take clusters of 8 ranks. The package drains for
+# 1,600 cycles, the artifact's grace: its interposer crossings back MP's
+# long label chains up, so at rate 0.01 MP still had worms in flight 400
+# cycles after the last injection (all had landed by 1,600; the engine
+# has no early exit, so the grace is paid in every run)
+TOPO3D_FULL = (
+    ("torus3d8x8x8", dict(n=8, m=8, topology="torus3d",
+                          topology_params=(8,), drain_grace=400)),
+    ("chiplet16x16", dict(n=16, m=16, topology="chiplet",
+                          topology_params=(4, 4), drain_grace=1600)),
+)
+TOPO3D_FULL_K = 8
+TOPO3D_RATES = (0.01, 0.03)
+TOPO3D_CYCLES = 300
+# the host cross-check: (name, NoCConfig fabric), DPM at rate 0.02
+TOPO3D_HOST = (
+    ("mesh3d4x4x4", dict(n=4, m=4, topology="mesh3d", topology_params=(4,))),
+    ("chiplet8x8", dict(n=8, m=8, topology="chiplet",
+                        topology_params=(2, 2))),
+)
+
+
+def hotspot_workload(cfg, rate, cycles, seed, hot_frac=0.35, region_size=8):
+    """``benchmarks/topo3d_sweep.py``'s hotspot generator, copied as a
+    fixture: uniform sources, but ``hot_frac`` of the multicasts draw their
+    whole destination set from the ``region_size`` nodes around the fabric
+    centre."""
+    import random
+
+    from repro_torch.noc.traffic import Request, Workload
+
+    g = cfg.make_topology()
+    nodes = g.nodes()
+    rng = random.Random(seed)
+    hot = g.from_idx(g.num_nodes // 2)
+    region = sorted(nodes, key=lambda c: (g.distance(hot, c), g.idx(c)))
+    region = region[:region_size]
+    lo, hi = cfg.dest_range
+    reqs = []
+    for t in range(cycles):
+        for src in nodes:
+            if rng.random() >= rate:
+                continue
+            pool = region if rng.random() < hot_frac else nodes
+            cand = [d for d in pool if d != src]
+            k = min(rng.randint(lo, hi), len(cand))
+            reqs.append(Request(t, src, rng.sample(cand, k)))
+    return Workload(f"hotspot-{rate:.4f}", reqs, cycles)
+
+
+def expect_cluster_only(where: str, K: int | None = None) -> dict:
+    """Fail unless the cycle kernel launched since the last reset, on the
+    cluster route only (with ``K`` ranks where given); return the counts
+    and the launch's layout."""
+    from repro_torch.kernels.noc_cycle import KERNEL
+
+    launches, routes = KERNEL.launches, dict(KERNEL.variants)
+    if launches <= 0:
+        fail(f"{where}: the noc_cycle kernel never launched")
+    if routes != {"cluster_smem": launches, "block": 0}:
+        fail(f"{where}: took another route than cluster_smem: {routes}")
+    if K is not None and KERNEL.cluster["K"] != K:
+        fail(f"{where}: cluster of {KERNEL.cluster['K']} ranks, not {K}")
+    return dict(launches=launches, **routes, cluster_k=KERNEL.cluster["K"])
+
+
+def phase_topo3d(card: str) -> None:
+    """The 3-D mesh/torus and chiplet fabrics through the port's planner,
+    batched planning and xsim on the card:
+
+    1. ``topo3d_sweep.json``'s latency grid (mesh3d and torus3d 4x4x4 at
+       rate 0.02, the 2x2-die package at 0.012; 160 cycles, uniform seed
+       1 and hotspot seed 2), MU/MP/NMP/DPM in one batched launch per
+       fabric: every ``avg_latency`` (3 decimals), ``flit_traversals`` and
+       ``drained`` equal to the artifact;
+    2. full size, ``torus3d`` 8x8x8 (512 routers, six ports) and the
+       16-die package (256 routers): MU/MP/NMP/DPM at rates 0.01 and 0.03,
+       300 injection cycles, seed 13 (drain grace 400, the package 1,600),
+       DPM through ``bulk_plan`` on the card
+       (batched where ``batch_support`` admits the fabric: the 3-D torus;
+       the package's cost bound is past f32's exact range, so its misses
+       plan on the host) and every plan equal to host ``plan()``; the
+       lowest rate drains; the launch counts (set to 0 just before) show the cluster
+       route alone, with 8 ranks; both routes equal the plain cycle; the
+       layout's shared memory equals the mirror; both routes timed in
+       turns beside their bound;
+    3. ``WormholeSim`` (``add_requests(device="cuda")``) against
+       ``xsimulate`` on mesh3d 4x4x4 and the 2x2-die package: the same
+       delivery sets, conserved counts and per-link flits."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (
+        arena_clear, bulk_plan, plan, plan_cache_clear, planner_for,
+    )
+    from repro_torch.kernels.noc_cycle import KERNEL
+    from repro_torch.noc import (
+        NoCConfig, WormholeSim, synthetic_workload, xsimulate,
+    )
+
+    t_phase = time.monotonic()
+    want = {(r["fabric"], r["workload"]): r
+            for r in json.loads(TOPO3D_ARTIFACT.read_text())["latency_grid"]}
+
+    # ---- 1. the committed JAX artifact --------------------------------
+    for name, fabric, rate in TOPO3D_GRID:
+        cfg = NoCConfig(warmup=0, drain_grace=1600, multicast_fraction=0.5,
+                        dest_range=(3, 6), **fabric)
+        wls = [synthetic_workload(cfg, rate, TOPO3D_GRID_CYCLES, seed=1),
+               hotspot_workload(cfg, rate, TOPO3D_GRID_CYCLES, seed=2)]
+        arena_clear()
+        plan_cache_clear()
+        KERNEL.reset()
+        t0 = time.monotonic()
+        res = xsimulate(cfg, wls, MAIN_ALGOS, device="cuda")
+        wall = time.monotonic() - t0
+        counts = expect_cluster_only(name)
+        if counts["launches"] != 1:
+            fail(f"{name}: {counts['launches']} launches, not one batch")
+        for w, shape in enumerate(("uniform", "hotspot")):
+            row = want[name, shape]
+            for a, algo in enumerate(res.algos):
+                got = {
+                    "avg_latency": round(float(res.avg_latency(w, a)), 3),
+                    "flit_traversals": int(res.stats(w, a)
+                                           .flit_link_traversals),
+                    "drained": bool(res.all_drained(w, a)),
+                }
+                say("topo3d", part="artifact", fabric=name, workload=shape,
+                    rate=rate, algo=algo,
+                    requests=len(wls[w].requests),
+                    **got, equal_to_artifact=got == row[algo])
+                if got != row[algo]:
+                    fail(f"{name} {shape} {algo}: {got}, the artifact "
+                         f"has {row[algo]}")
+        say("topo3d", part="artifact_run", fabric=name, instances=len(wls)
+            * len(MAIN_ALGOS), cycles=res.cycles, wall_s=f"{wall:.3f}",
+            device_s=f"{res.device_s:.6f}", **counts)
+
+    # ---- 2. full size -------------------------------------------------
+    for name, fabric in TOPO3D_FULL:
+        cfg = NoCConfig(warmup=100, **fabric)
+        g = cfg.make_topology()
+        wls = [synthetic_workload(cfg, r, TOPO3D_CYCLES, seed=13)
+               for r in TOPO3D_RATES]
+        arena_clear()
+        plan_cache_clear()
+        KERNEL.reset()
+        t0 = time.monotonic()
+        res = xsimulate(cfg, wls, MAIN_ALGOS, device="cuda")
+        wall = time.monotonic() - t0
+        counts = expect_cluster_only(name, TOPO3D_FULL_K)
+        cluster = dict(KERNEL.cluster)
+        # DPM plans in batches on the card wherever ``batch_support``
+        # admits the fabric (the reference's gate); where it does not,
+        # ``bulk_plan`` plans every miss on the host into the same arena
+        dpm = planner_for(g, "DPM", device="cuda")
+        info = dpm.info()
+        on_card = (info.batched_plans, info.host_plans)
+        if (min(on_card) != 0 or max(on_card) <= 0
+                or (info.batched_plans > 0) != dpm.support.ok):
+            fail(f"{name}: DPM planned {info} with support {dpm.support}")
+        support = "ok" if dpm.support.ok else repr(dpm.support.reason)
+        for w, rate in enumerate(TOPO3D_RATES):
+            for a, algo in enumerate(res.algos):
+                st = res.stats(w, a)
+                say("topo3d", part="full", fabric=name, rate=rate, algo=algo,
+                    requests=len(wls[w].requests),
+                    avg_latency=f"{st.avg_latency:.4f}",
+                    dyn_energy_pj=f"{st.dyn_energy_pj(cfg.energy):.1f}",
+                    flit_hops=st.flit_link_traversals,
+                    drained=res.all_drained(w, a))
+        for a, algo in enumerate(res.algos):
+            if not res.all_drained(0, a):
+                fail(f"{name}: {algo} did not drain at rate "
+                     f"{TOPO3D_RATES[0]}")
+        flit = int(res.ctr[:, 0].astype("int64").sum())
+        say("topo3d", part="full_run", fabric=name, nodes=g.num_nodes,
+            ports=g.ports, instances=len(wls) * len(MAIN_ALGOS),
+            cycles=res.cycles, host_compile_s=f"{res.compile_s:.3f}",
+            device_s=f"{res.device_s:.6f}", wall_s=f"{wall:.3f}",
+            flit_hops=flit, threads=cluster["threads"],
+            resident_clusters=cluster["resident_clusters"],
+            dpm_batched_plans=info.batched_plans,
+            dpm_host_plans=info.host_plans, dpm_batch_support=support,
+            **counts)
+
+        # every batched DPM plan against host plan() on the same requests
+        reqs = [(r.src, r.dests) for wl in wls for r in wl.requests]
+        plans = bulk_plan(g, reqs, "DPM", device="cuda")
+        plan_cache_clear()
+        t0 = time.monotonic()
+        host = [plan("DPM", g, src, dests) for src, dests in reqs]
+        host_s = time.monotonic() - t0
+        bad = [i for i, (p, h) in enumerate(zip(plans, host)) if p != h]
+        if bad:
+            fail(f"{name}: bulk_plan != plan() on {len(bad)} of "
+                 f"{len(reqs)} requests, first {reqs[bad[0]]}")
+        say("topo3d", part="bulk_plan", fabric=name, requests=len(reqs),
+            batched_plans=info.batched_plans, host_plans=info.host_plans,
+            dispatches=info.dispatches, dpm_batch_support=support,
+            equal_to_plan=True, host_plan_s=f"{host_s:.3f}")
+
+        # both routes against the plain cycle on the run's own inputs
+        tr, geom, kw = engine_inputs(res, cfg, "cuda")
+        kerns, plain, p_ms = check_routes(name, tr, geom, kw,
+                                          flit_hops=flit)
+        if (KERNEL.cluster["K"] != TOPO3D_FULL_K
+                or KERNEL.cluster["D"] != g.ports):
+            fail(f"{name}: layout {KERNEL.cluster}")
+        for variant, k in kerns.items():
+            if not (k["ctr"].cpu().numpy() == res.ctr).all():
+                fail(f"{name}: a {variant} run differs from xsimulate's")
+        err = max(compare(k, plain)[1] for k in kerns.values())
+        routes = time_routes(tr, geom, kw)
+        b_ms, b_by, nbytes, ops = bound_ms(tr, kerns["cluster_smem"], kw)
+        blk, cl = routes["block"][0], routes["cluster_smem"][0]
+        say("topo3d", part="routes", fabric=name, ports=kw["L"] // kw["NN"],
+            instances=tr["link"].shape[0], cycles=kw["T"],
+            block_ms=f"{blk:.3f}", cluster_ms=f"{cl:.3f}",
+            block_ms_runs=",".join(f"{t:.3f}" for t in routes["block"][1]),
+            cluster_ms_runs=",".join(
+                f"{t:.3f}" for t in routes["cluster_smem"][1]),
+            block_over_cluster=f"{blk / cl:.2f}", max_abs_err=err,
+            plain_ms=f"{p_ms:.1f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+            bytes=nbytes, ops=ops, cluster_times_bound=f"{cl / b_ms:.1f}",
+            card=repr(card))
+
+    # ---- 3. the host simulator against xsim ---------------------------
+    for name, fabric in TOPO3D_HOST:
+        cfg = NoCConfig(**fabric)
+        wl = synthetic_workload(cfg, HOST_SIM_RATE, HOST_SIM_CYCLES, seed=0)
+        arena_clear()
+        plan_cache_clear()
+        res = xsimulate(cfg, [wl], ("DPM",), device="cuda")
+        arena_clear()
+        plan_cache_clear()
+        t0 = time.monotonic()
+        sim = WormholeSim(cfg, measure_window=(cfg.warmup, wl.horizon))
+        sim.add_requests("DPM", wl.requests, device="cuda")
+        torch.cuda.synchronize()
+        info = planner_for(sim.g, "DPM", device="cuda").info()
+        host = sim.run(wl.horizon + cfg.drain_grace, drain=True)
+        host_s = time.monotonic() - t0
+        if info.batched_plans <= 0:
+            fail(f"{name}: add_requests planned nothing on the card")
+        xst = res.stats(0, 0)
+        checks = {
+            "delivered_sets": res.delivered_sets(0, 0)
+            == host_delivered_sets(sim),
+            "flit_link_traversals": xst.flit_link_traversals
+            == host.flit_link_traversals,
+            "packets_created": xst.packets_created == host.packets_created,
+            "packets_finished": xst.packets_finished
+            == host.packets_finished,
+            "link_flits": bool(np.array_equal(res.link_utilization(0, 0),
+                                              host.telemetry.link_flits)),
+            "drained": host.packets_finished == host.packets_created
+            and res.all_drained(0, 0),
+        }
+        say("topo3d", part="host_sim", fabric=name, algo="DPM",
+            requests=len(wl.requests), packets=host.packets_created,
+            ports=sim.g.ports, avg_latency=f"{host.avg_latency:.4f}",
+            xsim_latency=f"{xst.avg_latency:.4f}",
+            batched_plans=info.batched_plans, host_s=f"{host_s:.3f}",
+            **{f"xsim_{k}": v for k, v in checks.items()})
+        failed = [k for k, v in checks.items() if not v]
+        if failed:
+            fail(f"{name}: host and xsim differ in {failed}")
+    say("topo3d", part="phase", wall_s=f"{time.monotonic() - t_phase:.1f}")
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the repo")
@@ -2336,7 +2639,10 @@ def main() -> None:
     # ---- 9. the host NoC: WormholeSim, simulate, against xsim -------------
     phase_host_sim()
 
-    # ---- 10. kernels line and result --------------------------------------
+    # ---- 10. 3-D and chiplet fabrics --------------------------------------
+    phase_topo3d(card)
+
+    # ---- 11. kernels line and result --------------------------------------
     if "jax" in sys.modules or "repro" in sys.modules:
         fail("the port imported jax or the reference package")
     print(json.dumps({"kernels": [{

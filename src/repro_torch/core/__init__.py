@@ -1,11 +1,12 @@
 """Core contribution of the paper: dynamic partition merging multicast.
 
-Twin of ``repro.core``, with the same public names minus the 3-D/chiplet
-topologies (``topo3d``), which come with a later slice of the port.
+Twin of ``repro.core``, with the same public names.
 
 Public API:
     MeshGrid, grid                         — mesh geometry + Hamiltonian labels
     Torus, torus, make_topology, Topology  — wraparound torus + the protocol
+    Mesh3D, Torus3D, ChipletPackage,       — 3-D fabrics and chiplet packages
+    mesh3d, torus3d, chiplet
     basic_partitions, dpm_partition        — Definitions 1-3 + Algorithm 1
     plan / PLANNERS                        — cached planning facade + legacy view
     bulk_plan, BatchPlanner, planner_for   — batched planning on the card
@@ -15,7 +16,8 @@ Public API:
     CostModel, register_cost_model,        — pluggable routing objectives:
     get_cost_model, available_cost_models    hops / contention / energy
 
-Every planner and routing function takes any Topology (mesh or torus).
+Every planner and routing function takes any registered Topology (mesh,
+torus, mesh3d, torus3d, chiplet).
 ``faulty(topo, broken_links)`` degrades any topology and every planner
 detours around the broken links automatically.
 """
@@ -95,6 +97,14 @@ from .routing import (
     path_multicast,
     xy_route,
 )
+from .topo3d import (
+    ChipletPackage,
+    Mesh3D,
+    Torus3D,
+    chiplet,
+    mesh3d,
+    torus3d,
+)
 from .topology import (
     Topology,
     Torus,
@@ -110,6 +120,7 @@ __all__ = [
     "ArenaCacheInfo",
     "ArenaInfo",
     "BatchPlanner",
+    "ChipletPackage",
     "Coord",
     "CostModel",
     "DPMResult",
@@ -119,6 +130,7 @@ __all__ = [
     "FaultyTopology",
     "HopCountCost",
     "LinkContentionCost",
+    "Mesh3D",
     "MeshGrid",
     "MinimalRouteProvider",
     "MulticastPlan",
@@ -129,6 +141,7 @@ __all__ = [
     "RoutingAlgorithm",
     "Topology",
     "Torus",
+    "Torus3D",
     "WeightedLinkCost",
     "arena_clear",
     "arena_info",
@@ -141,6 +154,7 @@ __all__ = [
     "candidate_cost",
     "candidate_ids_for",
     "canonical_dests",
+    "chiplet",
     "dpm_partition",
     "dual_path_cost",
     "faulty",
@@ -151,6 +165,7 @@ __all__ = [
     "label_chain_matrices",
     "label_route",
     "make_topology",
+    "mesh3d",
     "multi_unicast_cost",
     "path_multicast",
     "plan",
@@ -175,6 +190,7 @@ __all__ = [
     "segment_plan_for_faults",
     "temporary_algorithm",
     "torus",
+    "torus3d",
     "unregister_algorithm",
     "unregister_cost_model",
     "wedge_patterns",

@@ -33,9 +33,7 @@ from .routing import path_multicast
 if TYPE_CHECKING:  # planner imports this module; annotation-only reverse dep
     from .planner import MulticastPlan
 
-# The 3-D and chiplet kinds of the reference (``repro.core.topo3d``) come
-# with a later slice of the port; until then only mesh and torus exist.
-TOPOLOGY_KINDS = ("mesh", "torus")
+TOPOLOGY_KINDS = ("mesh", "torus", "mesh3d", "torus3d", "chiplet")
 
 
 # ---------------------------------------------------------------------------
@@ -153,7 +151,8 @@ class LinkContentionCost(CostModel):
         # the one axis the link moves along; cut between planes i, i+1
         for k in range(len(u)):
             if u[k] != v[k]:
-                extent = (g.n, g.rows)[k]
+                # x, y, z extents: ``rows`` is m * d on the 3-D kinds
+                extent = (g.n, g.m or g.rows, getattr(g, "d", 1))[k]
                 return 1.0 + self.lam * self._cut_ratio(min(u[k], v[k]), extent)
         return 1.0
 
@@ -161,10 +160,13 @@ class LinkContentionCost(CostModel):
 class WeightedLinkCost(CostModel):
     """Hop counting priced by the topology's heterogeneous link classes.
 
-    Each hop costs ``Topology.link_weight(u, v)``. Every mesh and torus
-    link weighs 1.0, so on the topologies registered here the model counts
-    hops; the heterogeneous 3-D and chiplet fabrics that price links apart
-    come with the ``topo3d`` twin.
+    Each hop costs ``Topology.link_weight(u, v)`` — 1.0 for planar mesh
+    links, ``z_weight`` for TSV pillars on the 3-D topologies,
+    ``noi_weight`` for interposer crossings on a chiplet package. On a
+    uniform topology every weight is 1.0 and the model degenerates to hop
+    counting, so it is safe as a default objective everywhere; on a
+    heterogeneous fabric it is the lever that makes Algorithm 1's merge
+    loop prefer partitions whose chains stay on cheap planar links.
     """
 
     name = "weighted"

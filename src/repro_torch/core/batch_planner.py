@@ -63,6 +63,7 @@ from .planner import (
     plan,
     plan_dpm,
     plan_dpm_e,
+    segment_plan_for_faults,
 )
 from .routefn import provider_for, route_cost_matrices
 from .routing import label_route, xy_route
@@ -515,6 +516,10 @@ class BatchPlanner:
                 p, g, src, union, rep, mode,
                 unicast=self._uni, chain=self._chain,
             )
+        if getattr(g, "needs_bfs_routes", False):
+            # BFS unicast hops are not label-monotone: the same worm split
+            # as host ``plan()`` on a chiplet package
+            p = segment_plan_for_faults(p, g)
         return p
 
 

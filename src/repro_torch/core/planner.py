@@ -429,7 +429,7 @@ def _plan_cached(
         topo, src, list(dests),
         cost_model=get_cost_model(cost_model or a.default_cost_model),
     )
-    if faults:
+    if faults or getattr(topo, "needs_bfs_routes", False):
         p = segment_plan_for_faults(p, topo)
     _plan_cache[key] = p
     while len(_plan_cache) > _PLAN_CACHE_MAXSIZE:
@@ -475,13 +475,16 @@ def plan(
     (topology kind, n, m, fault set, extra factory params, algorithm,
     cost-model, src, sorted unique dests) — so grid(8) and grid(8, 8) share
     one entry, mesh/torus plans of the same dimensions never collide, two
-    cost models never alias one entry, and plans for different broken-link
-    sets (``FaultyTopology``) never alias each other or the healthy plan.
-    Cost-insensitive algorithms
+    cost models never alias one entry, plans for different broken-link sets
+    (``FaultyTopology``) never alias each other or the healthy plan, and
+    3-D/chiplet topologies with different depth/weight/boundary params
+    (``Topology.params``) key separately. Cost-insensitive algorithms
     share one entry across models. Unregistered algorithm/cost-model
     instances plan uncached (the name key could not be trusted to resolve
-    back to them). On a degraded topology every returned plan is segmented
-    into label-monotone worms (``segment_plan_for_faults``), the
+    back to them). On a degraded topology — and on any topology whose
+    provider routes by BFS (``needs_bfs_routes``), whose unicast hops are
+    not label-monotone — every returned plan is segmented into
+    label-monotone worms (``segment_plan_for_faults``), the
     deadlock-freedom guarantee of DESIGN.md §7.
     """
     a = get_algorithm(algo)
@@ -498,12 +501,13 @@ def plan(
     faults = getattr(g, "faults", ())
     if not cacheable:
         p = a.plan(g, src, dests, cost_model=cm)
-        if faults:
+        if faults or getattr(g, "needs_bfs_routes", False):
             p = segment_plan_for_faults(p, g)
         return p
     cm_key = cm.name if a.cost_sensitive else ""
+    # the factory's m argument: the y extent (3-D meshes have rows = m * d)
     return _plan_cached(
-        g.kind, g.n, g.rows, faults, g.params, a.name, cm_key,
+        g.kind, g.n, g.m or g.rows, faults, g.params, a.name, cm_key,
         src, canonical_dests(dests),
     )
 

@@ -7,7 +7,8 @@ lifts that assumption into an explicit layer (DESIGN.md §7):
 
 * ``RouteProvider`` — the protocol the planners, cost models, and both
   simulators route through: ``unicast`` (full hop sequence), ``label_step``
-  (one hop of the dual-path rule).
+  (one hop of the dual-path rule), and ``link_weights`` (a per-directed-link
+  price vector for device-side batched planning).
 * ``MinimalRouteProvider`` — the paper's routing functions, verbatim. This is
   the provider every fault-free topology resolves to, so provider-backed
   routes are bit-identical to the legacy ``core/routing.py`` output there.
@@ -24,7 +25,8 @@ lifts that assumption into an explicit layer (DESIGN.md §7):
 
 ``provider_for(topo)`` resolves the provider: plain topologies (and
 ``faulty(topo, ())``, which returns the base unchanged) get the minimal
-provider; degraded topologies get the fault-aware one. ``route_cost_matrices``
+provider; degraded topologies get the fault-aware one and sparse-link
+topologies (chiplet packages) the BFS one. ``route_cost_matrices``
 lowers a (topology, cost model) pair to the dense per-pair tensors the
 weighted Pallas planner kernel (kernels/dpm_cost) consumes.
 """
@@ -41,8 +43,9 @@ from .grid import Coord, MeshGrid
 
 Link = tuple[Coord, Coord]
 
-# Directed-link id space shared with noc.xsim: idx(u) * 4 + dir(u->v),
-# directions ordered +x, -x, +y, -y (``MeshGrid.direction``).
+# Directed-link id space shared with noc.xsim: idx(u) * ports + dir(u->v),
+# directions ordered +x, -x, +y, -y (+z, -z on the 3-D topologies); each
+# topology's ``ports``/``direction`` hooks define the layout.
 
 
 class DisconnectedError(RuntimeError):
@@ -110,6 +113,10 @@ class FaultyTopology:
     @property
     def params(self) -> tuple:
         return self.base.params
+
+    @property
+    def needs_bfs_routes(self) -> bool:
+        return getattr(self.base, "needs_bfs_routes", False)
 
     def label(self, *c) -> int:
         return self.base.label(*c)
@@ -261,7 +268,8 @@ class RouteProvider:
 
     ``unicast`` returns the full hop sequence (inclusive of both endpoints);
     ``label_step`` advances one hop of the dual-path (Lin-McKinley) routing
-    function.
+    function; ``link_weights`` prices every directed link for device-side
+    batched planning (the weighted dpm_cost kernel).
     """
 
     name = "abstract"
@@ -273,6 +281,22 @@ class RouteProvider:
         self, topo: MeshGrid, cur: Coord, target: Coord, high: bool
     ) -> Coord:
         raise NotImplementedError
+
+    def link_weights(self, topo: MeshGrid, cost_model=None) -> np.ndarray:
+        """(num_nodes * ports,) float32 price per directed link id (the
+        xsim id space ``idx(u) * ports + dir``); absent links hold +inf —
+        including broken links on a degraded topology and undeclared
+        boundary crossings on a chiplet package."""
+        D = topo.ports
+        w = np.full(topo.num_nodes * D, np.inf, np.float32)
+        for u in topo.nodes():
+            base = topo.idx(u) * D
+            for v in topo.neighbors(*u):
+                w[base + topo.direction(u, v)] = (
+                    1.0 if cost_model is None
+                    else cost_model.link_cost(topo, u, v)
+                )
+        return w
 
 
 class MinimalRouteProvider(RouteProvider):
@@ -346,6 +370,10 @@ class FaultAwareProvider(RouteProvider):
     _minimal = MinimalRouteProvider()
 
     def unicast(self, topo: FaultyTopology, src: Coord, dst: Coord) -> list[Coord]:
+        if topo.needs_bfs_routes:
+            # sparse-link base (chiplet package): dimension-ordered routes
+            # may cross links that do not exist at all — always BFS
+            return self._bfs_path(topo, src, dst)
         path = self._minimal.unicast(topo.base, src, dst)
         if not any(topo.is_broken(u, v) for u, v in zip(path, path[1:])):
             return path
@@ -359,7 +387,7 @@ class FaultAwareProvider(RouteProvider):
         if dst not in tree:
             raise DisconnectedError(
                 f"{dst} unreachable from {src} on degraded {topo.kind} "
-                f"({len(topo.faults)} broken links)"
+                f"({len(getattr(topo, 'faults', ()))} broken links)"
             )
         # stable digest, NOT hash(): str hashing is salted per process
         flow = zlib.crc32(repr((src, dst)).encode())
@@ -386,7 +414,7 @@ class FaultAwareProvider(RouteProvider):
         if cur_n not in dists:
             raise DisconnectedError(
                 f"{target} unreachable from {cur} on degraded {topo.kind} "
-                f"({len(topo.faults)} broken links)"
+                f"({len(getattr(topo, 'faults', ()))} broken links)"
             )
         dcur = dists[cur_n][0]
         lt = topo.label(*target)
@@ -411,18 +439,41 @@ class FaultAwareProvider(RouteProvider):
                 return v
         raise RuntimeError(f"label_step stuck at {cur} -> {target} (high={high})")
 
+    # link_weights is inherited: it already prices only live ``neighbors()``
+    # links, so on a FaultyTopology broken links stay +inf and any
+    # device-side plan crossing one prices itself out of the comparison.
+
+
+class BFSRouteProvider(MinimalRouteProvider):
+    """Sparse-link topologies (chiplet packages, ``needs_bfs_routes``).
+
+    The label rule is inherited unchanged — its termination argument only
+    needs the snake successor to be a neighbor, which the two-level
+    chiplet snake guarantees — but dimension-ordered unicast may cross
+    links the interposer does not provide, so ``unicast`` is the
+    deterministic load-balanced BFS shortest path instead.
+    """
+
+    name = "bfs"
+
+    def unicast(self, topo: MeshGrid, src: Coord, dst: Coord) -> list[Coord]:
+        return FaultAwareProvider._bfs_path(topo, src, dst)
+
 
 _MINIMAL = MinimalRouteProvider()
 _FAULT_AWARE = FaultAwareProvider()
+_BFS = BFSRouteProvider()
 
 
 def provider_for(topo: MeshGrid) -> RouteProvider:
     """Resolve the route provider for a topology: degraded topologies get
-    the detouring provider, everything else the paper's minimal functions
-    (``faulty(topo, ())`` returns the base, so an empty fault set stays on
-    the bit-identical legacy path)."""
+    the detouring provider, sparse-link topologies the BFS one, everything
+    else the paper's minimal functions (``faulty(topo, ())`` returns the
+    base, so an empty fault set stays on the bit-identical legacy path)."""
     if isinstance(topo, FaultyTopology):
         return _FAULT_AWARE
+    if getattr(topo, "needs_bfs_routes", False):
+        return _BFS
     return _MINIMAL
 
 

@@ -31,7 +31,11 @@ class NoCConfig:
 
     n: int = 8  # 8x8 mesh
     m: int | None = None
-    topology: str = "mesh"  # "mesh" or "torus" (core.topology.make_topology)
+    topology: str = "mesh"  # any registered kind (core.topology.make_topology)
+    # Extra factory arguments beyond (n, m) — empty for mesh/torus; e.g.
+    # (d, z_weight) for mesh3d/torus3d, the chiplet-grid/boundary tuple for
+    # "chiplet" (core.topo3d). Threaded verbatim into make_topology.
+    topology_params: tuple = ()
     # Broken bidirectional links ((u, v) coordinate pairs): both simulators
     # build a FaultyTopology, plan detours through the route-provider layer
     # (core.routefn), and refuse plans that traverse a broken link.
@@ -57,10 +61,15 @@ class NoCConfig:
         """The (possibly degraded) topology instance this config describes."""
         from ..core.topology import make_topology
 
-        return make_topology(self.topology, self.n, self.m, self.broken_links)
+        return make_topology(
+            self.topology, self.n, self.m, self.broken_links,
+            self.topology_params,
+        )
 
     @property
     def rows(self) -> int:
+        if self.topology_params:  # e.g. mesh3d: rows = m * d, not m
+            return self.make_topology().rows
         return self.m if self.m is not None else self.n
 
     @property

@@ -53,7 +53,7 @@ def synthetic_workload(
     mc = cfg.multicast_fraction if multicast_fraction is None else multicast_fraction
     lo, hi = cfg.dest_range if dest_range is None else dest_range
     rng = random.Random(seed)
-    g = make_topology(cfg.topology, cfg.n, cfg.m)
+    g = make_topology(cfg.topology, cfg.n, cfg.m, params=cfg.topology_params)
     nodes = g.nodes()  # idx order == the legacy 2-D row-major enumeration
     reqs: list[Request] = []
     for t in range(cycles):
@@ -101,7 +101,7 @@ def parsec_workload(
     # stable digest, NOT hash(): str hashing is salted per process
     # (PYTHONHASHSEED), which made fig8 traces irreproducible across runs.
     rng = random.Random(seed ^ zlib.crc32(benchmark.encode()) & 0xFFFF)
-    g = make_topology(cfg.topology, cfg.n, cfg.m)
+    g = make_topology(cfg.topology, cfg.n, cfg.m, params=cfg.topology_params)
     nodes = g.nodes()  # idx order == the legacy 2-D row-major enumeration
     rate = base_rate * rel_load
     reqs: list[Request] = []

@@ -9,9 +9,11 @@ delivery sets directly.
 Per-packet scalars and per-stage tables (stage ``s`` is the input FIFO at
 ``hops[s+1]`` fed by directed link ``(hops[s], hops[s+1])``):
 
-* ``link[P, S]``    directed-link id ``idx(u) * 4 + direction(u -> v)``
-                    (directions +x, -x, +y, -y; torus wrap hops resolve
-                    through ``Topology.delta``'s signed shortest step).
+* ``link[P, S]``    directed-link id ``idx(u) * ports + direction(u -> v)``
+                    (direction order and port count from the topology: the
+                    2-D kinds use (+x, -x, +y, -y), the 3-D ones append
+                    (+z, -z); torus wrap hops resolve through
+                    ``Topology.delta``'s signed shortest step).
 * ``vcls[P, S]``    VC class of the hop — HIGH(0) iff the boustrophedon
                     label increases along it (core.grid labeling, the
                     paper's dual-path deadlock rule, same as the host sim).
@@ -60,10 +62,10 @@ class CompiledTraffic:
 
     # static geometry / config
     n: int
-    m: int  # rows
+    m: int  # the topology factory's m argument (y extent; == rows in 2-D)
     kind: str
-    params: tuple  # extra make_topology args (Topology.params; () in 2-D)
-    ports: int  # output ports per router (4 in 2-D)
+    params: tuple  # extra make_topology args (Topology.params)
+    ports: int  # output ports per router (4 in 2-D, 6 in 3-D)
     num_nodes: int
     num_links: int  # directed-link id space: num_nodes * ports
     horizon: int
@@ -130,7 +132,9 @@ def compile_workload(
     provider on the degraded topology, and every lowered hop is re-checked:
     a route crossing a broken link is refused before any tensor is built (the same contract as ``WormholeSim.add_plan``).
     """
-    g = make_topology(cfg.topology, cfg.n, cfg.m, cfg.broken_links)
+    g = make_topology(
+        cfg.topology, cfg.n, cfg.m, cfg.broken_links, cfg.topology_params
+    )
     rows: list[tuple] = []  # (hops, deliveries, enqueue, parent_pid, flits)
     # bulk-plan the whole workload through the shared plan arena: one
     # device dispatch per chunk of arena misses where supported (plans are
@@ -202,30 +206,40 @@ def compile_workload(
         eject_node[:P] = ej_l
         valid[:P] = True
         deliver[del_p, del_s] = True
-        # vectorized 2-D lowering, bit-identical to the closed-form
-        # snake/direction math of ``core.grid``
-        hv = np.fromiter(
-            (c for xy in flat_uv for c in xy), np.int64, 2 * len(flat_uv)
-        ).reshape(-1, 2)  # all hops, path-concatenated
-        starts = np.cumsum(lens + 1) - (lens + 1)  # offsets incl. hop 0
-        total = int(lens.sum())
-        pidx = np.repeat(np.arange(P), lens)
-        sidx = np.arange(total) - np.repeat(np.cumsum(lens) - lens, lens)
-        flat = np.repeat(starts, lens) + sidx  # index of hop u of (pid, s)
-        ux, uy = hv[flat, 0], hv[flat, 1]
-        vx, vy = hv[flat + 1, 0], hv[flat + 1, 1]
-        dx, dy = vx - ux, vy - uy
-        if g.wrap:  # signed shortest step (matches Topology.delta)
-            dx = (dx + n // 2) % n - n // 2
-            dy = (dy + m // 2) % m - m // 2
-        dir_ = np.select(
-            [dx == 1, dx == -1, dy == 1], [0, 1, 2], default=3
-        )
-        labu = np.where(uy % 2 == 0, uy * n + ux, uy * n + n - 1 - ux)
-        labv = np.where(vy % 2 == 0, vy * n + vx, vy * n + n - 1 - vx)
-        link[pidx, sidx] = (uy * n + ux) * 4 + dir_
-        vcls[pidx, sidx] = labv < labu  # 0 HIGH (label up), 1 LOW
-        node[pidx, sidx] = vy * n + vx
+        if g.kind in ("mesh", "torus"):
+            # vectorized 2-D lowering, bit-identical to the closed-form
+            # snake/direction math of ``core.grid``
+            hv = np.fromiter(
+                (c for xy in flat_uv for c in xy), np.int64, 2 * len(flat_uv)
+            ).reshape(-1, 2)  # all hops, path-concatenated
+            starts = np.cumsum(lens + 1) - (lens + 1)  # offsets incl. hop 0
+            total = int(lens.sum())
+            pidx = np.repeat(np.arange(P), lens)
+            sidx = np.arange(total) - np.repeat(np.cumsum(lens) - lens, lens)
+            flat = np.repeat(starts, lens) + sidx  # index of hop u of (pid, s)
+            ux, uy = hv[flat, 0], hv[flat, 1]
+            vx, vy = hv[flat + 1, 0], hv[flat + 1, 1]
+            dx, dy = vx - ux, vy - uy
+            if g.wrap:  # signed shortest step (matches Topology.delta)
+                dx = (dx + n // 2) % n - n // 2
+                dy = (dy + m // 2) % m - m // 2
+            dir_ = np.select(
+                [dx == 1, dx == -1, dy == 1], [0, 1, 2], default=3
+            )
+            labu = np.where(uy % 2 == 0, uy * n + ux, uy * n + n - 1 - ux)
+            labv = np.where(vy % 2 == 0, vy * n + vx, vy * n + n - 1 - vx)
+            link[pidx, sidx] = (uy * n + ux) * 4 + dir_
+            vcls[pidx, sidx] = labv < labu  # 0 HIGH (label up), 1 LOW
+            node[pidx, sidx] = vy * n + vx
+        else:
+            # generic lowering through the Topology protocol (3-D, chiplet,
+            # any future registered kind): per-hop loops, same semantics
+            D = g.ports
+            for pid, (hops, _dv, _t, _par, _nf) in enumerate(rows):
+                for s, (u, v) in enumerate(zip(hops, hops[1:])):
+                    link[pid, s] = g.idx(u) * D + g.direction(u, v)
+                    vcls[pid, s] = g.label(*v) < g.label(*u)
+                    node[pid, s] = g.idx(v)
 
     # static per-lane injection order for roots: (enqueue, pid) — the host
     # sim's FIFO arrival order (roots enter their queue at enqueue time).
@@ -281,7 +295,7 @@ def compile_workload(
     if max_key >= 2**30:  # the CUDA kernel relies on it: no bounds checks
         raise ValueError(f"workload too large for int32 age keys ({max_key})")
     return CompiledTraffic(
-        n=g.n, m=g.rows, kind=g.kind, params=g.params, ports=g.ports,
+        n=g.n, m=g.m or g.rows, kind=g.kind, params=g.params, ports=g.ports,
         num_nodes=g.num_nodes, num_links=g.num_nodes * g.ports,
         horizon=workload.horizon,
         enqueue=enqueue, parent=parent, release_stage=release_stage,
@@ -306,12 +320,12 @@ def geometry_tables(
     dummy candidate ``L * W + 2 * NN`` absorbs padding. Arbitration is a
     dense masked min over ``node_ports[v]`` — the FIFOs of the ``D`` links
     *into* node ``v`` (a flit can only request ``v``'s output links from
-    there; ``D = 4``) plus ``v``'s two NI lanes — so each
+    there; ``D = Topology.ports``) plus ``v``'s two NI lanes — so each
     candidate appears in exactly one node's port list and winner masks map
     back through the static ``cand_node``/``cand_port`` inverse with a
     gather, never a scatter.
 
-    Tables enumerate the *healthy* topology (no faults): the
+    Tables enumerate the *healthy* topology (``params`` but no faults): the
     cycle engine is fault-agnostic — broken links are excluded at plan time,
     so no compiled route ever requests them.
     """

@@ -192,7 +192,9 @@ def xsimulate(
     (``cfg.warmup``, ``cfg.drain_grace``) and the telemetry epoch
     (``cfg.epoch_len``) come from the config.
     """
-    topo = make_topology(cfg.topology, cfg.n, cfg.m, cfg.broken_links)
+    topo = make_topology(
+        cfg.topology, cfg.n, cfg.m, cfg.broken_links, cfg.topology_params
+    )
     if algos is None:
         algos = tuple(available_algorithms(topo))
     resolved = [get_algorithm(a) for a in algos]

@@ -11,7 +11,7 @@
 * the CUDA cluster kernel's per-rank layout (bands of routers, their FIFOs,
   lanes, output links and children; which ranks read which; shared memory
   per rank against the 227 KB a block may hold) and its route choice, at
-  the repo's grids;
+  the repo's grids, 2-D, 3-D (six ports) and chiplet packages;
 * the cluster kernel itself, compiled as C++ with ``g++`` and run with each
   CTA thread as a host thread (``tests/cuda_host``), against the reference's
   outputs and the plain cycle's final planes.
@@ -50,18 +50,30 @@ from repro_torch.kernels.noc_cycle import (
     run_cycles_ref,
 )
 from repro_torch.kernels.noc_cycle import noc_cycle as nc
+from repro_torch.core import make_topology as tmake_topology
 from repro_torch.noc.xsim.compile import geometry_tables as tgeometry_tables
 from repro_torch.noc.xsim.compile import traffic_from_numpy
 
 CYCLES = 100
+# (kind, n, topology_params) of each compiled fabric: the 2-D ones 4x4, the
+# 3-D ones with six ports, a chiplet package of 2x2 dies of 4x4 routers
+FABRICS = {
+    "mesh": ("mesh", 4, ()),
+    "torus": ("torus", 4, ()),
+    "mesh3d": ("mesh3d", 4, (4,)),
+    "torus3d": ("torus3d", 3, (3,)),
+    "chiplet": ("chiplet", 8, (2, 2)),
+}
 
 
 def _compiled(topology, algos=("DPM",), rates=(0.12,), cycles=40, seed=4,
               buffer_depth=4, flits=None):
     """Compile with the reference; ``flits`` maps request index -> worm
     length (None keeps ``cfg.flits_per_packet``)."""
-    cfg = jnoc.NoCConfig(n=4, topology=topology, dest_range=(2, 6),
-                         multicast_fraction=0.4, buffer_depth=buffer_depth)
+    kind, n, params = FABRICS[topology]
+    cfg = jnoc.NoCConfig(n=n, topology=kind, topology_params=params,
+                         dest_range=(2, 6), multicast_fraction=0.4,
+                         buffer_depth=buffer_depth)
     wls = [jnoc.synthetic_workload(cfg, r, cycles, seed=seed) for r in rates]
     if flits is not None:
         for w in wls:
@@ -198,18 +210,41 @@ def test_kernel_wrapper_never_falls_back_to_the_plain_version():
 
 
 # ------------------------------------------------------------ cluster kernel
-# (kind, side, VCs per class): the repo's grids, mesh and torus
-LAYOUT_GRIDS = [(k, n, 2) for k in ("mesh", "torus") for n in (4, 8, 16, 32)]
-LAYOUT_GRIDS += [("mesh", 8, 1), ("torus", 8, 1)]
+# (kind, side, topology params, VCs per class): the repo's grids, mesh and
+# torus, the 3-D fabrics (six ports) and chiplet packages (four ports, the
+# absent interposer links ghost links)
+LAYOUT_GRIDS = [(k, n, (), 2) for k in ("mesh", "torus")
+                for n in (4, 8, 16, 32)]
+LAYOUT_GRIDS += [("mesh", 8, (), 1), ("torus", 8, (), 1)]
+LAYOUT_GRIDS += [(k, n, (d,), 2) for k in ("mesh3d", "torus3d")
+                 for n, d in ((3, 3), (4, 4), (8, 8))]
+LAYOUT_GRIDS += [("mesh3d", 8, (4,), 2), ("torus3d", 8, (8,), 1),
+                 ("chiplet", 8, (2, 2), 2), ("chiplet", 16, (4, 4), 2)]
 # children per rank: the chip cases, compiled on the CPU, put at most 38
 # (8x8), 152 (16x16) and 236 (32x32) children of one instance on one rank;
-# the bound is 2.5 times that
-CHILDREN_BOUND = {4: 100, 8: 100, 16: 400, 32: 600}
+# the bound is 2.5 times that, keyed here by routers per fabric; a 3-D or
+# chiplet fabric takes the bound of the next 2-D grid at least as large.
+CHILDREN_BOUND = {16: 100, 64: 100, 256: 400, 1024: 600}
+# the cluster size each fabric's bands take: 8 ranks where that many bands
+# join only neighbouring ranks, else the first smaller K that does (a 3-D
+# fabric needs a whole layer a rank, or its z-links skip a band)
+LAYOUT_K = {("mesh3d", 3, (3,)): 3, ("torus3d", 3, (3,)): 3,
+            ("mesh3d", 4, (4,)): 4, ("torus3d", 4, (4,)): 4,
+            ("mesh3d", 8, (8,)): 8, ("torus3d", 8, (8,)): 8,
+            ("mesh3d", 8, (4,)): 4, ("chiplet", 8, (2, 2)): 8,
+            ("chiplet", 16, (4, 4)): 8}
 
 
-def _geometry(kind, n, V):
-    geom = tgeometry_tables(kind, n, n, (), V)
-    return geom["node_ports"], n * n, n * n * 4
+def _grid_id(kind, n, params, V):
+    if kind == "chiplet":
+        return f"{kind}{n}x{n}-dies{params[0]}x{params[1]}-V{V}"
+    return f"{kind}{'x'.join(map(str, (n, n, *params)))}-V{V}"
+
+
+def _geometry(kind, n, V, params=()):
+    g = tmake_topology(kind, n, n, params=params)
+    geom = tgeometry_tables(kind, n, n, g.params, V)
+    return geom["node_ports"], g.num_nodes, g.num_nodes * g.ports
 
 
 def _worst_children(CC):
@@ -219,27 +254,34 @@ def _worst_children(CC):
     return children
 
 
-def _plan(kind, n, V):
-    ports, NN, L = _geometry(kind, n, V)
-    plan = nc.cluster_plan(ports, _worst_children(CHILDREN_BOUND[n]), NN=NN,
-                           L=L, V=V)
+def _children_bound(NN):
+    return CHILDREN_BOUND[min(k for k in CHILDREN_BOUND if k >= NN)]
+
+
+def _plan(kind, n, V, params=()):
+    ports, NN, L = _geometry(kind, n, V, params)
+    plan = nc.cluster_plan(ports, _worst_children(_children_bound(NN)),
+                           NN=NN, L=L, V=V)
     return plan, ports, NN, L
 
 
-@pytest.mark.parametrize("kind,n,V", LAYOUT_GRIDS,
-                         ids=[f"{k}{n}x{n}-V{V}" for k, n, V in LAYOUT_GRIDS])
-def test_cluster_layout_owns_everything_once(kind, n, V):
+@pytest.mark.parametrize("kind,n,params,V", LAYOUT_GRIDS,
+                         ids=[_grid_id(*c) for c in LAYOUT_GRIDS])
+def test_cluster_layout_owns_everything_once(kind, n, params, V):
     """Every router, FIFO, lane and output link has exactly one rank; a
     router's input FIFOs sit in its own rank in port order; remote reads
     and pushes join only neighbouring bands (ranks 0 and K - 1 too on a
     torus); the rank's shared memory fits 227 KB; the route is the
-    cluster kernel, with 8 ranks from 8 rows up."""
-    plan, ports, NN, L = _plan(kind, n, V)
+    cluster kernel, with 8 ranks from 8 rows up on the 2-D grids and the
+    sizes of ``LAYOUT_K`` on the others."""
+    plan, ports, NN, L = _plan(kind, n, V, params)
     assert plan is not None  # the route chooser takes cluster_smem
     lay = plan.layout
     K, NR, D, W = lay.K, lay.NR, L // NN, 2 * V
-    assert K == (8 if n >= 8 else n) and K * NR == NN
-    assert plan.smem == nc.cluster_smem_bytes(NR, D, W, CHILDREN_BOUND[n])
+    want_k = LAYOUT_K[kind, n, params] if params else (8 if n >= 8 else n)
+    assert K == want_k and K * NR == NN
+    assert D == (6 if kind.endswith("3d") else 4)
+    assert plan.smem == nc.cluster_smem_bytes(NR, D, W, _children_bound(NN))
     assert plan.smem <= 232_448 and plan.threads <= 512
     # routers and lanes: contiguous bands, one per rank
     node_rank = np.arange(NN) // NR
@@ -262,7 +304,7 @@ def test_cluster_layout_owns_everything_once(kind, n, V):
                 assert lay.slot_link[r, vl * D + d] == c // W
     # remote traffic only between neighbouring bands
     gap = (home - src) % K
-    if kind == "mesh":
+    if kind in ("mesh", "mesh3d", "chiplet"):
         assert np.all(np.abs(home - src) <= 1)
     else:
         assert np.all((gap <= 1) | (gap == K - 1))
@@ -278,6 +320,66 @@ def test_cluster_route_needs_the_block_kernel_only_beyond_shared_memory():
     assert plan.layout.K == 16 and plan.smem <= 232_448
     assert nc.cluster_plan(ports, _worst_children(20_000), NN=NN, L=L,
                            V=2) is None
+
+
+# (kind, n, params) -> (K, shared memory per CTA with no children), or None
+# for the block route: the cluster sizes of the full-size 3-D and chiplet
+# fabrics at V = 2
+CLUSTER_K = [
+    ("torus3d", 8, (8,), (8, 127_632)),
+    ("mesh3d", 8, (8,), (8, 127_632)),
+    ("mesh3d", 8, (4,), (4, 127_632)),  # K = 8 leaves z-links 2 ranks apart
+    ("mesh3d", 4, (4,), (4, 32_016)),
+    ("torus3d", 4, (4,), (4, 32_016)),
+    ("chiplet", 16, (4, 4), (8, 44_944)),
+    ("chiplet", 8, (2, 2), (8, 11_344)),
+    # K = 4 is the first whose bands are adjacent, and needs 510,096 B
+    ("torus3d", 16, (4,), None),
+]
+
+
+@pytest.mark.parametrize("kind,n,params,want", CLUSTER_K,
+                         ids=[_grid_id(k, n, p, 2) for k, n, p, _ in CLUSTER_K])
+def test_cluster_size_on_3d_and_chiplet_fabrics(kind, n, params, want):
+    """The chooser's K on the six-port and chiplet fabrics: a cluster whose
+    bands hold whole layers (3-D) or die rows (chiplet), and the block
+    kernel where the only adjacent bands overflow shared memory."""
+    ports, NN, L = _geometry(kind, n, 2, params)
+    plan = nc.cluster_plan(ports, _worst_children(0), NN=NN, L=L, V=2)
+    got = None if plan is None else (plan.layout.K, plan.smem)
+    assert got == want
+    if plan is None:
+        lay = nc.band_layout(ports, NN, L, 2, 4)
+        assert nc.bands_adjacent(lay, L // NN)
+        assert nc.cluster_smem_bytes(lay.NR, L // NN, 4, 0) > 232_448
+
+
+@pytest.mark.parametrize("n,params", [(8, (2, 2)), (16, (4, 4)),
+                                      (16, (2, 4))],
+                         ids=["8x8-dies2x2", "16x16-dies4x4", "16x16-dies2x4"])
+def test_chiplet_ghost_links_balance_in_every_band(n, params):
+    """A chiplet's absent interposer links have no router to enter: each is
+    a ghost link whose FIFOs fill a free in-slot of its source's band. Every
+    absence is symmetric (u -> v is missing exactly when v -> u is), so each
+    band has as many free in-slots as ghost links, at every K the chooser
+    tries."""
+    g = tmake_topology("chiplet", n, n, params=params)
+    ports, NN, L = _geometry("chiplet", n, 2, params)
+    step = {(u, d): tuple(c + e for c, e in zip(u, g.dir_delta(d)))
+            for u in g.nodes() for d in range(g.ports)}
+    missing = {(u, d) for (u, d), v in step.items()
+               if g.in_bounds(*v) and v not in g.neighbors(*u)}
+    assert missing  # the package has interposer gaps
+    for u, d in missing:  # directions pair up as (+x, -x), (+y, -y)
+        assert (step[u, d], d ^ 1) in missing
+    for K in nc.CLUSTER_SIZES:
+        lay = nc.band_layout(ports, NN, L, 2, K)
+        if -(-NN // -(-NN // K)) != K:
+            assert lay is None  # a rank would hold no router
+            continue
+        assert lay is not None
+        slots = lay.slot_link[lay.slot_link >= 0]
+        assert np.array_equal(np.sort(slots), np.arange(L))
 
 
 @pytest.mark.parametrize("topology", ["mesh", "torus"])
@@ -369,7 +471,11 @@ def test_cluster_smem_mirror_matches_the_kernel(host_kernel):
     ("mesh", 4, None, None),
     ("torus", 4, None, 32),
     ("mesh", 2, _mixed_flits, 32),
-], ids=["mesh", "torus-epochs", "mesh-bd2-flits1to6"])
+    ("mesh3d", 4, None, None),
+    ("torus3d", 2, _mixed_flits, 32),
+    ("chiplet", 4, None, 32),
+], ids=["mesh", "torus-epochs", "mesh-bd2-flits1to6", "mesh3d4x4x4",
+        "torus3d3x3x3-bd2-flits1to6", "chiplet8x8-epochs"])
 def test_cluster_kernel_on_host_threads(host_kernel, topology, buffer_depth,
                                         flits, epoch_len):
     """The cluster kernel's arithmetic, barriers and cross-rank reads: its
