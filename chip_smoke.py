@@ -112,7 +112,22 @@ non-zero before the result line:
     equal to the plain cycle and timed in turns beside their bound; then
     ``WormholeSim`` against ``xsimulate`` on mesh3d 4x4x4 and the 2x2-die
     package (the same delivery sets and per-link flits);
-11. the ``kernels`` JSON line (six kernels), then the result line.
+11. ML-workload traces (``[trace]``): ``benchmarks/results/
+    trace_replay.json`` reproduced (its six traces on the 4x4 mesh under
+    MU/MP/NMP/DPM through ``cross_validate``: host simulator and xsim on
+    the card, delivery sets equal; the ring all-to-all; the fault
+    ladder), ``topo3d_sweep.json``'s four EP-trace rows (torus3d 4x4x4
+    and the 2x2-die package), then an EP all-to-all over 256 ranks on the
+    16x16 mesh (``dist.alltoall_schedule``: 255 rounds, 510 phases, 130,560
+    events) replayed under MU, DPM and DPM with two links failing at the
+    first combine round, each one cycle-kernel launch of B = 510 on the
+    cluster route alone; both routes equal to the plain cycle and timed
+    beside their bound; every 32nd phase cross-validated on the host;
+12. the calibration loop (``[calibration]``): ``benchmarks/results/
+    telemetry_calibration.json`` reproduced on its 16x16 mesh (nine
+    iterations, the three-rate sweep, the energy constants), the loop's
+    wall time split into host signature planning, compile and device time;
+13. the ``kernels`` JSON line (six kernels), then the result line.
 
 Phases 4, 5, 7 and 8 read their kernels' profiler times from a child
 process of this script (``python3 chip_smoke.py --noc-cycle-alone``,
@@ -2373,6 +2388,397 @@ def phase_topo3d(card: str) -> None:
     say("topo3d", part="phase", wall_s=f"{time.monotonic() - t_phase:.1f}")
 
 
+# the trace phase: benchmarks/trace_replay.py's suite on its 4x4 mesh (its
+# fault rungs: 1 then 2 broken links), topo3d_sweep.json's EP traces, then
+# a 256-rank EP all-to-all on the 16x16 mesh (one expert per router, as in
+# a 256-expert MoE layer), DPM run once more with two interior links dying
+# at the start of the combine half
+TRACE_ARTIFACT = ROOT / "benchmarks" / "results" / "trace_replay.json"
+TRACE_FAULTS_4X4 = ((((1, 1), (1, 2)),),
+                    (((1, 1), (1, 2)), ((3, 0), (3, 1))))
+TRACE_FULL_RANKS = 256
+TRACE_FULL_CHUNK = 256  # bytes: 16-flit worms
+TRACE_FULL_GRACE = 400
+TRACE_FULL_FAULTS = {"combine.r0": (((7, 7), (7, 8)), ((8, 3), (9, 3)))}
+TRACE_HOST_EVERY = 32  # the host cross-check replays every 32nd phase
+# the calibration phase: benchmarks/telemetry_calibration.py at full size
+CALIBRATION_ARTIFACT = (ROOT / "benchmarks" / "results"
+                        / "telemetry_calibration.json")
+CALIBRATION_MODEL = "calibrated-bench"
+
+
+def first_difference(got, want, path: str = "") -> str | None:
+    """Where two JSON-like values first differ (None if equal)."""
+    if isinstance(want, dict) and isinstance(got, dict):
+        for k in want:
+            if k not in got:
+                return f"{path}.{k} missing"
+            d = first_difference(got[k], want[k], f"{path}.{k}")
+            if d:
+                return d
+        extra = sorted(set(got) - set(want))
+        return f"{path}: extra keys {extra}" if extra else None
+    if isinstance(want, list) and isinstance(got, list):
+        if len(got) != len(want):
+            return f"{path}: {len(got)} entries, want {len(want)}"
+        for i, (a, b) in enumerate(zip(got, want)):
+            d = first_difference(a, b, f"{path}[{i}]")
+            if d:
+                return d
+        return None
+    return None if got == want else f"{path}: {got!r}, want {want!r}"
+
+
+def phase_trace(card: str) -> None:
+    """ML-workload trace replay through the port's host simulator and its
+    xsim on the card (``noc.trace``), collectives scheduled by DPM
+    (``dist.multicast``):
+
+    1. ``benchmarks/results/trace_replay.json`` on its 4x4 mesh with the
+       suite's producers and arguments: every trace through
+       ``cross_validate(device="cuda")`` under MU/MP/NMP/DPM, the ring
+       all-to-all against DPM's schedule, the fault ladder (1 and 2 broken
+       links); every number of the file must come out equal;
+    2. ``topo3d_sweep.json``'s ``ep_dispatch_traces``: the 64-rank EP
+       all-to-all through ``replay_xsim`` under MU and DPM on torus3d
+       4x4x4 and the 2x2-die package (drain grace 1,600): 126 phases and
+       the file's total cycles (JAX xsim alone made them);
+    3. full size: ``ep_dispatch_trace(256, chunk_bytes=256)`` on the 16x16
+       mesh (510 phases, 130,560 events), through ``replay_xsim`` under MU,
+       DPM and DPM with two links failing at the first combine round: one
+       cycle-kernel launch each with B = 510, the counts set to 0 just
+       before (the cluster route alone), every phase drained; both routes
+       equal to the plain cycle on the DPM run's inputs and timed in turns
+       beside the bound; every 32nd phase cross-validated on the host."""
+    import torch
+
+    from repro_torch.core import (
+        arena_clear, faulty, plan_cache_clear, planner_for, torus,
+    )
+    from repro_torch.dist import alltoall_schedule, ring_alltoall_schedule
+    from repro_torch.kernels.noc_cycle import KERNEL
+    from repro_torch.noc import NoCConfig
+    from repro_torch.noc.trace import (
+        Trace, coherence_trace, compressed_allreduce_trace, cross_validate,
+        ep_dispatch_trace, from_schedule, model_collective_mix, replay_xsim,
+        serving_trace, zero1_gather_trace,
+    )
+
+    t_phase = time.monotonic()
+    want = json.loads(TRACE_ARTIFACT.read_text())
+
+    # ---- 1. trace_replay.json ------------------------------------------
+    cfg = NoCConfig(n=4, topology="mesh")
+    KERNEL.reset()
+    traces = [
+        ep_dispatch_trace(16, chunk_bytes=96),
+        zero1_gather_trace(16, param_bytes=4096),
+        compressed_allreduce_trace(16, grad_bytes=65536),
+        coherence_trace(16, num_bursts=4, lines_per_burst=3, sharers=3,
+                        seed=1),
+        serving_trace(16, num_requests=16, rate=0.02, seed=2),
+        model_collective_mix("smollm-135m", 16, scale_to=256),
+    ]
+    xsim_runs = 0
+    replays = {}
+    for tr in traces:
+        t0 = time.monotonic()
+        per_algo = {}
+        for algo in want["algos"]:
+            h, x = cross_validate(tr, cfg, algo, device="cuda")
+            xsim_runs += 1
+            per_algo[algo] = {
+                "total_cycles_host": h.total_cycles,
+                "total_cycles_xsim": x.total_cycles,
+                "phase_cycles": h.phase_cycles,
+            }
+        if Trace.from_json(tr.to_json()) != tr:
+            fail(f"{tr.name}: the JSON round trip changed the trace")
+        replays[tr.name] = {
+            "kind": tr.meta.get("kind", "?"), "phases": len(tr.phases),
+            "events": tr.num_events, "algos": per_algo,
+            "json_bytes": len(tr.to_json()),
+        }
+        diff = first_difference(replays[tr.name],
+                                want["replays"].get(tr.name))
+        say("trace", part="artifact", trace=tr.name,
+            phases=len(tr.phases), events=tr.num_events,
+            json_bytes=len(tr.to_json()),
+            cycles=",".join(f"{a}:{v['total_cycles_host']}/"
+                            f"{v['total_cycles_xsim']}"
+                            for a, v in per_algo.items()),
+            wall_s=f"{time.monotonic() - t0:.2f}",
+            equal_to_artifact=diff is None)
+        if diff:
+            fail(f"trace_replay.json differs at {tr.name}{diff}")
+    ep = traces[0]
+    ring = from_schedule(ring_alltoall_schedule(16), "ep_alltoall.n16.ring",
+                         ep.meta["chunk_bytes"], phase_prefix="shift.r")
+    ring2 = Trace(ring.name, ring.num_ranks, ring.phases + ring.phases,
+                  {"kind": "ep_alltoall_ring"})
+    hr, xr = cross_validate(ring2, cfg, "DPM", device="cuda")
+    xsim_runs += 1
+    sched_cmp = {
+        "dpm_schedule_cycles": replays[ep.name]["algos"]["DPM"][
+            "total_cycles_host"],
+        "ring_schedule_cycles": hr.total_cycles,
+        "ring_schedule_cycles_xsim": xr.total_cycles,
+        "dpm_rounds": len(ep.phases), "ring_rounds": len(ring2.phases),
+    }
+    fault_rows = {}
+    for tr in traces[:2]:
+        ladder = []
+        for links in TRACE_FAULTS_4X4:
+            dcfg = NoCConfig(n=4, topology="mesh", broken_links=links)
+            h, x = cross_validate(tr, dcfg, "DPM", device="cuda")
+            xsim_runs += 1
+            ladder.append({"broken_links": len(links),
+                           "total_cycles_host": h.total_cycles,
+                           "total_cycles_xsim": x.total_cycles})
+        fault_rows[tr.name] = ladder
+    for key, got in (("schedule_comparison", sched_cmp),
+                     ("fault_ladder", fault_rows)):
+        diff = first_difference(got, want[key])
+        say("trace", part="artifact", row=key,
+            values=json.dumps(got, separators=(",", ":")),
+            equal_to_artifact=diff is None)
+        if diff:
+            fail(f"trace_replay.json differs at {key}{diff}")
+    counts = expect_cluster_only("trace artifact")
+    if counts["launches"] != xsim_runs:
+        fail(f"trace artifact: {counts['launches']} launches for "
+             f"{xsim_runs} xsim replays")
+    say("trace", part="artifact_runs", xsim_replays=xsim_runs,
+        wall_s=f"{time.monotonic() - t_phase:.1f}", **counts)
+
+    # ---- 2. topo3d_sweep.json's EP traces ------------------------------
+    rows = {(r["fabric"], r["algo"]): r
+            for r in json.loads(TOPO3D_ARTIFACT.read_text())[
+                "ep_dispatch_traces"]}
+    for name, fabric, _rate in TOPO3D_GRID[1:]:
+        tcfg = NoCConfig(warmup=0, drain_grace=1600, **fabric)
+        nn = tcfg.make_topology().num_nodes
+        tr = ep_dispatch_trace(nn, chunk_bytes=256, algo="DPM")
+        for algo in ("MU", "DPM"):
+            KERNEL.reset()
+            rr = replay_xsim(tr, tcfg, algo, device="cuda")
+            counts = expect_cluster_only(f"{name} EP trace")
+            got = {"fabric": name, "trace": tr.name, "algo": algo,
+                   "phases": len(rr.phase_cycles),
+                   "total_cycles": int(sum(rr.phase_cycles))}
+            res = rr.xsim_results
+            say("trace", part="topo3d_artifact", fabric=name, algo=algo,
+                trace=tr.name, phases=got["phases"],
+                total_cycles=got["total_cycles"], instances=len(tr.phases),
+                cycles=res.cycles, device_s=f"{res.device_s:.6f}",
+                wall_s=f"{res.wall_s:.3f}",
+                equal_to_artifact=got == rows.get((name, algo)), **counts)
+            if got != rows.get((name, algo)):
+                fail(f"topo3d_sweep.json ep_dispatch_traces: {got}, the "
+                     f"artifact has {rows.get((name, algo))}")
+
+    # ---- 3. full size: 256-rank EP all-to-all on the 16x16 mesh --------
+    fcfg = NoCConfig(n=16, warmup=0, drain_grace=TRACE_FULL_GRACE)
+    g = fcfg.make_topology()
+    alltoall_schedule.cache_clear()
+    t0 = time.monotonic()
+    # the producer's call below hits this one in alltoall_schedule's cache
+    sched = alltoall_schedule(TRACE_FULL_RANKS, "DPM", device="cuda")
+    sched_s = time.monotonic() - t0
+    ring_info = planner_for(torus(TRACE_FULL_RANKS, 1), "DPM",
+                            device="cuda").info()
+    t0 = time.monotonic()
+    tr = ep_dispatch_trace(TRACE_FULL_RANKS, chunk_bytes=TRACE_FULL_CHUNK)
+    lower_s = time.monotonic() - t0
+    if (len(tr.phases), tr.num_events) != (2 * (TRACE_FULL_RANKS - 1),
+                                           TRACE_FULL_RANKS
+                                           * (TRACE_FULL_RANKS - 1) * 2):
+        fail(f"{tr.name}: {len(tr.phases)} phases, {tr.num_events} events")
+    say("trace", part="full_schedule", ranks=TRACE_FULL_RANKS,
+        rounds=sched.num_rounds, transfers=sum(map(len, sched.rounds)),
+        hops=sched.total_hops, schedule_s=f"{sched_s:.3f}",
+        batched_plans=ring_info.batched_plans,
+        host_plans=ring_info.host_plans, lower_trace_s=f"{lower_s:.3f}",
+        phases=len(tr.phases), events=tr.num_events)
+    totals = {}
+    dpm = None
+    for label, algo, faults in (("MU", "MU", None), ("DPM", "DPM", None),
+                                ("DPM+2links", "DPM", TRACE_FULL_FAULTS)):
+        arena_clear()
+        plan_cache_clear()
+        KERNEL.reset()
+        t0 = time.monotonic()
+        rr = replay_xsim(tr, fcfg, algo, phase_broken_links=faults,
+                         device="cuda")
+        wall = time.monotonic() - t0
+        counts = expect_cluster_only(f"{tr.name} {label}")
+        if counts["launches"] != 1:
+            fail(f"{tr.name} {label}: {counts['launches']} launches")
+        cluster = dict(KERNEL.cluster)
+        res = rr.xsim_results
+        info = planner_for(g, "DPM", device="cuda").info()
+        degraded = (planner_for(faulty(g, faults["combine.r0"]), "DPM",
+                                device="cuda").info()
+                    if faults else None)
+        totals[label] = rr.total_cycles
+        faulted = sum(f is not None for f in rr.phase_faults)
+        say("trace", part="full", trace=tr.name, run=label,
+            phases=len(rr.phase_cycles), total_cycles=rr.total_cycles,
+            max_phase_cycles=max(rr.phase_cycles),
+            phases_with_faults=faulted, drained=True,
+            instances=res.dtime.shape[0], cycles=res.cycles,
+            compile_s=f"{res.compile_s:.3f}", device_s=f"{res.device_s:.6f}",
+            xsim_wall_s=f"{res.wall_s:.3f}", wall_s=f"{wall:.3f}",
+            dpm_batched_plans=info.batched_plans,
+            dpm_host_plans=info.host_plans,
+            degraded_dpm_batched_plans=(degraded.batched_plans
+                                        if degraded else 0),
+            degraded_dpm_host_plans=degraded.host_plans if degraded else 0,
+            threads=cluster["threads"],
+            resident_clusters=cluster["resident_clusters"], **counts)
+        if label == "DPM":
+            dpm = (rr, res)
+    say("trace", part="full_totals", trace=tr.name,
+        **{k.replace("+", "_"): v for k, v in totals.items()},
+        drain_grace=TRACE_FULL_GRACE)
+
+    rr, res = dpm
+    tr_in, geom, kw = engine_inputs(res, fcfg, "cuda")
+    kerns, plain, p_ms = check_routes("ep256_mesh16x16", tr_in, geom, kw)
+    for variant, k in kerns.items():
+        if not (k["ctr"].cpu().numpy() == res.ctr).all():
+            fail(f"ep256: a {variant} run differs from replay_xsim's")
+    err = max(compare(k, plain)[1] for k in kerns.values())
+    routes = time_routes(tr_in, geom, kw)
+    b_ms, b_by, nbytes, ops = bound_ms(tr_in, kerns["cluster_smem"], kw)
+    blk, cl = routes["block"][0], routes["cluster_smem"][0]
+    say("trace", part="routes", grid="ep256_mesh16x16",
+        instances=tr_in["link"].shape[0], cycles=kw["T"],
+        block_ms=f"{blk:.3f}", cluster_ms=f"{cl:.3f}",
+        block_ms_runs=",".join(f"{t:.3f}" for t in routes["block"][1]),
+        cluster_ms_runs=",".join(
+            f"{t:.3f}" for t in routes["cluster_smem"][1]),
+        block_over_cluster=f"{blk / cl:.2f}", max_abs_err=err,
+        plain_ms=f"{p_ms:.1f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+        bytes=nbytes, ops=ops, cluster_times_bound=f"{cl / b_ms:.1f}",
+        card=repr(card))
+
+    # the host simulator on every 32nd phase of the DPM run
+    sub = Trace(tr.name, TRACE_FULL_RANKS, tr.phases[::TRACE_HOST_EVERY],
+                tr.meta)
+    t0 = time.monotonic()
+    h, x = cross_validate(sub, fcfg, "DPM", device="cuda")
+    host_s = time.monotonic() - t0
+    picked = {ph.name: c for ph, c in zip(tr.phases, rr.phase_cycles)}
+    same = all(picked[n] == c for n, c in zip(x.phase_names,
+                                             x.phase_cycles))
+    if not same:
+        fail("ep256: the sub-trace's xsim phases differ from the full run")
+    say("trace", part="host_cross_check", phases=len(sub.phases),
+        delivery_sets_equal=True, host_cycles=h.total_cycles,
+        xsim_cycles=x.total_cycles,
+        rel_diff=f"{abs(h.total_cycles - x.total_cycles) / x.total_cycles:.4f}",
+        xsim_equal_to_full_run=same, wall_s=f"{host_s:.2f}")
+    torch.cuda.synchronize()
+    say("trace", part="phase", wall_s=f"{time.monotonic() - t_phase:.1f}")
+
+
+def phase_calibration(card: str) -> None:
+    """``benchmarks/results/telemetry_calibration.json`` on the card: the
+    closed calibration loop at its 16x16 size (warmup 0, drain grace 4,000,
+    40% multicast of 3-6 destinations, rate 0.03, 200 cycles, seed 5, up to
+    8 iterations), every iteration's latency, peak link load and plan
+    changes equal to the file, then the three-rate sweep under hop
+    counting, the analytic contention model and the calibrated model, and
+    the measured energy constants. Each xsim run launches the cycle kernel
+    once (the counts set to 0 just before the loop, the cluster route
+    alone); the model is unregistered in a ``finally``."""
+    from repro_torch.core import EnergyCost, unregister_cost_model
+    from repro_torch.kernels.noc_cycle import KERNEL
+    from repro_torch.noc import (
+        NoCConfig, calibrate_cost_model, synthetic_workload, xsimulate,
+    )
+
+    want = json.loads(CALIBRATION_ARTIFACT.read_text())
+    n = int(want["mesh"].split("x")[0])
+    cycles, rate = want["cycles"], want["calibration_rate"]
+    cfg = NoCConfig(n=n, warmup=0, drain_grace=4000,
+                    multicast_fraction=0.4, dest_range=(3, 6))
+    wl = synthetic_workload(cfg, rate, cycles, seed=5)
+    try:
+        KERNEL.reset()
+        res = calibrate_cost_model(cfg, wl, "DPM", name=CALIBRATION_MODEL,
+                                   max_iters=8, device="cuda")
+        counts = expect_cluster_only("calibration loop")
+        if counts["launches"] != len(res.iterations):
+            fail(f"calibration: {counts['launches']} launches for "
+                 f"{len(res.iterations)} iterations")
+
+        def measure(r, cost_model):
+            w = synthetic_workload(cfg, r, cycles, seed=5)
+            x = xsimulate(cfg, [w], ("DPM",), cost_model=cost_model,
+                          device="cuda")
+            return {
+                "avg_latency": round(float(x.avg_latency(0, 0)), 3),
+                "max_link_flits": int(x.link_utilization(0, 0).max(
+                    initial=0)),
+            }
+
+        t0 = time.monotonic()
+        sweep = [{"rate": pt["rate"],
+                  "hops": measure(pt["rate"], None),
+                  "contention": measure(pt["rate"], "contention"),
+                  "calibrated": measure(pt["rate"], CALIBRATION_MODEL)}
+                 for pt in want["sweep"]]
+        sweep_s = time.monotonic() - t0
+    finally:
+        unregister_cost_model(CALIBRATION_MODEL)
+    got = res.to_dict()
+    for it in got["iterations"]:
+        say("calibration", iter=it["iter"], model=it["model"],
+            avg_latency=repr(it["avg_latency"]),
+            max_link_flits=it["max_link_flits"],
+            plans_changed_vs_baseline=it["plans_changed_vs_baseline"],
+            plans_changed_vs_prev=it["plans_changed_vs_prev"])
+    diff = first_difference(got, want["calibration"])
+    analytic = EnergyCost(cfg.energy, cfg.flits_per_packet)
+    energy = {
+        "analytic_per_worm_hop": round(analytic._per_hop, 3),
+        "measured_per_worm_hop": round(res.energy._per_hop, 3),
+        "analytic_per_worm": round(analytic._per_packet, 3),
+        "measured_per_worm": round(res.energy._per_packet, 3),
+    }
+    t = res.timing
+    say("calibration", part="loop", converged=res.converged,
+        best_iter=res.best_iter,
+        baseline_latency=repr(res.baseline_latency),
+        calibrated_latency=repr(res.calibrated_latency),
+        plans_changed=res.plans_changed, requests=len(wl.requests),
+        wall_s=f"{t['wall_s']:.2f}",
+        host_signature_s=f"{t['signature_s']:.2f}",
+        host_planner_tables_s=f"{t['planner_s']:.2f}",
+        host_compile_s=f"{t['compile_s']:.2f}",
+        device_s=f"{t['device_s']:.4f}",
+        dpm_misses_on_card=t["batched_plans"],
+        dpm_misses_on_host=t["host_plans"], equal_to_artifact=diff is None,
+        **counts)
+    if diff:
+        fail(f"telemetry_calibration.json differs at calibration{diff}")
+    for pt in sweep:
+        say("calibration", part="sweep", rate=pt["rate"],
+            **{f"{k}_latency": pt[k]["avg_latency"]
+               for k in ("hops", "contention", "calibrated")},
+            **{f"{k}_max_link_flits": pt[k]["max_link_flits"]
+               for k in ("hops", "contention", "calibrated")})
+    for key, got_v in (("sweep", sweep), ("energy_constants_pj", energy)):
+        diff = first_difference(got_v, want[key])
+        say("calibration", part=key, equal_to_artifact=diff is None,
+            **({"sweep_s": f"{sweep_s:.2f}"} if key == "sweep" else energy))
+        if diff:
+            fail(f"telemetry_calibration.json differs at {key}{diff}")
+    say("calibration", part="phase", card=repr(card))
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the repo")
@@ -2642,7 +3048,13 @@ def main() -> None:
     # ---- 10. 3-D and chiplet fabrics --------------------------------------
     phase_topo3d(card)
 
-    # ---- 11. kernels line and result --------------------------------------
+    # ---- 11. ML-workload traces and DPM-scheduled collectives -------------
+    phase_trace(card)
+
+    # ---- 12. the telemetry calibration loop -------------------------------
+    phase_calibration(card)
+
+    # ---- 13. kernels line and result --------------------------------------
     if "jax" in sys.modules or "repro" in sys.modules:
         fail("the port imported jax or the reference package")
     print(json.dumps({"kernels": [{

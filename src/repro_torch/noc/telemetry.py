@@ -14,8 +14,11 @@ Twin of ``repro.noc.telemetry``, numpy on the host as there:
   totals are conserved events and match ``Telemetry.link_flits`` exactly
   whenever delivery sets match.
 * ``MeasuredContentionCost`` / ``MeasuredEnergyCost`` / ``fit_energy_cost``
-  build cost models from measured counters. The reference's closed
-  calibration loop (``calibrate_cost_model``) comes with a later slice.
+  build cost models from measured counters, and ``calibrate_cost_model``
+  closes the loop the analytic cost models can't provide: run xsim, fit
+  per-link contention weights (and measured ``EnergyCost`` constants) from
+  the telemetry planes, re-register the calibrated model, replan, iterate
+  to a fixed point.
 
 Directed-link ids use the engines' shared convention
 ``idx(u) * ports + direction(u -> v)`` (``core.grid``: 4 ports in the order
@@ -23,7 +26,10 @@ Directed-link ids use the engines' shared convention
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
+import torch
 
 from ..core.grid import Coord, MeshGrid
 
@@ -202,6 +208,12 @@ class Telemetry:
 from ..core.algo import (  # noqa: E402  (after Telemetry: no cycle — algo
     CostModel,  # imports core only)
     EnergyCost,
+    get_algorithm,
+    get_cost_model,
+    is_registered_algorithm,
+    is_registered_cost_model,
+    register_cost_model,
+    unregister_cost_model,
 )
 
 
@@ -305,3 +317,242 @@ def fit_energy_cost(counters, energy, flits_per_packet: int,
     ) / hops
     per_packet = get("ni_flits", 0) * e.e_ni / packets
     return MeasuredEnergyCost(per_hop, per_packet, e, flits_per_packet)
+
+
+# ---------------------------------------------------------------------------
+# The calibration loop
+# ---------------------------------------------------------------------------
+def _plan_signature(topo, workload, algo, cost_model):
+    """Hashable route set of every request's plan under one model."""
+    from ..core.planner import plan
+
+    out = []
+    for r in workload.requests:
+        p = plan(algo, topo, r.src, r.dests, cost_model=cost_model)
+        out.append(tuple(tuple(path.hops) for path in p.paths))
+    return tuple(out)
+
+
+def _register_as(name: str, model: CostModel) -> CostModel:
+    """(Re-)register ``model`` under ``name``, flushing name-keyed caches.
+
+    ``unregister_cost_model`` fires the registry invalidation hooks (the
+    plan cache and every batched planner's arena), so a re-registration can
+    never serve plans cached under the previous iterate's weights (the
+    reference's aliasing contract).
+    """
+    unregister_cost_model(name)
+    register_cost_model(model, name=name)
+    return get_cost_model(name)
+
+
+class CalibrationResult:
+    """Outcome of one ``calibrate_cost_model`` loop.
+
+    ``timing`` splits the loop's wall time (not part of ``to_dict``):
+    ``signature_s`` (host ``plan()`` of every request, every iteration),
+    ``planner_s`` (each model's batched planner: ``batch_support`` and its
+    dense tables), ``compile_s`` (xsim planning, lowering and stacking),
+    ``device_s`` (the cycle engine), ``wall_s``, and how many planner
+    misses the xsim runs planned in batches on the device
+    (``batched_plans``) and on the host (``host_plans``).
+    """
+
+    def __init__(self, name: str, model: CostModel,
+                 energy: MeasuredEnergyCost, iterations: list[dict],
+                 best_iter: int, converged: bool,
+                 timing: dict | None = None):
+        self.name = name
+        self.model = model  # the registered instance `name` resolves to
+        self.energy = energy
+        self.iterations = iterations  # [0] is the uncalibrated baseline
+        self.best_iter = best_iter
+        self.converged = converged
+        self.timing = timing or {}
+
+    @property
+    def baseline_latency(self) -> float:
+        return self.iterations[0]["avg_latency"]
+
+    @property
+    def calibrated_latency(self) -> float:
+        return self.iterations[self.best_iter]["avg_latency"]
+
+    @property
+    def plans_changed(self) -> int:
+        """Requests whose routes differ, calibrated vs baseline."""
+        return self.iterations[self.best_iter]["plans_changed_vs_baseline"]
+
+    def to_dict(self) -> dict:
+        return {
+            "name": self.name,
+            "converged": self.converged,
+            "best_iter": self.best_iter,
+            "baseline_latency": self.baseline_latency,
+            "calibrated_latency": self.calibrated_latency,
+            "plans_changed": self.plans_changed,
+            "iterations": [
+                {k: v for k, v in it.items() if k != "signature"}
+                for it in self.iterations
+            ],
+        }
+
+
+def calibrate_cost_model(
+    cfg,
+    workload,
+    algo: str = "DPM",
+    *,
+    name: str = "calibrated",
+    base_cost_model=None,
+    lam: float = 1.0,
+    max_iters: int = 6,
+    damping: float = 0.5,
+    device: torch.device | str = "cuda",
+) -> CalibrationResult:
+    """Close the loop: measure -> fit -> re-register -> replan -> repeat.
+
+    Iteration 0 runs xsim under ``base_cost_model`` (default: the
+    algorithm's own objective) and records measured per-link utilization.
+    Each following iteration fits ``MeasuredContentionCost`` weights from
+    the utilization measured so far, registers it under ``name`` (flushing
+    the plan cache and the batched planners), replans the whole workload,
+    and re-measures. The loop stops at a *fixed point* — an iteration whose
+    plans equal the previous iteration's; the runs are deterministic, so
+    equal plans reproduce the exact utilization (and weights) that produced
+    them — or after ``max_iters``.
+
+    Raw replanning oscillates (moving load off a hot link makes the old
+    route look attractive again next round), so the fitted utilization
+    damps the measurements with a geometrically decaying step: ``u <- u +
+    step * (measured - u)`` with ``step = damping ** i``, in float64 on the
+    host. Once the per-round movement of ``u`` drops below
+    ``MeasuredContentionCost``'s hysteresis dead band the quantized weights
+    — and therefore the plans — stop changing *exactly*, which is the
+    fixed point the stop rule detects.
+
+    The registered model is the best iterate by measured average latency;
+    when no calibrated iterate beats the baseline, uniform weights are
+    registered instead (identical costs to hop counting, hence identical
+    plans and latency to a hop-objective baseline). ``result.energy``
+    carries measured ``EnergyCost`` constants fitted from the same run's
+    event counters (``fit_energy_cost``). Every xsim run goes through
+    ``xsimulate(device=device)``: the cycle kernel on the card by default
+    (a missing card raises), the plain cycle for ``device="cpu"``.
+    """
+    from ..core.batch_planner import planner_for
+    from ..device import resolve_device
+    from .xsim import xsimulate
+
+    dev = resolve_device(device)
+    topo = cfg.make_topology()
+    t_loop = time.monotonic()
+    timing = {"signature_s": 0.0, "planner_s": 0.0, "compile_s": 0.0,
+              "device_s": 0.0, "batched_plans": 0, "host_plans": 0}
+
+    def planned(cost_model) -> tuple[int, int]:
+        """(batched, host) misses of the arena ``bulk_plan`` uses for this
+        model; (0, 0) where it plans uncached (an unregistered model)."""
+        a = get_algorithm(algo)
+        cm = get_cost_model(
+            cost_model if cost_model is not None else a.default_cost_model
+        )
+        if not is_registered_algorithm(a) or (
+            a.cost_sensitive and not is_registered_cost_model(cm)
+        ):
+            return 0, 0
+        info = planner_for(topo, a, cm, device=dev).info()
+        return info.batched_plans, info.host_plans
+
+    def run(cost_model):
+        t0 = time.monotonic()
+        before = planned(cost_model)  # builds a new model's planner tables
+        timing["planner_s"] += time.monotonic() - t0
+        res = xsimulate(
+            cfg, [workload], (algo,), cost_model=cost_model, device=dev
+        )
+        after = planned(cost_model)
+        timing["compile_s"] += res.compile_s
+        timing["device_s"] += res.device_s
+        timing["batched_plans"] += after[0] - before[0]
+        timing["host_plans"] += after[1] - before[1]
+        util = res.link_utilization(0, 0)
+        return {
+            "avg_latency": float(res.avg_latency(0, 0)),
+            "util": util,
+            "max_link_flits": int(util.max(initial=0)),
+            "ctr": dict(zip(
+                ("flit_link_traversals", "buffer_writes", "buffer_reads",
+                 "xbar_traversals", "arbitrations", "ni_flits",
+                 "packets_finished", "slots_hwm"),
+                res.ctr[0].tolist(),
+            )),
+        }
+
+    def signature(cost_model):
+        t0 = time.monotonic()
+        sig = _plan_signature(topo, workload, algo, cost_model)
+        timing["signature_s"] += time.monotonic() - t0
+        return sig
+
+    base = run(base_cost_model)
+    base_sig = signature(base_cost_model)
+    iterations = [{
+        "iter": 0, "model": "baseline",
+        "avg_latency": base["avg_latency"],
+        "max_link_flits": base["max_link_flits"],
+        "plans_changed_vs_baseline": 0,
+        "plans_changed_vs_prev": 0,
+        "signature": base_sig,
+    }]
+    models: list[MeasuredContentionCost | None] = [None]
+    util = base["util"].astype(np.float64)
+    converged = False
+    last_ctr = base["ctr"]
+    for i in range(1, max_iters + 1):
+        model = MeasuredContentionCost(topo, util, lam=lam, prev=models[-1])
+        registered = _register_as(name, model)
+        sig = signature(registered)
+        prev = iterations[-1]
+        changed_prev = sum(
+            1 for a, b in zip(sig, prev["signature"]) if a != b
+        )
+        meas = run(registered)
+        iterations.append({
+            "iter": i, "model": name,
+            "avg_latency": meas["avg_latency"],
+            "max_link_flits": meas["max_link_flits"],
+            "plans_changed_vs_baseline": sum(
+                1 for a, b in zip(sig, base_sig) if a != b
+            ),
+            "plans_changed_vs_prev": changed_prev,
+            "signature": sig,
+        })
+        models.append(model)
+        step = damping ** i
+        util = util + step * (meas["util"] - util)
+        last_ctr = meas["ctr"]
+        if changed_prev == 0:
+            converged = True  # weights reproduce the plans that made them
+            break
+
+    best = min(
+        range(1, len(iterations)),
+        key=lambda i: iterations[i]["avg_latency"],
+    )
+    if iterations[best]["avg_latency"] > iterations[0]["avg_latency"]:
+        # fall back to uniform weights: cost-equal to hop counting, so a
+        # hop-objective baseline's plans (and latency) are reproduced
+        best = 0
+        model = MeasuredContentionCost(
+            topo, np.zeros(topo.num_nodes * topo.ports), lam=lam,
+        )
+    else:
+        model = models[best]
+    registered = _register_as(name, model)
+    energy = fit_energy_cost(last_ctr, cfg.energy, cfg.flits_per_packet)
+    timing["wall_s"] = time.monotonic() - t_loop
+    return CalibrationResult(
+        name=name, model=registered, energy=energy, iterations=iterations,
+        best_iter=best, converged=converged, timing=timing,
+    )

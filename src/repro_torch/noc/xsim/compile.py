@@ -118,19 +118,27 @@ def compile_workload(
     cfg: NoCConfig,
     workload: Workload,
     algo,
+    pad_packets: int | None = None,
+    pad_stages: int | None = None,
+    cost_model=None,
     *,
     device: torch.device | str = "cuda",
 ) -> CompiledTraffic:
     """Plan every request and lower the packet set to dense arrays.
 
     ``algo`` is resolved through the routing-algorithm registry (name or
-    ``RoutingAlgorithm`` instance), which plans under its default
-    objective. Planning goes through ``core.batch_planner.bulk_plan`` on
-    ``device`` (DPM and DPM-E on healthy fabrics batch there; the other
-    algorithms plan on the host into the same arena). With
-    ``cfg.broken_links`` set, plans come from the fault-aware route
-    provider on the degraded topology, and every lowered hop is re-checked:
-    a route crossing a broken link is refused before any tensor is built (the same contract as ``WormholeSim.add_plan``).
+    ``RoutingAlgorithm`` instance); ``cost_model`` optionally overrides the
+    objective cost-sensitive algorithms plan under (default: the
+    algorithm's own). Planning goes through ``core.batch_planner.bulk_plan``
+    on ``device`` (DPM and DPM-E on healthy fabrics batch there wherever
+    ``batch_support`` admits the model; the other algorithms plan on the
+    host into the same arena). ``pad_packets``/``pad_stages`` fix the
+    (P, S) table sizes (default: the workload's own); a pad smaller than
+    the workload raises. With ``cfg.broken_links`` set, plans come from
+    the fault-aware route provider on the degraded topology, and every
+    lowered hop is re-checked: a route crossing a broken link is refused
+    before any tensor is built (the same contract as
+    ``WormholeSim.add_plan``).
     """
     g = make_topology(
         cfg.topology, cfg.n, cfg.m, cfg.broken_links, cfg.topology_params
@@ -141,7 +149,7 @@ def compile_workload(
     # bit-identical to per-request plan() calls)
     plans = bulk_plan(
         g, [(r.src, r.dests) for r in workload.requests], algo,
-        device=device,
+        cost_model=cost_model, device=device,
     )
     for r, pl_ in zip(workload.requests, plans):
         nf = cfg.flits_per_packet if r.flits is None else int(r.flits)
@@ -158,8 +166,10 @@ def compile_workload(
                     )
     P = len(rows)
     S = max((len(h) - 1 for h, *_ in rows), default=1)
-    Pp = max(P, 1)
-    Sp = S
+    Pp = max(P, 1) if pad_packets is None else pad_packets
+    Sp = S if pad_stages is None else pad_stages
+    if Pp < P or Sp < S:
+        raise ValueError(f"pad ({Pp},{Sp}) smaller than workload ({P},{S})")
 
     enqueue = np.full(Pp, NEVER, np.int32)
     parent = np.full(Pp, -1, np.int32)

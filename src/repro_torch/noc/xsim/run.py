@@ -20,6 +20,7 @@ injection rate or backlog, and the old overflow/regrow loop is gone.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 
@@ -178,19 +179,33 @@ def xsimulate(
     workloads: list[Workload],
     algos: tuple | None = None,
     *,
+    cost_model=None,
+    warmup: int | None = None,
+    drain_grace: int | None = None,
+    pad_packets: int | None = None,
+    pad_stages: int | None = None,
+    epoch_len: int | None = None,
+    broken_links_per_workload: list | None = None,
     device: torch.device | str = "cuda",
 ) -> XSimResults:
     """Simulate every (workload, algo) pair in one batched engine run.
 
     ``algos`` entries resolve through the routing-algorithm registry (names
     or ``RoutingAlgorithm`` instances); the default is every registered
-    algorithm that supports the configured topology; each plans under its
-    own default objective. ``device`` selects where DPM plans in batches
-    (``core.batch_planner``) and the cycle engine: the CUDA kernel on the
-    card (the default), the plain PyTorch cycle for ``device="cpu"``; a
-    missing card raises. The measurement window
-    (``cfg.warmup``, ``cfg.drain_grace``) and the telemetry epoch
-    (``cfg.epoch_len``) come from the config.
+    algorithm that supports the configured topology. ``cost_model``
+    optionally overrides the planning objective for the whole grid.
+    ``warmup``, ``drain_grace`` and ``epoch_len`` (the telemetry bucket
+    width) default to the config's own values; ``pad_packets`` /
+    ``pad_stages`` fix each compiled table's (P, S) (``compile_workload``).
+    ``broken_links_per_workload`` overrides ``cfg.broken_links`` per
+    workload (entries may be None = use the config's set): routes are
+    planned on each workload's degraded topology at compile time while the
+    whole grid still runs as one batch (the engine itself is
+    fault-agnostic; trace replay uses this for mid-run link failures).
+    ``device`` selects where DPM plans in batches (``core.batch_planner``)
+    and the cycle engine: the CUDA kernel on the card (the default), the
+    plain PyTorch cycle for ``device="cpu"``; a missing card raises. The
+    reference's ``backend=`` has no twin: the device picks the engine.
     """
     topo = make_topology(
         cfg.topology, cfg.n, cfg.m, cfg.broken_links, cfg.topology_params
@@ -198,15 +213,32 @@ def xsimulate(
     if algos is None:
         algos = tuple(available_algorithms(topo))
     resolved = [get_algorithm(a) for a in algos]
+    warmup = cfg.warmup if warmup is None else warmup
+    drain_grace = cfg.drain_grace if drain_grace is None else drain_grace
+    epoch_len = cfg.epoch_len if epoch_len is None else int(epoch_len)
+    if broken_links_per_workload is not None and len(
+        broken_links_per_workload
+    ) != len(workloads):
+        raise ValueError(
+            "broken_links_per_workload needs one entry per workload "
+            f"({len(broken_links_per_workload)} != {len(workloads)})"
+        )
     dev = resolve_device(device)
     t0 = time.monotonic()
-    traffics: list[CompiledTraffic] = [
-        compile_workload(cfg, wl, algo, device=dev)
-        for wl in workloads
-        for algo in resolved
-    ]
+    traffics: list[CompiledTraffic] = []
+    for wi, wl in enumerate(workloads):
+        wcfg = cfg
+        if broken_links_per_workload is not None:
+            faults = broken_links_per_workload[wi]
+            if faults is not None:
+                wcfg = dataclasses.replace(cfg, broken_links=tuple(faults))
+        for algo in resolved:
+            traffics.append(compile_workload(
+                wcfg, wl, algo, pad_packets=pad_packets,
+                pad_stages=pad_stages, cost_model=cost_model, device=dev,
+            ))
     ref, stacked = stack_traffic(traffics)
-    T = max(wl.horizon for wl in workloads) + cfg.drain_grace
+    T = max(wl.horizon for wl in workloads) + drain_grace
     ND = int(stacked["dslot"].max()) + 1  # flat delivery-slot space
     # the engine's static F is the largest worm in the batch: it sizes the
     # age-key multiplier and the BD>=F credit shortcut; per-packet lengths
@@ -218,7 +250,7 @@ def xsimulate(
     t1 = time.monotonic()
     kw = dict(T=T, F=F, V=cfg.vcs_per_class, BD=cfg.buffer_depth,
               L=ref.num_links, NN=ref.num_nodes, ND=ND,
-              epoch_len=cfg.epoch_len)
+              epoch_len=epoch_len)
     if dev.type == "cuda":
         KERNEL.build()  # at first use; kept out of the device timing
         start = torch.cuda.Event(enable_timing=True)
@@ -249,7 +281,7 @@ def xsimulate(
         cfg=cfg,
         algos=tuple(a.name for a in resolved),
         horizons=np.array([wl.horizon for wl in workloads]),
-        warmup=cfg.warmup,
+        warmup=warmup,
         cycles=T,
         slots=_capacity(cfg, ref.num_nodes, ref.num_links),
         traffic=stacked,
@@ -260,7 +292,7 @@ def xsimulate(
         compile_s=t1 - t0,
         device_s=device_s,
         device=str(dev),
-        epoch_len=cfg.epoch_len,
+        epoch_len=epoch_len,
         lutil=out["lutil"],
         rconf=out["rconf"],
     )

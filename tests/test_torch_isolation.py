@@ -48,7 +48,11 @@ def test_importing_every_port_module_loads_neither_jax_nor_repro():
                  "repro_torch.kernels.noc_step.noc_step",
                  "repro_torch.kernels.noc_step.ops",
                  "repro_torch.noc.telemetry",
-                 "repro_torch.noc.simulator"):
+                 "repro_torch.noc.simulator",
+                 "repro_torch.noc.trace.ir",
+                 "repro_torch.noc.trace.lower",
+                 "repro_torch.noc.trace.replay",
+                 "repro_torch.dist.multicast"):
         assert name in mods
     code = (
         "import importlib, sys\n"
@@ -126,3 +130,29 @@ def test_serving_refuses_a_missing_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ssd_scan_kernel(x, dt, torch.zeros(2), bm, bm, 4)
     assert BatchServer(params, cfg, run, device="cpu").device.type == "cpu"
+
+
+def test_trace_replay_and_calibration_refuse_a_missing_card(monkeypatch):
+    from repro_torch.dist import alltoall_schedule, dp_broadcast_schedule
+    from repro_torch.noc import calibrate_cost_model
+    from repro_torch.noc.trace import (
+        cross_validate, ep_dispatch_trace, pipeline_trace, replay_host,
+        replay_xsim,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = NoCConfig(n=4)
+    tr = pipeline_trace(3, 2)
+    for fn in (replay_host, replay_xsim, cross_validate):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn(tr, cfg, "DPM")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calibrate_cost_model(cfg, synthetic_workload(cfg, 0.05, 10, seed=0),
+                             name="refused")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ep_dispatch_trace(5)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        alltoall_schedule(6)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dp_broadcast_schedule(6)
+    assert replay_host(tr, cfg, device="cpu").total_cycles > 0
