@@ -80,6 +80,26 @@ non-zero before the result line:
    one bf16 prefill at batch 0's shape split by kernel family
    (``[prefill_split]``: attention, SSD, matrix products, the rest, and the
    device-busy share of the wall time);
+7b. MoE serving (``[serve_moe]``, a child process, ``--serve-moe``):
+   ``moonshot-v1-16b-a3b`` at full width and depth (28.9 B random
+   parameters from seed 0, drawn layer by layer and stored as
+   ``model_init`` stores them for a bf16 run: bf16 weights, f32 router and
+   norms; bf16 activations) answers the same 8 requests through
+   ``BatchServer(device="cuda")`` in 2 batches of 4; each prefill, the
+   counts set to 0 just before it, must launch flash attention 48 times,
+   all ``wgmma_bf16``; the peak memory; then, from an untimed prefill of
+   each batch's padded prompts, its tokens per expert and dropped pairs.
+   The flash kernel against its plain version on q/k/v captured from
+   layers 0 and 47 of a full-width prefill (B = 4, S = 2,000, D = 128),
+   bf16 and f32, also cut to batch 1's length and as a 64-query
+   ``q_offset`` chunk, held both at the absolute tolerance and at a
+   per-row relative one (each output row's error norm over its norm); ``[prefill_split]`` of one prefill (attention, the
+   router, dispatch and combine, the routed and shared experts' products,
+   the rest) from CUDA events on the stream; then the first two layers at
+   full width in f32 on the kernel path against the plain path: logits
+   within 1e-3 x max |logit| and every routed expert id equal, save where
+   the plain path's top-k gap is under 1e-5; ``[kernel_time]`` of the
+   D = 128 kernel beside SDPA and its bound;
 8. segmented min: ``segmin`` and ``arbitrate`` on the card over ten cases
    (tests/test_kernels.py's shapes; xsim's fused link + ejection id space
    at the 8x8, 16x16 and 32x32 grids with B = 4, 16 and 132 instances; the
@@ -132,8 +152,9 @@ non-zero before the result line:
 Phases 4, 5, 7 and 8 read their kernels' profiler times from a child
 process of this script (``python3 chip_smoke.py --noc-cycle-alone``,
 ``--dpm-cost-alone``, ``--serve-kernel-alone`` and
-``--segmin-kernel-alone``), and phase 7 the split of one prefill's time by
-kernel family (``--prefill-profile``).
+``--segmin-kernel-alone``), phase 7 the split of one prefill's time by
+kernel family (``--prefill-profile``), and phase 7b runs whole in a child
+(``--serve-moe``).
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -188,7 +209,25 @@ SERVE_MAX_TOKENS = 16
 SERVE_MAX_BATCH = 4
 ATTN_CHECK_B, ATTN_CHECK_S = 4, 2000  # the prefill the kernels' inputs
 #                                       are captured from
+# the MoE serving phase (a child process): moonshot-v1-16b-a3b at full width
+# and depth, the same requests; flash inputs captured from its first and
+# last layers; the kernel path against the plain path over its first two
+# layers in f32, routing flips excused only under this top-k gap
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_CAPTURE_LAYERS = (0, 47)
+MOE_PLAIN_LAYERS = 2
+MOE_NEAR_TIE = 1e-5
+SERVE_MOE_TIMEOUT_S = 600
+PROFILE_TRIES = 3  # traces of one call before "no device time" fails
 ATTN_ATOL = {"torch.bfloat16": 2e-2, "torch.float32": 1e-4}
+# the largest |got - want| / |want| over the output rows (each a D-vector)
+# on moonshot's captured inputs. Attention there is near-uniform, so late
+# rows are a few hundredths and the absolute tolerance alone would pass a
+# dropped key tile. tests/test_torch_flash_attention.py holds a CPU
+# emulation of the bf16 kernel's arithmetic at S = 2,000, D = 128 within
+# half the bf16 bound (about 0.004) and a zeroed 64-key tile over ten
+# times it (about 0.25)
+ATTN_ROW_RTOL = {"torch.bfloat16": 2e-2, "torch.float32": 1e-3}
 SSD_ATOL = {"torch.bfloat16": 1e-1, "torch.float32": 5e-4}
 # edge cases of the kernels' tiles on seeded random inputs:
 # attention (label, B, S, H, KH, D, window),
@@ -557,24 +596,29 @@ def check_smem_mirrors(flash_lib, ssd_lib) -> None:
 def profiled_ms(fn, match: str = "") -> tuple[float | None, int]:
     """Device time (ms) and launch count of the CUDA kernels whose names
     contain ``match`` in one call of ``fn``, from ``torch.profiler``; None
-    when the trace holds no device time for them."""
+    when none of ``PROFILE_TRIES`` traces holds device time for them (now
+    and then a trace comes back with no device activity at all, and a new
+    trace of the same call has it)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for e in prof.key_averages():
-        t = getattr(e, "device_time_total", 0.0)
-        if t > 0 and match in e.key and e.device_type == DeviceType.CUDA:
-            total += t
-            count += e.count
-    return (total / 1e3 if count else None), count
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total", 0.0)
+            if t > 0 and match in e.key and e.device_type == DeviceType.CUDA:
+                total += t
+                count += e.count
+        if count:
+            return total / 1e3, count
+    return None, 0
 
 
 def median_ms(fn, reps: int = 3):
@@ -1124,8 +1168,12 @@ def dead_first_tile_rows(Sq: int, Sk: int, window, q_offset: int) -> int:
     return n
 
 
-def check_attention(label, q, k, v, window, q_offset, dtype) -> dict:
-    """The flash kernel against its plain version on the card."""
+def check_attention(label, q, k, v, window, q_offset, dtype,
+                    row_rtol: bool = False) -> dict:
+    """The flash kernel against its plain version on the card; with
+    ``row_rtol`` also at the per-row relative tolerance ``ATTN_ROW_RTOL``."""
+    import torch
+
     from repro_torch.kernels.flash_attention import (
         flash_attention_cuda, flash_attention_ref,
     )
@@ -1135,17 +1183,29 @@ def check_attention(label, q, k, v, window, q_offset, dtype) -> dict:
     kw = dict(causal=True, window=window, q_offset=q_offset)
     got, k_ms = median_ms(lambda: flash_attention_cuda(q, k, v, **kw))
     want, p_ms = median_ms(lambda: flash_attention_ref(q, k, v, **kw))
-    err = float((got.float() - want.float()).abs().max())
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max())
     atol = ATTN_ATOL[str(dtype)]
+    rows = ((g - w).norm(dim=-1)
+            / w.norm(dim=-1).clamp_min(torch.finfo(torch.float32).tiny)).max()
+    row_err, rtol = float(rows), ATTN_ROW_RTOL[str(dtype)]
     dead = dead_first_tile_rows(q.shape[1], k.shape[1], window, q_offset)
     say("kernel_vs_plain", kernel="flash_attention", case=label,
         dtype=str(dtype).removeprefix("torch."), variant=VARIANTS[dtype],
         shape=tuple(q.shape), kv=tuple(k.shape), window=window,
         q_offset=q_offset, dead_first_tile_rows=dead,
-        max_abs_err=err, atol=atol, finite=bool(got.isfinite().all()),
+        max_abs_err=err, atol=atol,
+        plain_rms=f"{float(w.square().mean().sqrt()):.5f}",
+        plain_median_abs=f"{float(w.abs().median()):.5f}",
+        max_row_rel_err=f"{row_err:.3g}",
+        row_rtol=rtol if row_rtol else "not asserted",
+        finite=bool(got.isfinite().all()),
         kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}")
     if not err <= atol or not bool(got.isfinite().all()):
         fail(f"flash_attention != plain on {label} {dtype}: {err} > {atol}")
+    if row_rtol and not row_err <= rtol:
+        fail(f"flash_attention != plain on {label} {dtype}: a row's "
+             f"relative error {row_err} > {rtol}")
     return dict(err=err, ms=k_ms, plain_ms=p_ms)
 
 
@@ -1181,11 +1241,11 @@ def serve_kernel_alone() -> None:
     """``--serve-kernel-alone``: print one JSON line with the profiler's
     device time of one launch of each serving kernel on seeded random
     inputs at the serving shapes (the times depend on shapes and masks, not
-    on values): hymba's global and window attention layers, its SSD layer
-    and mamba2's. Run in a fresh process by ``phase_serve``: in a long run
-    of this script the profiler stopped reporting device time for these
-    launches after the earlier phases had profiled, though a fresh process
-    reports it."""
+    on values): hymba's global and window attention layers, moonshot's
+    attention at D = 128, hymba's SSD layer and mamba2's. Run in a fresh
+    process by ``phase_serve``: in a long run of this script the profiler
+    stopped reporting device time for these launches after the earlier
+    phases had profiled, though a fresh process reports it."""
     import torch
     import torch.nn.functional as F
 
@@ -1195,7 +1255,7 @@ def serve_kernel_alone() -> None:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
-    hy, mb = ARCHS["hymba-1.5b"], ARCHS["mamba2-1.3b"]
+    hy, mb, moon = ARCHS["hymba-1.5b"], ARCHS["mamba2-1.3b"], ARCHS[MOE_ARCH]
     B, S = ATTN_CHECK_B, ATTN_CHECK_S
     out = {}
     # each dtype's own kernel: flash_fwd_tc_kernel / flash_fwd_kernel,
@@ -1209,6 +1269,12 @@ def serve_kernel_alone() -> None:
             out[f"flash_attention/{case}/{dt_name}"] = profiled_ms(
                 lambda: flash_attention_cuda(q, k, v, window=w),
                 f"flash_fwd{tc}_kernel")[0]
+        # moonshot's layers: 16 heads of D = 128, no window
+        qm, km, vm = (randn(B, S, moon.n_heads, moon.head_dim).to(dtype)
+                      for _ in range(3))
+        out[f"flash_attention/moonshot/{dt_name}"] = profiled_ms(
+            lambda: flash_attention_cuda(qm, km, vm),
+            f"flash_fwd{tc}_kernel")[0]
         for case, cfg in (("hymba", hy), ("mamba2", mb)):
             H = cfg.ssm.n_heads(cfg.d_model)
             N, P = cfg.ssm.d_state, cfg.ssm.head_dim
@@ -1274,14 +1340,28 @@ def child_json(flag: str) -> dict:
     """The JSON line a child process of this script prints when run with
     ``flag`` (``--noc-cycle-alone``, ``--dpm-cost-alone``,
     ``--serve-kernel-alone``, ``--segmin-kernel-alone``,
-    ``--prefill-profile``): profiler times taken in a fresh process."""
-    proc = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve()), flag],
-        capture_output=True, text=True, timeout=300,
-    )
-    if proc.returncode != 0:
-        fail(f"the child {flag} failed:\n{proc.stderr[-2000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+    ``--prefill-profile``): profiler times taken in a fresh process. A
+    time the child's traces lacked (None) is taken from a second child."""
+    def run() -> dict:
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), flag],
+            capture_output=True, text=True, timeout=300,
+        )
+        if proc.returncode != 0:
+            fail(f"the child {flag} failed:\n{proc.stderr[-2000:]}")
+        return json.loads(proc.stdout.strip().splitlines()[-1])
+
+    def lacks(a) -> bool:
+        return a is None or isinstance(a, dict) and any(map(lacks, a.values()))
+
+    def fill(a, b):
+        if isinstance(a, dict):
+            return {k: fill(v, b.get(k) if isinstance(b, dict) else None)
+                    for k, v in a.items()}
+        return b if a is None else a
+
+    out = run()
+    return fill(out, run()) if lacks(out) else out
 
 
 def variant_counts() -> dict:
@@ -1318,7 +1398,8 @@ def phase_serve() -> list:
     against their plain versions on inputs captured from a full-width
     prefill (and mamba2-1.3b's N = 128 for the SSD kernel), the f32 logits
     of the kernel path against the plain path, and the kernels' times.
-    Returns the kernels-line entries of the two kernels."""
+    Returns the kernels-line entries of the two kernels and the kernels'
+    times alone (``--serve-kernel-alone``)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1391,7 +1472,7 @@ def phase_serve() -> list:
         fail(f"serving: {len(per_batch)} batches, bad responses {bad}")
     gen_tokens = sum(len(o.tokens) for o in responses)
     say("serve", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
-        params=n_params, params_dtype="float32",
+        params=n_params, params_dtype=run.activations_dtype,
         activations=run.activations_dtype, init_s=f"{init_s:.2f}",
         requests=len(responses), batches=len(per_batch),
         prompt_lens=",".join(str(int(n)) for n in lens),
@@ -1404,28 +1485,29 @@ def phase_serve() -> list:
             fail(f"the serving path never launched {name}")
 
     # ---- kernel path against plain path, whole model ----------------------
-    first = [r for r in reqs[:SERVE_MAX_BATCH]]
-    S = max(len(r.prompt) for r in first)
-    prompts = np.zeros((len(first), S), np.int32)
-    for i, r in enumerate(first):
-        prompts[i, S - len(r.prompt):] = r.prompt
+    prompts = padded_prompts(reqs[:SERVE_MAX_BATCH])
+    S = prompts.shape[1]
     toks = torch.from_numpy(prompts).cuda()
     for act in ("float32", "bfloat16"):
         r = RunConfig(activations_dtype=act)
+        # each run on the tree model_init stores for it (f32: every leaf)
+        p = (params if act == run.activations_dtype
+             else model_init(0, cfg, r, device="cuda"))
         v0 = variant_counts()
-        lk, _ = prefill(params, {"tokens": toks}, cfg, r)
+        lk, _ = prefill(p, {"tokens": toks}, cfg, r)
         var = variant_delta(v0)
         expect_variants(f"{act} prefill", var, act, cfg.n_layers)
         with plain_path():
             f0 = FLASH_KERNEL.launches + SSD_KERNEL.launches
-            lp, _ = prefill(params, {"tokens": toks}, cfg, r)
+            lp, _ = prefill(p, {"tokens": toks}, cfg, r)
             if FLASH_KERNEL.launches + SSD_KERNEL.launches != f0:
                 fail("the plain path launched a kernel")
         lk, lp = lk[..., :cfg.vocab], lp[..., :cfg.vocab]
         diff = float((lk - lp).abs().max())
         scale = float(lp.abs().max())
         finite = bool(lk.isfinite().all())
-        say("serve_vs_plain", activations=act, batch=len(first), prompt_len=S,
+        del p
+        say("serve_vs_plain", activations=act, batch=len(prompts), prompt_len=S,
             max_abs_logit_diff=diff, max_abs_logit=scale,
             ratio=f"{diff / scale:.3g}",
             bound="1e-3" if act == "float32" else "not asserted",
@@ -1600,7 +1682,378 @@ def phase_serve() -> list:
                     "ms": t["ms"], "plain_ms": t["plain_ms"],
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                 })
-    return entries
+    return entries, alone_ms
+
+
+# ---------------------------------------------------------------------------
+# Mixture-of-Experts serving: moonshot-v1-16b-a3b at full width and depth
+# ---------------------------------------------------------------------------
+def moe_route_recorder(routes: list):
+    """A ``models.moe.route`` that also records each call's expert ids and
+    the smallest gap between neighbours of the top k + 1 f32
+    probabilities (the margin a routing decision had)."""
+    import torch
+
+    import repro_torch.models.moe as moe
+
+    route_fn = moe.route
+
+    def route(p, x, m):
+        ids, w, aux = route_fn(p, x, m)
+        probs = torch.softmax(x.float() @ p["router"]["w"].float(), dim=-1)
+        top = probs.topk(m.top_k + 1, dim=-1).values
+        routes.append((ids, (top[:, :-1] - top[:, 1:]).min(-1).values))
+        return ids, w, aux
+
+    return patched((moe, "route", route))
+
+
+def moe_prefill_split(params, cfg, run, toks) -> None:
+    """``[prefill_split]`` of one moonshot prefill on the device timeline:
+    CUDA events recorded on the stream around each span (the attention
+    sublayer and its flash kernel, the router, the routed experts' matrix
+    products, the shared experts, the whole MoE FFN), summed over the 48
+    layers. A span's time includes any idle gap inside it; dispatch and
+    combine is the MoE FFN less router and experts; the rest is everything
+    outside attention and MoE (norms, embedding, LM head, residuals)."""
+    import torch
+
+    import repro_torch.models.attention as attention
+    import repro_torch.models.blocks as blocks
+    import repro_torch.models.moe as moe
+    from repro_torch.models import prefill
+
+    spans: dict[str, list] = {}
+
+    def span(name, fn):
+        def wrapped(*args, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kw)
+            b.record()
+            spans.setdefault(name, []).append((a, b))
+            return out
+        return wrapped
+
+    names = (("attention", blocks, "gqa_apply"),
+             ("flash_kernel", attention, "flash_attention"),
+             ("moe", blocks, "_moe_ffn"), ("router", moe, "route"),
+             ("experts", moe, "expert_ffn"), ("shared", moe, "shared_ffn"))
+    with patched(*((mod, fn, span(name, getattr(mod, fn)))
+                   for name, mod, fn in names)):
+        prefill(params, {"tokens": toks}, cfg, run)  # warm-up
+        spans.clear()
+        t0 = time.monotonic()
+        (_, _), total = timed(lambda: prefill(params, {"tokens": toks}, cfg,
+                                              run))
+        wall = (time.monotonic() - t0) * 1e3
+    ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+    counts = {k: len(v) for k, v in spans.items()}
+    if any(counts[k] != cfg.n_layers for k in ms):
+        fail(f"[prefill_split] spans per prefill {counts}, expected "
+             f"{cfg.n_layers} each")
+    split = {
+        "attention_sublayer": ms["attention"],
+        "flash_kernel": ms["flash_kernel"],
+        "moe_router": ms["router"],
+        "moe_dispatch_combine": ms["moe"] - ms["router"] - ms["experts"]
+        - ms["shared"],
+        "moe_expert_matmuls": ms["experts"],
+        "moe_shared_experts": ms["shared"],
+        "rest": total - ms["attention"] - ms["moe"],
+    }
+    say("prefill_split", arch=cfg.name, batch=toks.shape[0],
+        prompt_len=toks.shape[1], activations=run.activations_dtype,
+        device_timeline_ms=f"{total:.2f}", wall_ms=f"{wall:.2f}",
+        **{f"{k}_ms": f"{v:.3f}" for k, v in split.items()},
+        **{f"{k}_share": f"{v / total:.3f}" for k, v in split.items()
+           if k != "flash_kernel"})
+
+
+def padded_prompts(reqs) -> "np.ndarray":
+    """The requests' prompts left-padded with token 0 to the longest, as
+    ``BatchServer`` batches them."""
+    import numpy as np
+
+    S = max(len(r.prompt) for r in reqs)
+    out = np.zeros((len(reqs), S), np.int32)
+    for i, r in enumerate(reqs):
+        out[i, S - len(r.prompt):] = r.prompt
+    return out
+
+
+def serve_moe() -> None:
+    """``--serve-moe``: moonshot-v1-16b-a3b at full width and depth on the
+    card, in a process of its own (its 54 GiB of bf16 weights meet no other
+    phase's memory). Prints its ``[serve_moe]``, ``[kernel_vs_plain]``,
+    ``[serve_vs_plain]`` and ``[prefill_split]`` lines, then one JSON line
+    for the kernels line and ``[kernel_time]``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    import repro_torch.serve.engine as engine
+    import repro_torch.models.moe as moe
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
+    from repro_torch.models import RunConfig, count_params, model_init, prefill
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.serve import BatchServer, Request, generate
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matmuls are on: the MoE router must multiply in f32")
+    cfg, run = ARCHS[MOE_ARCH], RunConfig()
+    m = cfg.moe
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = model_init(0, cfg, run, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params))
+    say("serve_moe", arch=cfg.name, layers=cfg.n_layers,
+        d_model=cfg.d_model, experts=m.n_experts, top_k=m.top_k,
+        d_expert=m.d_expert, shared=m.n_shared, params=count_params(params),
+        weights_gib=f"{weight_bytes / 2**30:.2f}",
+        init_s=f"{init_s:.2f}",
+        init_peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_REQUESTS)
+    reqs = [Request(i, rng.integers(0, cfg.vocab, int(n)).astype(np.int32),
+                    SERVE_MAX_TOKENS) for i, n in enumerate(lens)]
+    generate(params, cfg, run, reqs[0].prompt[None, :128], 2, device="cuda")
+
+    # ---- serving: the launch counts set to 0 just before each prefill ----
+    prefills = []
+    prefill_fn = engine.prefill
+
+    def counted_prefill(*args, **kw):
+        FLASH_KERNEL.launches = 0
+        FLASH_KERNEL.variant_launches = dict.fromkeys(
+            FLASH_KERNEL.variant_launches, 0)
+        out = prefill_fn(*args, **kw)
+        prefills.append((FLASH_KERNEL.launches,
+                         dict(FLASH_KERNEL.variant_launches)))
+        return out
+
+    server = BatchServer(params, cfg, run, max_batch=SERVE_MAX_BATCH,
+                         max_wait_s=0.01, device="cuda")
+    for r in reqs:
+        server.submit(r)
+    torch.cuda.reset_peak_memory_stats()
+    responses, results = [], []
+    t0 = time.monotonic()
+    with patched((engine, "prefill", counted_prefill)):
+        while len(responses) < len(reqs):
+            out = server.serve_once()
+            torch.cuda.synchronize()
+            results.append((out, server.last_result))
+            responses += out
+    serve_s = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if len(prefills) != len(results):
+        fail(f"{len(prefills)} prefills for {len(results)} batches")
+    launches = 0
+    for i, ((out, res), (fl, var)) in enumerate(zip(results, prefills)):
+        B = res.tokens.shape[0]
+        S = max(len(reqs[o.rid].prompt) for o in out)
+        say("serve_moe", batch=i, requests=len(out), prompt_len=S,
+            prefill_ms=f"{res.prefill_ms:.2f}",
+            prefill_tokens_per_s=f"{B * S / res.prefill_ms * 1e3:.0f}",
+            decode_ms_per_token=f"{res.decode_ms_per_token:.3f}",
+            decode_tokens_per_s=f"{B / res.decode_ms_per_token * 1e3:.1f}",
+            flash_launches=fl,
+            variants=",".join(f"{k}:{v}" for k, v in var.items()))
+        want = {"wgmma_bf16": cfg.n_layers, "cuda_core_f32": 0}
+        if fl != cfg.n_layers or var != want:
+            fail(f"moe batch {i}: {fl} flash launches {var} a prefill, "
+                 f"expected {want}")
+        launches += fl
+    bad = [o.rid for o in responses
+           if o.tokens.shape != (SERVE_MAX_TOKENS,)
+           or not ((0 <= o.tokens) & (o.tokens < cfg.vocab)).all()]
+    if bad or len(results) != 2 or sorted(o.rid for o in responses) != list(
+            range(len(reqs))):
+        fail(f"moe serving: {len(results)} batches, bad responses {bad}")
+    say("serve_moe", requests=len(responses), batches=len(results),
+        prompt_lens=",".join(str(int(n)) for n in lens),
+        max_tokens=SERVE_MAX_TOKENS, serve_s=f"{serve_s:.3f}",
+        tokens_per_s=f"{sum(len(o.tokens) for o in responses) / serve_s:.1f}",
+        flash_launches=launches, params_dtype=run.activations_dtype,
+        activations=run.activations_dtype,
+        peak_mem_gib=f"{peak / 2**30:.2f}")
+
+    # ---- each batch's routing, from an untimed prefill of its prompts ----
+    routed, dispatch_fn = [], moe.dispatch_indices
+
+    def counted_dispatch(ids, m_, cap):
+        slot, keep = dispatch_fn(ids, m_, cap)
+        routed.append((torch.bincount(ids.reshape(-1),
+                                      minlength=m_.n_experts),
+                       (~keep).sum(), cap))
+        return slot, keep
+
+    with patched((moe, "dispatch_indices", counted_dispatch)):
+        for i, (out, _) in enumerate(results):
+            routed.clear()
+            prefill(params, {"tokens": torch.from_numpy(padded_prompts(
+                [reqs[o.rid] for o in out])).cuda()}, cfg, run)
+            loads = torch.stack([c for c, _, _ in routed]).cpu()  # (L, E)
+            dropped = int(sum(int(d) for _, d, _ in routed))
+            cap = routed[0][2]
+            say("serve_moe", batch=i, routing="untimed_prefill",
+                moe_layers=len(routed), capacity=cap,
+                routed_pairs=int(loads.sum()),
+                tokens_per_expert_min=int(loads.min()),
+                tokens_per_expert_mean=f"{float(loads.float().mean()):.1f}",
+                tokens_per_expert_max=int(loads.max()),
+                experts_over_capacity=int((loads > cap).sum()),
+                dropped_pairs=dropped,
+                dropped_share=f"{dropped / int(loads.sum()):.4f}")
+            if len(routed) != cfg.n_layers:
+                fail(f"moe batch {i}: {len(routed)} MoE layers a prefill")
+
+    # ---- q/k/v of layers 0 and 47 from a full-width prefill, the split ----
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (ATTN_CHECK_B, ATTN_CHECK_S)).astype(np.int32)).cuda()
+    import repro_torch.models.attention as attention
+
+    calls, attn_fn = [], attention.flash_attention
+
+    def capture(q, k, v, **kw):
+        calls.append((q, k, v, kw["window"])
+                     if len(calls) in MOE_CAPTURE_LAYERS else None)
+        return attn_fn(q, k, v, **kw)
+
+    with patched((attention, "flash_attention", capture)):
+        prefill(params, {"tokens": toks}, cfg, run)
+    captured = {i: calls[i] for i in MOE_CAPTURE_LAYERS}
+    prompts = padded_prompts(reqs[:SERVE_MAX_BATCH])
+    moe_prefill_split(params, cfg, run, torch.from_numpy(prompts).cuda())
+    del params
+    torch.cuda.empty_cache()
+
+    # ---- the flash kernel against its plain version at D = 128 -----------
+    errs, timing = [], {}
+    ragged = int(lens[SERVE_MAX_BATCH:].max())  # batch 1's length
+    off = ATTN_CHECK_S - 64
+    for dtype in (torch.bfloat16, torch.float32):
+        for layer, (q, k, v, w) in captured.items():
+            if w is not None or q.shape[-1] != 128:
+                fail(f"layer {layer}: window {w}, head dim {q.shape[-1]}")
+            lab = f"moonshot_l{layer}"
+            r = check_attention(lab, q, k, v, w, 0, dtype, row_rtol=True)
+            errs.append(r["err"])
+            if layer == 0:
+                timing[str(dtype).removeprefix("torch.")] = r
+            errs.append(check_attention(f"{lab}_q_offset", q[:, off:], k, v,
+                                        w, off, dtype, row_rtol=True)["err"])
+            errs.append(check_attention(
+                f"{lab}_S{ragged}", q[:, :ragged], k[:, :ragged],
+                v[:, :ragged], w, 0, dtype, row_rtol=True)["err"])
+    q, k, v, _ = captured[0]
+    for dt_name, t in timing.items():
+        dtype = getattr(torch, dt_name)
+        qd, kd, vd = (x.to(dtype) for x in (q, k, v))
+        lib_out, lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+            qd.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2),
+            is_causal=True))
+        b_ms, b_by, nbytes, ops = attention_bound_ms(qd, kd, vd, None)
+        t.update(sdpa_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                 ops=ops, shape=list(q.shape),
+                 f32_core_bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                                       ops / F32_FLOPS_PER_S) * 1e3)
+    del captured, calls, q, k, v
+    torch.cuda.empty_cache()
+
+    # ---- kernel path against plain path: 2 layers at full width, f32 ------
+    cfg2 = dataclasses.replace(cfg, n_layers=MOE_PLAIN_LAYERS,
+                               layout=(("attn_moe", MOE_PLAIN_LAYERS),))
+    run32 = RunConfig(activations_dtype="float32")
+    params = model_init(0, cfg2, run32, device="cuda")
+    toks = torch.from_numpy(prompts).cuda()
+    paths = {}
+    for name in ("kernel", "plain"):
+        routes = []
+        with contextlib.ExitStack() as stack:
+            if name == "plain":
+                stack.enter_context(plain_path())
+            stack.enter_context(moe_route_recorder(routes))
+            f0 = FLASH_KERNEL.launches
+            logits, _ = prefill(params, {"tokens": toks}, cfg2, run32)
+            fl = FLASH_KERNEL.launches - f0
+        if fl != (MOE_PLAIN_LAYERS if name == "kernel" else 0):
+            fail(f"the {name} path launched flash attention {fl} times")
+        paths[name] = (logits[..., :cfg.vocab], routes)
+    (lk, rk), (lp, rp) = paths["kernel"], paths["plain"]
+    diff = float((lk - lp).abs().max())
+    scale = float(lp.abs().max())
+    pairs = differ = near_tie = 0
+    for (ik, _), (ip, gap) in zip(rk, rp):
+        rows = (ik != ip).any(-1)
+        near = gap < MOE_NEAR_TIE
+        pairs += ik.numel()
+        differ += int(rows.sum())
+        near_tie += int((rows & near).sum())
+        if bool((rows & ~near).any()):
+            fail(f"expert ids differ off a near-tie: {int(rows.sum())} "
+                 f"tokens, {int((rows & near).sum())} near ties")
+    finite = bool(lk.isfinite().all())
+    say("serve_vs_plain", arch=cfg.name, layers=MOE_PLAIN_LAYERS,
+        activations="float32", params_dtype="float32", batch=toks.shape[0],
+        prompt_len=toks.shape[1], max_abs_logit_diff=diff,
+        max_abs_logit=scale, ratio=f"{diff / scale:.3g}", bound="1e-3",
+        finite=finite, routed_pairs=pairs, tokens_with_other_ids=differ,
+        near_tie_exceptions=near_tie, near_tie_gap=MOE_NEAR_TIE)
+    if not finite or not diff <= 1e-3 * scale:
+        fail(f"moonshot f32 logits: kernel path vs plain path {diff} > "
+             f"1e-3 x {scale}")
+    print(json.dumps({"launches": launches, "max_abs_err": max(errs),
+                      "timing": timing}), flush=True)
+
+
+def phase_serve_moe(entries: list, alone_ms: dict) -> None:
+    """moonshot-v1-16b-a3b served on the card by the child ``--serve-moe``;
+    then the D = 128 flash kernel's ``[kernel_time]`` (the wrapper, SDPA
+    and the bound from the child, the kernel alone from
+    ``--serve-kernel-alone``), and the moonshot launches and errors added to
+    flash attention's entry of the kernels line."""
+    import torch
+
+    torch.cuda.empty_cache()
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--serve-moe"],
+        capture_output=True, text=True, timeout=SERVE_MOE_TIMEOUT_S,
+    )
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1] if proc.returncode == 0 else lines:
+        print(line, flush=True)
+    if proc.returncode != 0:
+        fail(f"the child --serve-moe failed:\n{proc.stderr[-3000:]}")
+    res = json.loads(lines[-1])
+    for dt_name, t in res["timing"].items():
+        alone = alone_ms[f"flash_attention/moonshot/{dt_name}"]
+        if alone is None:
+            fail(f"no device time for the D = 128 flash kernel ({dt_name})")
+        extra = ({} if dt_name == "bfloat16" else dict(
+            f32_core_bound_ms=f"{t['f32_core_bound_ms']:.5f}",
+            alone_times_f32_core_bound=f"{alone / t['f32_core_bound_ms']:.2f}"))
+        say("kernel_time", kernel="flash_attention", case="moonshot",
+            dtype=dt_name, shape=tuple(t["shape"]), ms=f"{t['ms']:.4f}",
+            kernel_alone_ms=f"{alone:.4f}",
+            alone_times_bound=f"{alone / t['bound_ms']:.2f}",
+            plain_ms=f"{t['plain_ms']:.4f}", sdpa_ms=f"{t['sdpa_ms']:.4f}",
+            vs_sdpa=f"{t['ms'] / t['sdpa_ms']:.3f}",
+            alone_vs_sdpa=f"{alone / t['sdpa_ms']:.3f}",
+            bound_ms=f"{t['bound_ms']:.5f}", bound_by=t["bound_by"],
+            bytes=t["bytes"], ops=t["ops"],
+            times_bound=f"{t['ms'] / t['bound_ms']:.1f}", **extra)
+    flash = next(e for e in entries if e["name"] == "flash_attention")
+    flash["launches"] += res["launches"]
+    flash["max_abs_err"] = max(flash["max_abs_err"], res["max_abs_err"])
 
 
 # ---------------------------------------------------------------------------
@@ -2793,6 +3246,9 @@ def main() -> None:
     if sys.argv[1:] == ["--prefill-profile"]:
         prefill_profile()
         return
+    if sys.argv[1:] == ["--serve-moe"]:
+        serve_moe()
+        return
     if sys.argv[1:] == ["--segmin-kernel-alone"]:
         segmin_kernel_alone()
         return
@@ -3037,7 +3493,10 @@ def main() -> None:
     phase_bulk_plan(cfg)
 
     # ---- 7. the ML serving path: hymba-1.5b, flash attention, SSD --------
-    serve_entries = phase_serve()
+    serve_entries, alone_ms = phase_serve()
+
+    # ---- 7b. MoE serving: moonshot-v1-16b-a3b, flash attention at D = 128
+    phase_serve_moe(serve_entries, alone_ms)
 
     # ---- 8. the segmented-min kernel through segmin / arbitrate ----------
     segmin_entries = phase_segmin()

@@ -536,7 +536,9 @@ def planner_for(topo: MeshGrid, algo="DPM", cost_model=None,
                 device: torch.device | str = "cuda") -> BatchPlanner:
     """The shared ``BatchPlanner`` for (topo, algo, cost-model, device) —
     one arena per combination, so every consumer (xsim compile, the plan
-    server, direct callers) reuses plans the others already decoded."""
+    server, ``WormholeSim.add_requests``, ``dist.schedule_multicasts``,
+    trace replay, direct callers) reuses plans the others already
+    decoded."""
     dev = resolve_device(device)
     a = get_algorithm(algo)
     cm = get_cost_model(
@@ -562,10 +564,9 @@ def bulk_plan(topo: MeshGrid, requests, algo="DPM", cost_model=None, *,
     batched path is supported, host ``plan()`` otherwise. Always returns
     plans bit-identical to per-request ``plan()`` calls, in request order.
 
-    This is the bulk-planning backend ``xsim.compile_workload`` routes
-    through (the reference's ``WormholeSim.add_requests``,
-    ``dist.schedule_multicasts`` and trace replay do too; they come with
-    later slices of the port).
+    This is the bulk-planning backend that ``xsim.compile_workload``,
+    ``WormholeSim.add_requests``, ``dist.schedule_multicasts`` and trace
+    replay route through, as their twins in the reference do.
     """
     dev = resolve_device(device)
     requests = list(requests)

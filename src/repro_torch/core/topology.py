@@ -81,7 +81,7 @@ class Torus(MeshGrid):
     Inherits the boustrophedon labeling and vectorized helpers from
     ``MeshGrid``; overrides the geometric methods with wraparound semantics.
     ``Torus(n, 1)`` degenerates to a 1-D ring of ``n`` ranks (used by
-    by the reference's ``dist.multicast.dp_broadcast_schedule``).
+    ``dist.multicast.dp_broadcast_schedule``).
     """
 
     kind = "torus"

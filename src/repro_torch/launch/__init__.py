@@ -1,1 +1,2 @@
-"""Command-line entry points of the port (``python -m repro_torch.launch.serve``)."""
+"""Launch layer of the port: the serving CLI (``python -m
+repro_torch.launch.serve``) and the HLO cost analysis (``launch.hlo``)."""

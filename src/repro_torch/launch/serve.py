@@ -5,6 +5,8 @@
         --requests 16 --max-tokens 16            # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
         --device cpu                             # plain PyTorch on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch moonshot-v1-16b-a3b --device cpu  # the MoE model
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""Model substrate for serving: layers, GQA attention, SSD, blocks, LM.
-Twin of ``repro.models`` (the serving path; MoE, MLA and training come with
+"""Model substrate for serving: layers, GQA attention, SSD, MoE, blocks, LM.
+Twin of ``repro.models`` (the serving path; MLA and training come with
 later slices)."""
 from .config import (
     SHAPES,
@@ -12,7 +12,13 @@ from .config import (
 )
 from .convert import params_from_jax
 from .layers import count_params
-from .model import decode_step, init_caches, model_init, padded_vocab, prefill
+from .model import (
+    decode_step,
+    init_caches,
+    model_init,
+    padded_vocab,
+    prefill,
+)
 
 __all__ = [
     "SHAPES",

@@ -9,8 +9,8 @@ kernel to replace on its accelerator. Decode attends one query against a
 contiguous KV cache in plain PyTorch, as the reference does in jnp; the
 port writes the new token into the cache in place.
 
-MLA and the int8 KV cache are not ported yet (ROADMAP.md, queue 1, "the
-rest of the ML stack").
+MLA and the int8 KV cache are not ported yet (ROADMAP.md, queue 1, item 6
+step 3).
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ from .layers import Params, dense_apply, dense_init
 from .rope import apply_mrope, apply_rope
 
 NEG_INF = -1e30
-LATER = "ROADMAP.md, queue 1, 'the rest of the ML stack'"
+LATER = "ROADMAP.md, queue 1, item 6 step 3"
 
 
 def decode_attention(
@@ -44,15 +44,14 @@ def decode_attention(
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
-def gqa_init(gen, cfg: ArchConfig, device: torch.device,
-             lead: tuple = ()) -> Params:
+def gqa_init(gen, cfg: ArchConfig, device: torch.device) -> Params:
     d, H, KH, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    kw = dict(bias=cfg.qkv_bias, lead=lead)
+    b = cfg.qkv_bias
     return {
-        "wq": dense_init(gen, d, H * Dh, device, **kw),
-        "wk": dense_init(gen, d, KH * Dh, device, **kw),
-        "wv": dense_init(gen, d, KH * Dh, device, **kw),
-        "wo": dense_init(gen, H * Dh, d, device, lead=lead),
+        "wq": dense_init(gen, d, H * Dh, device, bias=b),
+        "wk": dense_init(gen, d, KH * Dh, device, bias=b),
+        "wv": dense_init(gen, d, KH * Dh, device, bias=b),
+        "wo": dense_init(gen, H * Dh, d, device),
     }
 
 

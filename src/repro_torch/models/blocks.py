@@ -1,11 +1,11 @@
 """Decoder blocks for serving. Twin of ``repro.models.blocks``.
 
-Kinds ported: ``attn_dense`` (GQA + dense MLP), ``ssd`` (Mamba-2, no FFN),
-``hymba_g`` and ``hymba_w`` (global or sliding-window GQA in parallel with
-SSD heads, then an MLP). ``attn_moe``, ``mla_dense`` and ``mla_moe`` raise:
-MoE and MLA come with the rest of the ML stack (ROADMAP.md, queue 1).
+Kinds ported: ``attn_dense`` (GQA + dense MLP), ``attn_moe`` (GQA + MoE
+FFN), ``ssd`` (Mamba-2, no FFN), ``hymba_g`` and ``hymba_w`` (global or
+sliding-window GQA in parallel with SSD heads, then an MLP). ``mla_dense``
+and ``mla_moe`` raise: MLA comes with ROADMAP.md, queue 1, item 6 step 3.
 
-Each kind has init (stacked over a group's ``count`` layers) / apply
+Each kind has init (one layer; ``models.model`` stacks a group) / apply
 (prefill) / init_cache / decode. The MoE auxiliary loss of the reference's
 ``block_apply`` belongs to training and is not returned.
 """
@@ -23,9 +23,11 @@ from .attention import (
 )
 from .config import ArchConfig, RunConfig
 from .layers import Params, mlp_apply, mlp_init, norm_apply, norm_init
+from .moe import moe_apply_dense, moe_init
 from .ssm import ssd_block_apply, ssd_block_decode, ssd_init, ssd_init_cache
 
-KINDS = ("attn_dense", "ssd", "hymba_g", "hymba_w")
+KINDS = ("attn_dense", "attn_moe", "ssd", "hymba_g", "hymba_w")
+_ATTN = ("attn_dense", "attn_moe")
 
 
 def _window(kind: str, cfg: ArchConfig) -> int | None:
@@ -34,32 +36,50 @@ def _window(kind: str, cfg: ArchConfig) -> int | None:
 
 def _check_kind(kind: str) -> None:
     if kind not in KINDS:
-        if kind in ("attn_moe", "mla_dense", "mla_moe"):
+        if kind in ("mla_dense", "mla_moe"):
             raise NotImplementedError(
-                f"block kind {kind!r} (MoE / MLA) is not ported ({LATER})")
+                f"block kind {kind!r} (MLA) is not ported ({LATER})")
         raise ValueError(kind)
 
 
+def _moe_ffn(pf: Params, xn: torch.Tensor, cfg: ArchConfig,
+             run: RunConfig) -> torch.Tensor:
+    """The MoE FFN. The reference runs ``moe_impl="ep"`` (expert parallel,
+    shard_map all_to_all) only under a device mesh and the dense path
+    without one; the port has no mesh, so both values compute the dense
+    path."""
+    return moe_apply_dense(pf, xn, cfg)[0]
+
+
+def _ffn(kind: str, pf: Params, xn: torch.Tensor, cfg: ArchConfig,
+         run: RunConfig) -> torch.Tensor:
+    if kind.endswith("_moe"):
+        return _moe_ffn(pf, xn, cfg, run)
+    return mlp_apply(pf, xn, cfg.mlp)
+
+
 # ---------------------------------------------------------------- init
-def block_init(kind: str, gen, cfg: ArchConfig, device: torch.device,
-               count: int) -> Params:
-    """Parameters of ``count`` layers of one kind, stacked on dim 0."""
+def block_init(kind: str, gen, cfg: ArchConfig,
+               device: torch.device) -> Params:
+    """Parameters of one layer of ``kind``."""
     _check_kind(kind)
-    lead = (count,)
-    p: Params = {"norm1": norm_init(cfg.d_model, device, cfg.norm, lead)}
-    if kind == "attn_dense":
-        p["attn"] = gqa_init(gen, cfg, device, lead)
+    p: Params = {"norm1": norm_init(cfg.d_model, device, cfg.norm)}
+    if kind in _ATTN:
+        p["attn"] = gqa_init(gen, cfg, device)
     elif kind == "ssd":
-        p["ssd"] = ssd_init(gen, cfg, device, lead)
+        p["ssd"] = ssd_init(gen, cfg, device)
         return p  # mamba2 block has no FFN sublayer
     else:  # hymba
-        p["attn"] = gqa_init(gen, cfg, device, lead)
-        p["ssd"] = ssd_init(gen, cfg, device, lead)
-        p["bnorm_a"] = norm_init(cfg.d_model, device, lead=lead)
-        p["bnorm_s"] = norm_init(cfg.d_model, device, lead=lead)
-    p["norm2"] = norm_init(cfg.d_model, device, cfg.norm, lead)
-    d_ff = cfg.dense_d_ff if (cfg.moe and cfg.dense_d_ff) else cfg.d_ff
-    p["ffn"] = mlp_init(gen, cfg, device, d_ff, lead)
+        p["attn"] = gqa_init(gen, cfg, device)
+        p["ssd"] = ssd_init(gen, cfg, device)
+        p["bnorm_a"] = norm_init(cfg.d_model, device)
+        p["bnorm_s"] = norm_init(cfg.d_model, device)
+    p["norm2"] = norm_init(cfg.d_model, device, cfg.norm)
+    if kind.endswith("_moe"):
+        p["ffn"] = moe_init(gen, cfg, device)
+    else:
+        d_ff = cfg.dense_d_ff if (cfg.moe and cfg.dense_d_ff) else cfg.d_ff
+        p["ffn"] = mlp_init(gen, cfg, device, d_ff)
     return p
 
 
@@ -90,7 +110,7 @@ def _kv_to_cache(k, v, run: RunConfig, window: int | None, cache_len=None):
 
 def _mixer_apply(kind, p, xn, cfg, run, positions, cache_len):
     """The token-mixing sublayer. Returns (out, cache)."""
-    if kind == "attn_dense":
+    if kind in _ATTN:
         out, (k, v) = gqa_apply(p["attn"], xn, cfg, run, positions,
                                 return_kv=True)
         return out, _kv_to_cache(k, v, run, None, cache_len)
@@ -121,14 +141,14 @@ def block_apply(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig,
     if kind == "ssd":
         return x, cache
     xn = norm_apply(p["norm2"], x, stats_only_f32=run.norm_stats_only_f32)
-    return x + mlp_apply(p["ffn"], xn, cfg.mlp), cache
+    return x + _ffn(kind, p["ffn"], xn, cfg, run), cache
 
 
 # ---------------------------------------------------------------- decode
 def block_init_cache(kind: str, cfg: ArchConfig, run: RunConfig, batch: int,
                      max_len: int, device: torch.device) -> dict:
     _check_kind(kind)
-    if kind == "attn_dense":
+    if kind in _ATTN:
         return gqa_init_cache(cfg, run, batch, max_len, None, device)
     if kind == "ssd":
         return ssd_init_cache(cfg, batch, device)
@@ -145,7 +165,7 @@ def block_decode(kind: str, p: Params, cache: dict, x: torch.Tensor,
     tensors are written in place."""
     _check_kind(kind)
     xn = norm_apply(p["norm1"], x)
-    if kind == "attn_dense":
+    if kind in _ATTN:
         mix, cache = gqa_decode(p["attn"], cache, xn, cfg, run, pos)
     elif kind == "ssd":
         mix, cache = ssd_block_decode(p["ssd"], cache, xn, cfg)
@@ -159,4 +179,4 @@ def block_decode(kind: str, p: Params, cache: dict, x: torch.Tensor,
     if kind == "ssd":
         return x, cache
     xn = norm_apply(p["norm2"], x)
-    return x + mlp_apply(p["ffn"], xn, cfg.mlp), cache
+    return x + _ffn(kind, p["ffn"], xn, cfg, run), cache

@@ -5,6 +5,8 @@ leaves (``jax.tree.map(np.asarray, params)``) and returns the port's tree
 on ``device``. The two trees have the same keys, shapes and layouts (dense
 weights ``(in, out)``, each group ``g{i}`` stacked on a leading layer dim),
 so the conversion is a checked copy; a key or shape that differs raises.
+The copy keeps the reference's f32 leaves for any ``run``: every run
+computes on them, and an f32 run on them is exact.
 """
 from __future__ import annotations
 

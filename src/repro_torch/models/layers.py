@@ -4,8 +4,8 @@ Parameters keep the reference's tree and layout: a dense weight is
 ``(in, out)`` and is applied as ``x @ w.to(x.dtype)``, norms hold
 ``scale`` (and ``bias`` for layernorm), tables are ``(vocab, d)``. The
 reference's logical-axis specs drive sharding and have no counterpart on one
-card, so ``*_init`` return parameters only. ``lead`` prepends a stacked
-"layers" dim (the layout of a group's weights). Random draws come from an
+card, so ``*_init`` return parameters only, of one layer (``stack_init``
+stacks a group's layers on a leading dim). Random draws come from an
 explicit ``torch.Generator``; on the ``meta`` device nothing is drawn.
 """
 from __future__ import annotations
@@ -28,11 +28,11 @@ def normal(gen: torch.Generator | None, shape: tuple, std: float,
 
 
 def dense_init(gen, in_dim: int, out_dim: int, device: torch.device, *,
-               bias: bool = False, lead: tuple = ()) -> Params:
-    p: Params = {"w": normal(gen, (*lead, in_dim, out_dim),
-                             1.0 / math.sqrt(in_dim), device)}
+               bias: bool = False) -> Params:
+    p: Params = {"w": normal(gen, (in_dim, out_dim), 1.0 / math.sqrt(in_dim),
+                             device)}
     if bias:
-        p["b"] = torch.zeros((*lead, out_dim), device=device)
+        p["b"] = torch.zeros((out_dim,), device=device)
     return p
 
 
@@ -43,11 +43,10 @@ def dense_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def norm_init(d: int, device: torch.device, kind: str = "rmsnorm",
-              lead: tuple = ()) -> Params:
-    p: Params = {"scale": torch.ones((*lead, d), device=device)}
+def norm_init(d: int, device: torch.device, kind: str = "rmsnorm") -> Params:
+    p: Params = {"scale": torch.ones((d,), device=device)}
     if kind == "layernorm":
-        p["bias"] = torch.zeros((*lead, d), device=device)
+        p["bias"] = torch.zeros((d,), device=device)
     return p
 
 
@@ -87,18 +86,18 @@ def lm_head_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
     return x @ p["table"].to(x.dtype).T
 
 
-def mlp_init(gen, cfg, device: torch.device, d_ff: int | None = None,
-             lead: tuple = ()) -> Params:
+def mlp_init(gen, cfg, device: torch.device,
+             d_ff: int | None = None) -> Params:
     d, ff = cfg.d_model, d_ff or cfg.d_ff
     if cfg.mlp == "swiglu":
         return {
-            "wi": dense_init(gen, d, ff, device, lead=lead),
-            "wg": dense_init(gen, d, ff, device, lead=lead),
-            "wo": dense_init(gen, ff, d, device, lead=lead),
+            "wi": dense_init(gen, d, ff, device),
+            "wg": dense_init(gen, d, ff, device),
+            "wo": dense_init(gen, ff, d, device),
         }
     return {
-        "wi": dense_init(gen, d, ff, device, bias=True, lead=lead),
-        "wo": dense_init(gen, ff, d, device, bias=True, lead=lead),
+        "wi": dense_init(gen, d, ff, device, bias=True),
+        "wo": dense_init(gen, ff, d, device, bias=True),
     }
 
 

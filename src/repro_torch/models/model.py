@@ -3,7 +3,10 @@ the serving half of ``repro.models.model``.
 
 Parameters keep the reference's tree: ``embed``, one ``g{i}`` per layout
 group with every leaf stacked on a leading "layers" dim, ``final_norm`` and
-(untied) ``lm_head``. The reference scans each group with ``lax.scan``; the
+(untied) ``lm_head``. ``model_init`` draws them in f32, one layer at a
+time, and stores the leaves that are only ever cast to the activations'
+dtype in ``run.activations_dtype``, which a model too large for the card
+in f32 needs. The reference scans each group with ``lax.scan``; the
 port loops over the layers and indexes the stacked weights. ``remat`` and
 sharding constraints have no meaning when serving on one card. Caches are
 per layer: ``caches["g{i}"]`` is a list with one dict per layer of the
@@ -43,14 +46,63 @@ def padded_vocab(cfg: ArchConfig, run: RunConfig) -> int:
     return (cfg.vocab + r - 1) // r * r
 
 
+# the leaves whose every use is ``.to(x.dtype)`` of an activation: dense
+# weights and biases, the MoE expert stacks, the embedding and LM-head
+# tables. Norms, the router (``route`` multiplies in f32) and the SSD
+# block's conv, ``A_log``, ``D`` and ``dt_bias`` are read in f32.
+_ACTIVATION_LEAVES = ("w", "b", "table", "wi", "wg", "wo",
+                      "shared_wi", "shared_wg", "shared_wo")
+
+
+def _stored_as_activations(path: tuple[str, ...]) -> bool:
+    return path[-1] in _ACTIVATION_LEAVES and "router" not in path
+
+
+def _cast_tree(tree: Params, dtype: torch.dtype, path=()) -> Params:
+    return {k: _cast_tree(v, dtype, (*path, k)) if isinstance(v, dict)
+            else v.to(dtype) if _stored_as_activations((*path, k)) else v
+            for k, v in tree.items()}
+
+
+def _stack_init(init_fn, count: int, dtype: torch.dtype) -> Params:
+    """``count`` layers of ``init_fn()`` stacked on a leading dim, drawn one
+    layer at a time in f32 and stored by ``_cast_tree`` in ``dtype``: the
+    peak is the stack plus one layer's f32 draws."""
+    layer = _cast_tree(init_fn(), dtype)
+    stack = _map(lambda t: t.new_empty((count, *t.shape)), layer)
+    _copy_into(stack, layer, 0)
+    del layer
+    for i in range(1, count):
+        _copy_into(stack, init_fn(), i)
+    return stack
+
+
+def _map(fn, tree: Params) -> Params:
+    return {k: _map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def _copy_into(stack: Params, layer: Params, i: int) -> None:
+    for k, v in layer.items():
+        if isinstance(v, dict):
+            _copy_into(stack[k], v, i)
+        elif v.device.type != "meta":
+            stack[k][i].copy_(v)
+
+
 def model_init(seed: int, cfg: ArchConfig, run: RunConfig, *,
                device: torch.device | str = "cuda") -> Params:
     """Random parameters drawn from a ``torch.Generator`` seeded with
-    ``seed`` on ``device`` (default the card; a missing card raises). On
-    ``torch.device("meta")`` nothing is drawn or allocated: the tree's
-    shapes, for counting parameters."""
+    ``seed`` on ``device`` (default the card; a missing card raises), one
+    layer at a time in f32. The leaves only ever read as ``.to(x.dtype)``
+    are stored in ``run.activations_dtype`` (an f32 run keeps every leaf
+    f32); the rest stay f32. This changes storage, not the function: with
+    bf16 activations the logits are bit-identical to those of the f32 run's
+    tree from the same seed. On ``torch.device("meta")`` nothing is drawn
+    or allocated: the tree's shapes, for counting parameters."""
     dev = (torch.device(device) if torch.device(device).type == "meta"
            else resolve_device(device))
+    dtype = getattr(torch, run.activations_dtype)
     gen = None
     if dev.type != "meta":
         gen = torch.Generator(device=dev)
@@ -58,12 +110,15 @@ def model_init(seed: int, cfg: ArchConfig, run: RunConfig, *,
     if cfg.embed_input != "tokens":
         raise NotImplementedError(f"frame inputs are not ported ({LATER})")
     vp = padded_vocab(cfg, run)
-    params: Params = {"embed": embed_init(gen, vp, cfg.d_model, dev)}
+    params: Params = _cast_tree(
+        {"embed": embed_init(gen, vp, cfg.d_model, dev)}, dtype)
     for gi, (kind, count) in enumerate(cfg.layout):
-        params[f"g{gi}"] = block_init(kind, gen, cfg, dev, count)
+        params[f"g{gi}"] = _stack_init(
+            lambda: block_init(kind, gen, cfg, dev), count, dtype)
     params["final_norm"] = norm_init(cfg.d_model, dev, cfg.norm)
     if not cfg.tie_embeddings:
-        params["lm_head"] = embed_init(gen, vp, cfg.d_model, dev)
+        params.update(_cast_tree(
+            {"lm_head": embed_init(gen, vp, cfg.d_model, dev)}, dtype))
     return params
 
 

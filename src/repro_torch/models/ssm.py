@@ -123,26 +123,23 @@ def ssd_reference(x, dt, A, Bm, Cm, h0=None):
 # ---------------------------------------------------------------------------
 # full Mamba-2 block
 # ---------------------------------------------------------------------------
-def ssd_init(gen, cfg: ArchConfig, device: torch.device,
-             lead: tuple = ()) -> Params:
+def ssd_init(gen, cfg: ArchConfig, device: torch.device) -> Params:
     s: SSMConfig = cfg.ssm
     d = cfg.d_model
     di = s.d_inner(d)
     H = s.n_heads(d)
     conv_dim = di + 2 * s.n_groups * s.d_state
     d_in = 2 * di + 2 * s.n_groups * s.d_state + H
-    rep = (*lead, H)
     return {
-        "in_proj": dense_init(gen, d, d_in, device, lead=lead),
-        "out_proj": dense_init(gen, di, d, device, lead=lead),
-        "conv_w": normal(gen, (*lead, s.d_conv, conv_dim), 0.2, device),
-        "conv_b": torch.zeros((*lead, conv_dim), device=device),
-        "A_log": torch.log(torch.linspace(1.0, 16.0, H, device=device))
-        .expand(rep).contiguous(),
-        "D": torch.ones(rep, device=device),
-        "dt_bias": torch.full(rep, math.log(math.expm1(1e-2)),
+        "in_proj": dense_init(gen, d, d_in, device),
+        "out_proj": dense_init(gen, di, d, device),
+        "conv_w": normal(gen, (s.d_conv, conv_dim), 0.2, device),
+        "conv_b": torch.zeros((conv_dim,), device=device),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, H, device=device)),
+        "D": torch.ones((H,), device=device),
+        "dt_bias": torch.full((H,), math.log(math.expm1(1e-2)),
                               device=device),
-        "norm_scale": torch.ones((*lead, di), device=device),
+        "norm_scale": torch.ones((di,), device=device),
     }
 
 

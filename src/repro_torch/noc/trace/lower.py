@@ -192,10 +192,8 @@ def from_hlo(
 ) -> Trace:
     """Lower an HLO collective-byte profile onto the rank fabric.
 
-    Accepts an already-computed ``{kind: bytes}`` dict. HLO text (which the
-    reference feeds through ``launch.hlo.collective_bytes``) raises
-    ``NotImplementedError``: the HLO parser comes with ROADMAP.md queue 1
-    item 6. Each collective kind maps to
+    Accepts HLO text (read through ``launch.hlo.collective_bytes``) or an
+    already-computed ``{kind: bytes}`` dict. Each collective kind maps to
     the phase structure its exchange pattern implies, for a logical buffer
     of ``B`` bytes over ``n`` ranks:
 
@@ -216,11 +214,9 @@ def from_hlo(
     from ...dist.multicast import alltoall_schedule, schedule_multicasts
 
     if isinstance(hlo_or_collectives, str):
-        raise NotImplementedError(
-            "from_hlo on HLO text needs launch/hlo.py's collective_bytes, "
-            "which is not ported yet (ROADMAP.md queue 1 item 6, 'the rest "
-            "of the ML stack'); pass the {kind: bytes} dict"
-        )
+        from ...launch.hlo import collective_bytes
+
+        coll = collective_bytes(hlo_or_collectives)
     else:
         coll = dict(hlo_or_collectives)
     kinds = [

@@ -144,3 +144,29 @@ def test_plan_cache_info_matches_reference(monkeypatch):
     assert any(v["hits"] for v in want.by_key.values())
     for field in jplanner.PlanCacheInfo._fields:
         assert getattr(got, field) == getattr(want, field), field
+
+
+@pytest.mark.parametrize("kind", ["mesh", "torus"])
+def test_plan_one_through_the_arena_matches_reference(kind):
+    """Lone DPM requests through each package's shared arena
+    (``planner_for(...).plan_one``, a batched pass of one request): the
+    same plans as each other and as the port's host ``plan()``, all of
+    them planned on the batched path."""
+    jg = jcore.make_topology(kind, 4)
+    tg = tcore.make_topology(kind, 4)
+    reqs = _requests(4, seed=zlib.crc32(f"plan_one{kind}".encode()))[:6]
+    for pkg in (jcore, tcore):
+        pkg.arena_clear()
+    try:
+        jb = jcore.planner_for(jg, "DPM")
+        tb = tcore.planner_for(tg, "DPM", device="cpu")
+        for src, dests in reqs:
+            tp = tb.plan_one(src, dests)
+            assert _as_tuple(tp) == _as_tuple(jb.plan_one(src, dests))
+            assert _as_tuple(tp) == _as_tuple(tcore.plan("DPM", tg, src,
+                                                         dests))
+        assert jb.info().batched_plans == tb.info().batched_plans == len(reqs)
+        assert jb.info().dispatches == tb.info().dispatches == len(reqs)
+    finally:
+        for pkg in (jcore, tcore):
+            pkg.arena_clear()

@@ -207,17 +207,10 @@ def test_dpm_plan_topo_matches_jax(kind, model):
         _eq(tout[0].numpy(), jout[0], "chosen")
 
 
-@pytest.mark.parametrize("kind,model", [("mesh", "hops"), ("torus", "hops"),
-                                        ("mesh", "weighted"),
-                                        ("torus", "weighted")])
-def test_dpm_plan_exact_matches_jax(kind, model):
-    """All five outputs of the batched planner's full-objective pass, on
-    the tables ``core.batch_planner`` builds. Packet 0 lists its own source
-    as a destination: ``part_of`` is -1 there, which both packages read as
-    the last wedge's column."""
-    n, m = 4, 4
-    jg, mask, _, src_idx = _topo_inputs(kind, n, m, 16, seed=31)
-    jcm = jcore.get_cost_model(model)
+def _exact_pass_matches(jg, jcm, mask, src_idx):
+    """Run ``dpm_plan_exact`` in both packages on the tables
+    ``core.batch_planner`` builds for ``jg`` and hold all five outputs
+    equal; returns the membership table and the label-chain matrices."""
     jmemb = jcore.batch_planner.membership_table(jg)
     labels = jops.snake_labels(jg)
     order = np.argsort(labels).astype(np.int32)
@@ -230,12 +223,45 @@ def test_dpm_plan_exact_matches_jax(kind, model):
     for name, a, b in zip(("chosen", "order", "reps", "modes", "costs"),
                           tout, jout):
         _eq(a.numpy(), b, name)
+    return jmemb, wh, wl
+
+
+@pytest.mark.parametrize("kind,model", [("mesh", "hops"), ("torus", "hops"),
+                                        ("mesh", "weighted"),
+                                        ("torus", "weighted")])
+def test_dpm_plan_exact_matches_jax(kind, model):
+    """All five outputs of the batched planner's full-objective pass, on
+    the tables ``core.batch_planner`` builds. Packet 0 lists its own source
+    as a destination: ``part_of`` is -1 there, which both packages read as
+    the last wedge's column."""
+    n, m = 4, 4
+    jg, mask, _, src_idx = _topo_inputs(kind, n, m, 16, seed=31)
+    jcm = jcore.get_cost_model(model)
+    jmemb, wh, wl = _exact_pass_matches(jg, jcm, mask, src_idx)
     # the port builds the same host tables itself
     tg = {"mesh": tcore.grid, "torus": tcore.torus}[kind](n, m)
     tcm = tcore.get_cost_model(model)
     _eq(tbp.membership_table(tg), jmemb, "membership_table")
     for a, b in zip(tbp.label_chain_matrices(tg, tcm), (wh, wl)):
         _eq(a, b, "label_chain_matrices")
+
+
+@pytest.mark.parametrize("kind,model", [("mesh", "hops"),
+                                        ("torus", "weighted")])
+def test_dpm_plan_exact_single_packet_matches_jax(kind, model):
+    """A batch of one packet, the pass ``plan_one`` pads a lone request
+    to, for several sources and destination sets."""
+    n = 4
+    jg = _fabric(kind, n, n)
+    jcm = jcore.get_cost_model(model)
+    rng = np.random.default_rng(41)
+    for _ in range(4):
+        mask = (rng.random((1, n * n)) < 0.3).astype(np.int32)
+        src = jg.nodes()[rng.integers(n * n)]
+        mask[0, jg.idx(src)] = 0
+        mask[0, rng.integers(n * n)] = 1
+        src_idx = np.array([jg.idx(src)], np.int32)
+        _exact_pass_matches(jg, jcm, mask, src_idx)
 
 
 def test_greedy_merge_order_on_float_ties():

@@ -237,6 +237,45 @@ def test_tc_emulation_window_case_has_a_fully_masked_first_tile():
                                rtol=0, atol=2e-2)
 
 
+def _chip_smoke_row_rtol() -> dict:
+    """``chip_smoke.ATTN_ROW_RTOL``, the per-row relative tolerance the
+    card's moonshot flash checks use, read from the script itself."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.ATTN_ROW_RTOL
+
+
+def _max_row_rel_err(got, want):
+    g, w = got.float().reshape(-1, got.shape[-1]), want.float().reshape(
+        -1, want.shape[-1])
+    return float(((g - w).norm(dim=-1) / w.norm(dim=-1)).max())
+
+
+def test_row_rtol_holds_the_kernel_arithmetic_and_catches_a_dropped_tile():
+    """At moonshot's S = 2,000 and D = 128 with near-uniform attention
+    (small q and k, as random weights give), the bf16 kernel's emulated
+    arithmetic stays within the chip's per-row relative tolerance of the
+    plain version (about 0.004 against 2e-2), while zeroing one 64-key
+    tile's values moves some row by over ten times that (about 0.25)."""
+    rtol = _chip_smoke_row_rtol()["torch.bfloat16"]
+    g = torch.Generator().manual_seed(0)
+    q, k = (0.3 * torch.randn((1, 2000, 2, 128), generator=g)
+            for _ in range(2))
+    v = torch.randn((1, 2000, 2, 128), generator=g)
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    got, _ = _tc_kernel_emulation(q, k, v)
+    want = flash_attention_ref(q, k, v)
+    assert _max_row_rel_err(got, want) <= rtol / 2
+    v_drop = v.clone()
+    v_drop[:, 1024:1024 + TC_BK] = 0
+    assert _max_row_rel_err(flash_attention_ref(q, k, v_drop), want) > 10 * rtol
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("D", HEAD_DIMS)
 def test_kernel_shared_memory_fits_a_block(D, dtype):

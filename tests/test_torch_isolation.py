@@ -52,7 +52,13 @@ def test_importing_every_port_module_loads_neither_jax_nor_repro():
                  "repro_torch.noc.trace.ir",
                  "repro_torch.noc.trace.lower",
                  "repro_torch.noc.trace.replay",
-                 "repro_torch.dist.multicast"):
+                 "repro_torch.dist.multicast",
+                 "repro_torch.models.moe",
+                 "repro_torch.launch.hlo",
+                 "repro_torch.configs.moonshot_v1_16b",
+                 "repro_torch.configs.qwen1_5_32b",
+                 "repro_torch.configs.stablelm_1_6b",
+                 "repro_torch.configs.starcoder2_7b"):
         assert name in mods
     code = (
         "import importlib, sys\n"
@@ -130,6 +136,27 @@ def test_serving_refuses_a_missing_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ssd_scan_kernel(x, dt, torch.zeros(2), bm, bm, 4)
     assert BatchServer(params, cfg, run, device="cpu").device.type == "cpu"
+
+
+def test_moe_serving_refuses_a_missing_card(monkeypatch):
+    """moonshot's init (f32 or bf16 storage) and server raise without a
+    card; the configurations still to port raise in ``get_arch``."""
+    from repro_torch.configs import LATER, get_arch
+
+    cfg = SMOKES["moonshot-v1-16b-a3b"]
+    run = RunConfig()
+    params = model_init(0, cfg, run, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for act in ("float32", "bfloat16"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            model_init(0, cfg, RunConfig(activations_dtype=act))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BatchServer(params, cfg, run)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        generate(params, cfg, run, torch.zeros((1, 4), dtype=torch.int32), 2)
+    for name in LATER:
+        with pytest.raises(KeyError, match="not ported yet"):
+            get_arch(name)
 
 
 def test_trace_replay_and_calibration_refuse_a_missing_card(monkeypatch):

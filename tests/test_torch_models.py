@@ -4,8 +4,10 @@ at smoke width, on weights carried across by ``params_from_jax``.
 - ``params_from_jax`` copies every leaf exactly and refuses a tree that
   differs.
 - ``prefill`` logits and every cache tensor, for ``hymba-1.5b`` (global and
-  sliding-window GQA in parallel with SSD heads), ``smollm-135m``
-  (attention only) and ``mamba2-1.3b`` (SSD only). In f32 the port runs the
+  sliding-window GQA in parallel with SSD heads), ``smollm-135m``,
+  ``stablelm-1.6b`` (layernorm), ``starcoder2-7b`` (gelu MLP, QKV bias) and
+  ``qwen1.5-32b`` (attention only), ``mamba2-1.3b`` (SSD only) and
+  ``moonshot-v1-16b-a3b`` (attention and a routed + shared MoE FFN). In f32 the port runs the
   plain attention and ``ssd_scan`` where the reference runs its chunked
   online-softmax attention and its own ``ssd_scan``: the same functions
   summed in another order, held at atol 1e-4 (logits and caches). In the
@@ -17,7 +19,11 @@ at smoke width, on weights carried across by ``params_from_jax``.
   the smoke window 64: a 60-token prompt wraps the ring during decode, a
   70-token prompt enters decode through the prefill's rolled ring.
 - The full-width parameter counts on ``torch.device("meta")`` equal
-  ``count_params`` of the reference's ``abstract_init``.
+  ``count_params`` of the reference's ``abstract_init`` (moonshot:
+  28,888,467,456).
+- ``model_init`` with bf16 activations stores the leaves that are only
+  read as ``.to(x.dtype)`` in bf16: prefill and decode logits with bf16
+  activations are bit-identical to those of the f32 run's tree.
 """
 import jax
 import jax.numpy as jnp
@@ -46,12 +52,22 @@ from repro_torch.models import (
 )
 from repro_torch.models.blocks import block_init
 
-NAMES = ["hymba-1.5b", "smollm-135m", "mamba2-1.3b"]
+NAMES = ["hymba-1.5b", "smollm-135m", "mamba2-1.3b", "stablelm-1.6b",
+         "starcoder2-7b", "qwen1.5-32b", "moonshot-v1-16b-a3b"]
 RUN_KW = dict(remat="none", attn_chunk_q=32, attn_chunk_k=32, vocab_round=64,
               kv_cache_dtype="float32")
 TOL = {"float32": dict(logits=dict(atol=1e-4), cache=dict(atol=1e-4)),
        "bfloat16": dict(logits=dict(atol=4e-2),
                         cache=dict(atol=0.1, rtol=0.05))}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite's workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _tokens(cfg, B, S, seed):
@@ -104,6 +120,11 @@ def test_params_from_jax_copies_every_leaf(models, name):
     bad["final_norm"]["scale"] = bad["final_norm"]["scale"][:-1]
     with pytest.raises(ValueError, match="final_norm/scale"):
         params_from_jax(bad, SMOKES[name], RunConfig(**RUN_KW), device="cpu")
+    if "router" in bad["g0"].get("ffn", {}):  # an expert stack's path
+        bad["g0"]["ffn"]["wi"] = bad["g0"]["ffn"]["wi"][:, :-1]
+        with pytest.raises(ValueError, match="g0/ffn/wi: shape"):
+            params_from_jax(bad, SMOKES[name], RunConfig(**RUN_KW),
+                            device="cpu")
     del bad["final_norm"]
     with pytest.raises(ValueError, match="keys"):
         params_from_jax(bad, SMOKES[name], RunConfig(**RUN_KW), device="cpu")
@@ -193,6 +214,45 @@ def test_full_width_param_count_equals_reference(name):
     meta = model_init(0, ARCHS[name], run, device="meta")
     assert count_params(meta) == jax_count_params(shapes)
     assert all(t.device.type == "meta" for _, t in _leaves(meta))
+    if name == "moonshot-v1-16b-a3b":
+        assert count_params(meta) == 28_888_467_456
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_bf16_stored_params_give_bit_identical_logits(name):
+    """Prefill and two decode steps with bf16 activations: the tree
+    ``model_init`` stores for a bf16 run and the all-f32 tree of an f32 run
+    from the same seed give the same bits."""
+    cfg = SMOKES[name]
+    run = RunConfig(**dict(RUN_KW, activations_dtype="bfloat16"))
+    f32 = model_init(0, cfg, RunConfig(**dict(RUN_KW,
+                                              activations_dtype="float32")),
+                     device="cpu")
+    bf16 = model_init(0, cfg, run, device="cpu")
+    trees = [f32, bf16]
+    for (k, a), (k2, b) in zip(_leaves(f32), _leaves(bf16)):
+        assert k == k2 and a.dtype == torch.float32, k
+        assert b.dtype in (torch.float32, torch.bfloat16), k
+        assert torch.equal(b, a.to(b.dtype)), k
+    cast = {k for k, t in _leaves(bf16) if t.dtype == torch.bfloat16}
+    assert "/embed/table" in cast and not any(
+        "norm" in k or "router" in k or k.rsplit("/", 1)[1] in (
+            "A_log", "D", "dt_bias", "conv_w", "conv_b") for k in cast)
+    toks = _tokens(cfg, 2, 20, seed=6)
+    outs = []
+    for params in trees:
+        lg, caches = prefill(params, {"tokens": torch.from_numpy(toks)}, cfg,
+                             run, cache_len=22)
+        got = [lg]
+        for t in range(2):
+            lg, caches = decode_step(
+                params, caches, {"tokens": torch.from_numpy(toks[:, t:t + 1]),
+                                 "pos": 20 + t}, cfg, run)
+            got.append(lg)
+        outs.append(got)
+    for got in outs[1:]:
+        for a, b in zip(outs[0], got):
+            assert torch.equal(a, b)
 
 
 def test_model_init_is_seeded():
@@ -206,15 +266,20 @@ def test_model_init_is_seeded():
 
 
 def test_unported_configs_and_options_raise():
-    for name in LATER:
-        assert name in JAX_ARCHS
-        with pytest.raises(KeyError, match="ROADMAP"):
-            get_arch(name)
+    assert sorted(LATER) == ["deepseek-v2-236b", "musicgen-medium",
+                             "qwen2-vl-72b"]
+    assert sorted([*ARCHS, *LATER]) == sorted(JAX_ARCHS)
+    for name, need in (("deepseek-v2-236b", "MLA"),
+                       ("musicgen-medium", "frame inputs"),
+                       ("qwen2-vl-72b", "M-RoPE")):
+        for smoke in (False, True):
+            with pytest.raises(KeyError, match=f"{need}.*item 6 step 3"):
+                get_arch(name, smoke=smoke)
     assert get_arch("hymba-1.5b", smoke=True) is SMOKES["hymba-1.5b"]
-    for kind in ("attn_moe", "mla_dense", "mla_moe"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            block_init(kind, None, SMOKES["smollm-135m"],
-                       torch.device("meta"), 1)
+    for kind in ("mla_dense", "mla_moe"):
+        with pytest.raises(NotImplementedError, match="item 6 step 3"):
+            block_init(kind, None, SMOKES["moonshot-v1-16b-a3b"],
+                       torch.device("meta"))
     toks = torch.zeros((1, 4), dtype=torch.int32)
     for name in ("smollm-135m", "mamba2-1.3b"):  # attention only, SSD only
         cfg = SMOKES[name]

@@ -1,5 +1,6 @@
 """The port's model serving (``repro_torch.serve``): ``generate`` against the
-reference's on the same weights, and ``BatchServer``'s batch formation,
+reference's on the same weights, for every ported configuration at smoke
+width, and ``BatchServer``'s batch formation,
 slicing, left padding, reuse, close/drain and queue depth, as
 ``tests/test_serve.py`` checks the reference's.
 
@@ -13,6 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import SMOKES as JAX_SMOKES
 from repro.models import RunConfig as JaxRun
@@ -28,6 +30,15 @@ RUN_KW = dict(remat="none", attn_chunk_q=32, attn_chunk_k=32, vocab_round=64,
               activations_dtype="float32", kv_cache_dtype="float32")
 RUN = RunConfig(**RUN_KW)
 NEAR_TIE = 1e-3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite's workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -61,7 +72,9 @@ def _jax_logit_gaps(jp, cfg, run, prompts, tokens):
     return np.stack(gaps, 1)  # (B, steps)
 
 
-@pytest.mark.parametrize("name", ["hymba-1.5b", "smollm-135m", "mamba2-1.3b"])
+@pytest.mark.parametrize("name", ["hymba-1.5b", "smollm-135m", "mamba2-1.3b",
+                                  "stablelm-1.6b", "starcoder2-7b",
+                                  "qwen1.5-32b", "moonshot-v1-16b-a3b"])
 def test_generate_greedy_matches_reference(name):
     jcfg, cfg = JAX_SMOKES[name], SMOKES[name]
     jrun = JaxRun(**RUN_KW)

@@ -81,7 +81,37 @@ def test_producer_trace_json_equals_reference(name, args, kw):
                                                  ref.total_bytes)
 
 
+def _compiled_hlo(with_collectives: bool) -> str:
+    """Optimised HLO text of a 3-step scan; with collectives, each step runs
+    psum, all_gather, psum_scatter and ppermute under a one-device
+    shard_map (compiled HLO keeps them and the scan's trip count)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+    from jax.sharding import PartitionSpec as P
+
+    mesh = Mesh(np.array(jax.devices()[:1]), ("x",))
+
+    def body(a):
+        if not with_collectives:
+            return jnp.tanh(a) * 2.0
+        return (jax.lax.psum(a, "x") + jax.lax.all_gather(a, "x").sum(0)
+                + jax.lax.psum_scatter(a, "x", tiled=True)
+                + jax.lax.ppermute(a, "x", [(0, 0)]))
+
+    def f(a):
+        step = jax.shard_map(body, mesh=mesh, in_specs=P(), out_specs=P(),
+                             check_vma=False)
+        return jax.lax.scan(lambda c, _: (step(c), None), a, None,
+                            length=3)[0]
+
+    x = jnp.ones((64, 32), jnp.float32)
+    return jax.jit(f).lower(x).compile().as_text()
+
+
 def test_from_hlo_on_a_profile_and_its_refusal_of_text():
+    """A profile equals the reference's; a profile, and HLO text, without
+    collective bytes are refused as the reference refuses them."""
     prof = {"all-gather": 4.0e6, "reduce-scatter": 2.5e6,
             "all-to-all": 1.0e6, "collective-permute": 3.0e5,
             "all-reduce": 7.0e6, "send": 9.0}
@@ -92,27 +122,53 @@ def test_from_hlo_on_a_profile_and_its_refusal_of_text():
         assert got.to_json() == ref.to_json()
     with pytest.raises(ValueError, match="no collective bytes"):
         ttrace.from_hlo({"send": 5.0}, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        ttrace.from_hlo("HloModule m\nENTRY e { ROOT x = f32[] parameter(0) }",
-                        8, device="cpu")
+    text = _compiled_hlo(with_collectives=False)
+    with pytest.raises(ValueError, match="no collective bytes"):
+        jtrace.from_hlo(text, 8)
+    with pytest.raises(ValueError, match="no collective bytes"):
+        ttrace.from_hlo(text, 8, device="cpu")
+
+
+def test_from_hlo_on_hlo_text_equals_reference():
+    """HLO text compiled by JAX: the port's copy of ``launch.hlo`` reads the
+    reference's numbers (trip-counted collective bytes, flops, bytes), and
+    ``from_hlo`` lowers the text to the reference's trace."""
+    from repro.launch import hlo as jhlo
+    from repro_torch.launch import hlo as thlo
+
+    text = _compiled_hlo(with_collectives=True)
+    coll = thlo.collective_bytes(text)
+    assert coll == jhlo.collective_bytes(text)
+    assert thlo.analyze(text) == jhlo.analyze(text)
+    for kind in ("all-reduce", "all-gather", "reduce-scatter",
+                 "collective-permute"):
+        assert coll[kind] == 3 * 64 * 32 * 4  # three trips of a 8 KiB f32
+    for kw in (dict(scale_to=256), dict(algo="MU", scale_to=None)):
+        ref = jtrace.from_hlo(text, 8, "hlo_text", **kw)
+        got = ttrace.from_hlo(text, 8, "hlo_text", device="cpu", **kw)
+        assert got.to_json() == ref.to_json()
 
 
 def test_model_collective_mix_counts_the_reference_parameters():
+    """The parameter total of the port's meta-device init is the
+    reference's; moonshot's mix adds the expert-parallel all-to-all."""
     from repro_torch.configs import get_arch
     from repro_torch.models import RunConfig, count_params, model_init
 
     import repro.configs as jconfigs
     import torch
 
-    total = param_counts(jconfigs.get_arch("smollm-135m"),
-                         JRunConfig())["total"]
-    params = model_init(0, get_arch("smollm-135m"), RunConfig(),
-                        device=torch.device("meta"))
-    assert count_params(params) == total
-    got = ttrace.model_collective_mix("smollm-135m", 16, device="cpu")
-    ref = jtrace.model_collective_mix("smollm-135m", 16)
-    assert got.to_json() == ref.to_json()
-    assert got.meta["collectives"]["all-reduce"] == 2.0 * total
+    for arch in ("smollm-135m", "moonshot-v1-16b-a3b"):
+        total = param_counts(jconfigs.get_arch(arch), JRunConfig())["total"]
+        params = model_init(0, get_arch(arch), RunConfig(),
+                            device=torch.device("meta"))
+        assert count_params(params) == total
+        got = ttrace.model_collective_mix(arch, 16, device="cpu")
+        ref = jtrace.model_collective_mix(arch, 16)
+        assert got.to_json() == ref.to_json()
+        assert got.meta["collectives"]["all-reduce"] == 2.0 * total
+        assert ("all-to-all" in got.meta["collectives"]) == (
+            arch == "moonshot-v1-16b-a3b")
     with pytest.raises(KeyError, match="not ported yet"):
         ttrace.model_collective_mix("deepseek-v2-236b", 16, device="cpu")
 
