@@ -55,7 +55,7 @@ non-zero before the result line:
    card, every plan equal to host ``plan()``, plans/s against host
    ``plan()``; then a few thousand requests through a ``PlanServer``;
 7. serving: ``hymba-1.5b`` at full width and depth (random weights from
-   seed 0, f32 parameters, bf16 activations) answers 8 requests of
+   seed 0, bf16-stored, bf16 activations) answers 8 requests of
    1,100-2,000 prompt tokens and 16 new tokens each through
    ``BatchServer(device="cuda")`` in 2 batches of 4; each prefill must
    launch the flash-attention and SSD kernels once per layer (32 each), and
@@ -72,7 +72,8 @@ non-zero before the result line:
    layer, each also cut to batch 1's 1,377 and as a 64-query q_offset
    chunk; the SSD at hymba's N = 16 and 50 heads in one group, its last
    chunk 208 steps) and on seeded random edge cases (a window whose rows
-   start on a fully masked key tile, Sk below one tile, D = 16, 32, 128;
+   start on a fully masked key tile, Sk below one tile, D = 16, 32, 128,
+   and D = 192 with GQA and a window and below one key tile;
    mamba2's N = 128, two groups at N = 16, the smoke widths' P = 32 at
    N = 32 and at N = 16 with a 100-step chunk);
    then timed, both dtypes, beside SDPA (attention, ``vs_sdpa``) and their
@@ -100,6 +101,36 @@ non-zero before the result line:
    within 1e-3 x max |logit| and every routed expert id equal, save where
    the plain path's top-k gap is under 1e-5; ``[kernel_time]`` of the
    D = 128 kernel beside SDPA and its bound;
+7c. MLA serving (``[serve_mla]``, a child process, ``--serve-mla``):
+   ``deepseek-v2-236b`` at full width, its dense first layer and 7 of its
+   59 MoE layers (the cut fits the 80 GB card), bf16-stored weights, the
+   same 8 requests through ``BatchServer``; each prefill must launch the
+   bf16 flash kernel once a layer, all at D = 192 (MLA's q/k head dim,
+   v zero-padded); the peak memory, routing from untimed prefills; the
+   flash kernel against its plain version on the q/k/v of the first and
+   last layers, bf16 and f32, with the cuts of 7b; ``[serve_vs_plain]`` of
+   its first two layers (dense, MoE) in f32 as in 7b; ``[kernel_time]``
+   of the D = 192 kernel against the bound of the function (v and the
+   output at MLA's 128 value columns), the bound of the padded work the
+   kernel does beside it;
+7d. frame models (``[serve_frames]``, ``[serve_int8]``, a child process,
+   ``--serve-frames``): ``musicgen-medium`` at full width and depth and
+   ``qwen2-vl-72b`` at full width with 32 of its 80 layers (M-RoPE, GQA at
+   G = 8) through ``generate`` on seeded numpy frame prompts, 2 batches of
+   4; each prefill must launch the bf16 flash kernel once a layer at the
+   model's head dim; then qwen2-vl with the int8 KV cache against the
+   bf16 one, teacher-forced: every cached prompt element within half an
+   int8 quantum of the bf16 cache's, every row a decode step wrote within
+   half a quantum of the K/V it quantized, and the logits within
+   2 sqrt(layers) / 254 of max |logit|; two planted faults of the int8
+   path (zero scales written on decode, the first layer's V scales zeroed
+   over the prompt) must be flagged by the element check, and whether the
+   logit bound flags them too is printed (``[serve_int8_fault]``); then,
+   for each model, the flash kernel against its plain version on the q/k/v
+   of the first and last layers of a full-width prefill of seeded frames
+   (B = 4, S = 2,000), bf16 and f32, with the cuts of 7b, and
+   ``[serve_vs_plain]`` of its first two layers in f32 (for qwen2-vl:
+   M-RoPE and GQA at G = 8);
 8. segmented min: ``segmin`` and ``arbitrate`` on the card over ten cases
    (tests/test_kernels.py's shapes; xsim's fused link + ejection id space
    at the 8x8, 16x16 and 32x32 grids with B = 4, 16 and 132 instances; the
@@ -147,14 +178,15 @@ non-zero before the result line:
     telemetry_calibration.json`` reproduced on its 16x16 mesh (nine
     iterations, the three-rate sweep, the energy constants), the loop's
     wall time split into host signature planning, compile and device time;
-13. the ``kernels`` JSON line (six kernels), then the result line.
+13. the ``kernels`` JSON line (six kernels; flash attention's launches
+    also by head dim), then the result line.
 
 Phases 4, 5, 7 and 8 read their kernels' profiler times from a child
 process of this script (``python3 chip_smoke.py --noc-cycle-alone``,
 ``--dpm-cost-alone``, ``--serve-kernel-alone`` and
 ``--segmin-kernel-alone``), phase 7 the split of one prefill's time by
-kernel family (``--prefill-profile``), and phase 7b runs whole in a child
-(``--serve-moe``).
+kernel family (``--prefill-profile``), and phases 7b, 7c and 7d run whole
+in a child each (``--serve-moe``, ``--serve-mla``, ``--serve-frames``).
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -217,7 +249,25 @@ MOE_ARCH = "moonshot-v1-16b-a3b"
 MOE_CAPTURE_LAYERS = (0, 47)
 MOE_PLAIN_LAYERS = 2
 MOE_NEAR_TIE = 1e-5
-SERVE_MOE_TIMEOUT_S = 600
+# the MLA serving phase (a child process): deepseek-v2-236b at full width,
+# its dense first layer and 7 of its 59 MoE layers: 54.4 GiB of bf16
+# weights, and during init the f32 draws of one 14.8 GiB MoE layer beside
+# them, fit the 80 GB card (all 60 layers are 439 GiB); flash inputs
+# captured from its first and last layers; its first two layers (dense,
+# then MoE) in f32 against the plain path
+MLA_ARCH = "deepseek-v2-236b"
+MLA_LAYOUT = (("mla_dense", 1), ("mla_moe", 7))
+# the frame models (a child process): musicgen-medium at full width and
+# depth; qwen2-vl-72b at full width, 32 of its 80 layers (54.6 GiB bf16 of
+# its 133 GiB), also run with the int8 KV cache against the bf16 one for
+# INT8_DECODE_STEPS teacher-forced steps
+FRAME_ARCHS = (("musicgen-medium", None), ("qwen2-vl-72b", 32))
+FRAME_PLAIN_LAYERS = 2  # each frame model's first layers in f32, kernel
+#                         path against plain path
+INT8_DECODE_STEPS = 8
+# faults planted in the int8 path to show what the checks catch
+INT8_FAULTS = ("decode_scale_zeroed", "prompt_v_scale_zeroed")
+SERVE_CHILD_TIMEOUT_S = 600
 PROFILE_TRIES = 3  # traces of one call before "no device time" fails
 ATTN_ATOL = {"torch.bfloat16": 2e-2, "torch.float32": 1e-4}
 # the largest |got - want| / |want| over the output rows (each a D-vector)
@@ -238,6 +288,8 @@ ATTN_EDGE_CASES = (
     ("d16", 2, 333, 4, 2, 16, None),
     ("d32", 2, 333, 4, 1, 32, 100),
     ("d128", 2, 333, 4, 2, 128, 100),
+    ("d192_gqa_window", 2, 333, 4, 2, 192, 100),
+    ("d192_sk_below_one_tile", 2, 40, 8, 8, 192, None),
 )
 SSD_EDGE_CASES = (
     ("groups2_n16", 2, 777, 8, 2, 16, 64, 256),
@@ -1074,7 +1126,7 @@ def plain_path():
     import repro_torch.models.ssm as ssm
     from repro_torch.kernels.flash_attention import flash_attention_ref
 
-    def attn(q, k, v, *, causal, window, device):
+    def attn(q, k, v, *, causal, window=None, device):
         return flash_attention_ref(q, k, v, causal=causal, window=window)
 
     def scan(*args, device):
@@ -1242,7 +1294,8 @@ def serve_kernel_alone() -> None:
     device time of one launch of each serving kernel on seeded random
     inputs at the serving shapes (the times depend on shapes and masks, not
     on values): hymba's global and window attention layers, moonshot's
-    attention at D = 128, hymba's SSD layer and mamba2's. Run in a fresh
+    attention at D = 128, deepseek's MLA prefill at D = 192 (128 heads, v
+    zero-padded), hymba's SSD layer and mamba2's. Run in a fresh
     process by ``phase_serve``: in a long run of this script the profiler
     stopped reporting device time for these launches after the earlier
     phases had profiled, though a fresh process reports it."""
@@ -1275,6 +1328,16 @@ def serve_kernel_alone() -> None:
         out[f"flash_attention/moonshot/{dt_name}"] = profiled_ms(
             lambda: flash_attention_cuda(qm, km, vm),
             f"flash_fwd{tc}_kernel")[0]
+        del qm, km, vm
+        # deepseek's MLA prefill: 128 heads of 192, v zero-padded past 128
+        ds = ARCHS[MLA_ARCH]
+        qd, kd, vd = (randn(B, S, ds.n_heads, attn_head_dim(ds)).to(dtype)
+                      for _ in range(3))
+        vd[..., ds.mla.v_head_dim:] = 0
+        out[f"flash_attention/mla/{dt_name}"] = profiled_ms(
+            lambda: flash_attention_cuda(qd, kd, vd),
+            f"flash_fwd{tc}_kernel")[0]
+        del qd, kd, vd
         for case, cfg in (("hymba", hy), ("mamba2", mb)):
             H = cfg.ssm.n_heads(cfg.d_model)
             N, P = cfg.ssm.d_state, cfg.ssm.head_dim
@@ -1431,9 +1494,10 @@ def phase_serve() -> list:
                          max_wait_s=0.01, device="cuda")
     for r in reqs:
         server.submit(r)
-    FLASH_KERNEL.launches = SSD_KERNEL.launches = 0
-    for k in (FLASH_KERNEL, SSD_KERNEL):
-        k.variant_launches = dict.fromkeys(k.variant_launches, 0)
+    reset_flash_counts()
+    SSD_KERNEL.launches = 0
+    SSD_KERNEL.variant_launches = dict.fromkeys(SSD_KERNEL.variant_launches,
+                                                0)
     t0 = time.monotonic()
     responses, per_batch = [], []
     while len(responses) < len(reqs):
@@ -1450,6 +1514,8 @@ def phase_serve() -> list:
     serve_s = time.monotonic() - t0
     launches = {"flash_attention": FLASH_KERNEL.launches,
                 "ssd_intra_chunk": SSD_KERNEL.launches}
+    flash_dims = {str(d): n for d, n in FLASH_KERNEL.head_dim_launches.items()
+                  if n}
     for i, (n, res, fl, sl, S, var) in enumerate(per_batch):
         B = res.tokens.shape[0]
         say("serve", batch=i, requests=n, prompt_len=S,
@@ -1648,6 +1714,7 @@ def phase_serve() -> list:
                     "replaces": "src/repro/kernels/flash_attention/"
                                 "flash_attention.py:95",
                     "launches": launches["flash_attention"],
+                    "launches_by_head_dim": flash_dims,
                     "max_abs_err": max(v["err"] for v in attn.values()),
                     "ms": t["ms"], "plain_ms": t["plain_ms"],
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
@@ -1783,70 +1850,94 @@ def padded_prompts(reqs) -> "np.ndarray":
     return out
 
 
-def serve_moe() -> None:
-    """``--serve-moe``: moonshot-v1-16b-a3b at full width and depth on the
-    card, in a process of its own (its 54 GiB of bf16 weights meet no other
-    phase's memory). Prints its ``[serve_moe]``, ``[kernel_vs_plain]``,
-    ``[serve_vs_plain]`` and ``[prefill_split]`` lines, then one JSON line
-    for the kernels line and ``[kernel_time]``."""
+def attn_head_dim(cfg) -> int:
+    """The head dim of a model's prefill attention: MLA's q/k (nope +
+    rope, v padded to it), else the GQA head dim."""
+    if cfg.mla:
+        return cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+    return cfg.head_dim
+
+
+def cut_depth(cfg, layout):
+    """``cfg`` with the layout ``layout`` (full width, fewer layers)."""
     import dataclasses
 
-    import numpy as np
-    import torch
-    import torch.nn.functional as F
+    return dataclasses.replace(cfg, n_layers=sum(c for _, c in layout),
+                               layout=tuple(layout))
 
-    import repro_torch.serve.engine as engine
-    import repro_torch.models.moe as moe
-    from repro_torch.configs import ARCHS
+
+def reset_flash_counts() -> None:
+    """Set every flash-attention launch count to 0."""
     from repro_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
-    from repro_torch.models import RunConfig, count_params, model_init, prefill
-    from repro_torch.models.layers import tree_leaves
-    from repro_torch.serve import BatchServer, Request, generate
 
-    if torch.backends.cuda.matmul.allow_tf32:
-        fail("TF32 matmuls are on: the MoE router must multiply in f32")
-    cfg, run = ARCHS[MOE_ARCH], RunConfig()
-    m = cfg.moe
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.monotonic()
-    params = model_init(0, cfg, run, device="cuda")
-    torch.cuda.synchronize()
-    init_s = time.monotonic() - t0
-    weight_bytes = sum(t.numel() * t.element_size()
-                       for t in tree_leaves(params))
-    say("serve_moe", arch=cfg.name, layers=cfg.n_layers,
-        d_model=cfg.d_model, experts=m.n_experts, top_k=m.top_k,
-        d_expert=m.d_expert, shared=m.n_shared, params=count_params(params),
-        weights_gib=f"{weight_bytes / 2**30:.2f}",
-        init_s=f"{init_s:.2f}",
-        init_peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
-    rng = np.random.default_rng(0)
-    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_REQUESTS)
-    reqs = [Request(i, rng.integers(0, cfg.vocab, int(n)).astype(np.int32),
-                    SERVE_MAX_TOKENS) for i, n in enumerate(lens)]
-    generate(params, cfg, run, reqs[0].prompt[None, :128], 2, device="cuda")
+    FLASH_KERNEL.launches = 0
+    for counts in ("variant_launches", "head_dim_launches"):
+        setattr(FLASH_KERNEL, counts,
+                dict.fromkeys(getattr(FLASH_KERNEL, counts), 0))
 
-    # ---- serving: the launch counts set to 0 just before each prefill ----
-    prefills = []
+
+def counted_prefills(prefills: list):
+    """Patch ``serve.engine.prefill`` so that the flash counts are set to 0
+    just before each prefill and read just after: each prefill appends
+    (launches, launches by variant, launches by head dim) to ``prefills``."""
+    import repro_torch.serve.engine as engine
+    from repro_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
+
     prefill_fn = engine.prefill
 
-    def counted_prefill(*args, **kw):
-        FLASH_KERNEL.launches = 0
-        FLASH_KERNEL.variant_launches = dict.fromkeys(
-            FLASH_KERNEL.variant_launches, 0)
+    def counted(*args, **kw):
+        reset_flash_counts()
         out = prefill_fn(*args, **kw)
         prefills.append((FLASH_KERNEL.launches,
-                         dict(FLASH_KERNEL.variant_launches)))
+                         dict(FLASH_KERNEL.variant_launches),
+                         {d: n for d, n in
+                          FLASH_KERNEL.head_dim_launches.items() if n}))
         return out
+
+    return patched((engine, "prefill", counted))
+
+
+def batch_line(tag: str, i: int, res, S: int, counts, cfg, **extra) -> int:
+    """One ``[tag]`` line of batch ``i`` and its prefill's flash counts;
+    fails unless the prefill launched the bf16 kernel once a layer, all at
+    the model's attention head dim. Returns the launches."""
+    fl, var, dims = counts
+    B = res.tokens.shape[0]
+    say(tag, batch=i, requests=B, prompt_len=S,
+        prefill_ms=f"{res.prefill_ms:.2f}",
+        prefill_tokens_per_s=f"{B * S / res.prefill_ms * 1e3:.0f}",
+        decode_ms_per_token=f"{res.decode_ms_per_token:.3f}",
+        decode_tokens_per_s=f"{B / res.decode_ms_per_token * 1e3:.1f}",
+        flash_launches=fl,
+        variants=",".join(f"{k}:{v}" for k, v in var.items()),
+        head_dims=",".join(f"{d}:{n}" for d, n in dims.items()), **extra)
+    L, D = cfg.n_layers, attn_head_dim(cfg)
+    want = {"wgmma_bf16": L, "cuda_core_f32": 0}
+    if fl != L or var != want or dims != {D: L}:
+        fail(f"{tag} batch {i}: {fl} flash launches {var} at head dims "
+             f"{dims} a prefill, expected {want} at D = {D}")
+    if not ((0 <= res.tokens) & (res.tokens < cfg.vocab)).all():
+        fail(f"{tag} batch {i}: tokens outside the vocabulary")
+    return fl
+
+
+def serve_batches(tag: str, params, cfg, run, reqs) -> tuple[list, int]:
+    """``reqs`` through ``BatchServer`` on the card, the flash counts set to
+    0 just before each prefill; one ``[tag]`` line a batch and one for the
+    run (tokens/s, peak memory). Returns the batches' (responses,
+    ``GenResult``) and the flash launches."""
+    import torch
+
+    from repro_torch.serve import BatchServer
 
     server = BatchServer(params, cfg, run, max_batch=SERVE_MAX_BATCH,
                          max_wait_s=0.01, device="cuda")
     for r in reqs:
         server.submit(r)
     torch.cuda.reset_peak_memory_stats()
-    responses, results = [], []
+    prefills, responses, results = [], [], []
     t0 = time.monotonic()
-    with patched((engine, "prefill", counted_prefill)):
+    with counted_prefills(prefills):
         while len(responses) < len(reqs):
             out = server.serve_once()
             torch.cuda.synchronize()
@@ -1856,38 +1947,34 @@ def serve_moe() -> None:
     peak = torch.cuda.max_memory_allocated()
     if len(prefills) != len(results):
         fail(f"{len(prefills)} prefills for {len(results)} batches")
-    launches = 0
-    for i, ((out, res), (fl, var)) in enumerate(zip(results, prefills)):
-        B = res.tokens.shape[0]
-        S = max(len(reqs[o.rid].prompt) for o in out)
-        say("serve_moe", batch=i, requests=len(out), prompt_len=S,
-            prefill_ms=f"{res.prefill_ms:.2f}",
-            prefill_tokens_per_s=f"{B * S / res.prefill_ms * 1e3:.0f}",
-            decode_ms_per_token=f"{res.decode_ms_per_token:.3f}",
-            decode_tokens_per_s=f"{B / res.decode_ms_per_token * 1e3:.1f}",
-            flash_launches=fl,
-            variants=",".join(f"{k}:{v}" for k, v in var.items()))
-        want = {"wgmma_bf16": cfg.n_layers, "cuda_core_f32": 0}
-        if fl != cfg.n_layers or var != want:
-            fail(f"moe batch {i}: {fl} flash launches {var} a prefill, "
-                 f"expected {want}")
-        launches += fl
-    bad = [o.rid for o in responses
-           if o.tokens.shape != (SERVE_MAX_TOKENS,)
-           or not ((0 <= o.tokens) & (o.tokens < cfg.vocab)).all()]
+    launches = sum(
+        batch_line(tag, i, res, max(len(reqs[o.rid].prompt) for o in out),
+                   counts, cfg)
+        for i, ((out, res), counts) in enumerate(zip(results, prefills)))
+    bad = [o.rid for o in responses if o.tokens.shape != (SERVE_MAX_TOKENS,)]
     if bad or len(results) != 2 or sorted(o.rid for o in responses) != list(
             range(len(reqs))):
-        fail(f"moe serving: {len(results)} batches, bad responses {bad}")
-    say("serve_moe", requests=len(responses), batches=len(results),
-        prompt_lens=",".join(str(int(n)) for n in lens),
+        fail(f"{tag}: {len(results)} batches, bad responses {bad}")
+    say(tag, requests=len(responses), batches=len(results),
+        prompt_lens=",".join(str(len(r.prompt)) for r in reqs),
         max_tokens=SERVE_MAX_TOKENS, serve_s=f"{serve_s:.3f}",
         tokens_per_s=f"{sum(len(o.tokens) for o in responses) / serve_s:.1f}",
         flash_launches=launches, params_dtype=run.activations_dtype,
         activations=run.activations_dtype,
         peak_mem_gib=f"{peak / 2**30:.2f}")
+    return results, launches
 
-    # ---- each batch's routing, from an untimed prefill of its prompts ----
+
+def routing_lines(tag: str, params, cfg, run, results, reqs) -> None:
+    """Each batch's routing from an untimed prefill of its padded prompts:
+    capacity, tokens per expert, dropped pairs."""
+    import torch
+
+    import repro_torch.models.moe as moe
+    from repro_torch.models import prefill
+
     routed, dispatch_fn = [], moe.dispatch_indices
+    moe_layers = sum(c for k, c in cfg.layout if k.endswith("_moe"))
 
     def counted_dispatch(ids, m_, cap):
         slot, keep = dispatch_fn(ids, m_, cap)
@@ -1904,7 +1991,7 @@ def serve_moe() -> None:
             loads = torch.stack([c for c, _, _ in routed]).cpu()  # (L, E)
             dropped = int(sum(int(d) for _, d, _ in routed))
             cap = routed[0][2]
-            say("serve_moe", batch=i, routing="untimed_prefill",
+            say(tag, batch=i, routing="untimed_prefill",
                 moe_layers=len(routed), capacity=cap,
                 routed_pairs=int(loads.sum()),
                 tokens_per_expert_min=int(loads.min()),
@@ -1913,68 +2000,109 @@ def serve_moe() -> None:
                 experts_over_capacity=int((loads > cap).sum()),
                 dropped_pairs=dropped,
                 dropped_share=f"{dropped / int(loads.sum()):.4f}")
-            if len(routed) != cfg.n_layers:
-                fail(f"moe batch {i}: {len(routed)} MoE layers a prefill")
+            if len(routed) != moe_layers:
+                fail(f"{tag} batch {i}: {len(routed)} MoE layers a prefill, "
+                     f"expected {moe_layers}")
 
-    # ---- q/k/v of layers 0 and 47 from a full-width prefill, the split ----
-    toks = torch.from_numpy(rng.integers(
-        0, cfg.vocab, (ATTN_CHECK_B, ATTN_CHECK_S)).astype(np.int32)).cuda()
+
+def capture_layers(params, cfg, run, batch: dict, layers) -> dict:
+    """The q/k/v (and window) of the prefill attention of ``layers`` in one
+    prefill of ``batch`` (``tokens`` or a frame model's ``frames``), by
+    layer."""
     import repro_torch.models.attention as attention
+    from repro_torch.models import prefill
 
     calls, attn_fn = [], attention.flash_attention
 
     def capture(q, k, v, **kw):
-        calls.append((q, k, v, kw["window"])
-                     if len(calls) in MOE_CAPTURE_LAYERS else None)
+        calls.append((q, k, v, kw.get("window"))
+                     if len(calls) in layers else None)
         return attn_fn(q, k, v, **kw)
 
     with patched((attention, "flash_attention", capture)):
-        prefill(params, {"tokens": toks}, cfg, run)
-    captured = {i: calls[i] for i in MOE_CAPTURE_LAYERS}
-    prompts = padded_prompts(reqs[:SERVE_MAX_BATCH])
-    moe_prefill_split(params, cfg, run, torch.from_numpy(prompts).cuda())
-    del params
-    torch.cuda.empty_cache()
+        prefill(params, batch, cfg, run)
+    return {i: calls[i] for i in layers}
 
-    # ---- the flash kernel against its plain version at D = 128 -----------
+
+def flash_checks(name: str, captured: dict, D: int, ragged: int) -> tuple:
+    """The flash kernel against its plain version, bf16 and f32, on each
+    captured layer, also cut to ``ragged`` keys and as a 64-query
+    ``q_offset`` chunk, at the absolute and the per-row tolerance. Returns
+    the largest error and the first layer's whole-sequence timings by
+    dtype."""
+    import torch
+
     errs, timing = [], {}
-    ragged = int(lens[SERVE_MAX_BATCH:].max())  # batch 1's length
     off = ATTN_CHECK_S - 64
+    first = min(captured)
     for dtype in (torch.bfloat16, torch.float32):
         for layer, (q, k, v, w) in captured.items():
-            if w is not None or q.shape[-1] != 128:
+            if w is not None or q.shape[-1] != D:
                 fail(f"layer {layer}: window {w}, head dim {q.shape[-1]}")
-            lab = f"moonshot_l{layer}"
+            lab = f"{name}_l{layer}"
             r = check_attention(lab, q, k, v, w, 0, dtype, row_rtol=True)
             errs.append(r["err"])
-            if layer == 0:
+            if layer == first:
                 timing[str(dtype).removeprefix("torch.")] = r
             errs.append(check_attention(f"{lab}_q_offset", q[:, off:], k, v,
                                         w, off, dtype, row_rtol=True)["err"])
             errs.append(check_attention(
                 f"{lab}_S{ragged}", q[:, :ragged], k[:, :ragged],
                 v[:, :ragged], w, 0, dtype, row_rtol=True)["err"])
-    q, k, v, _ = captured[0]
+    return max(errs), timing
+
+
+def flash_timing(timing: dict, q, k, v, dv: int | None = None) -> None:
+    """SDPA's time and the bounds beside each dtype's kernel timing, on the
+    inputs the kernel ran. Where ``dv``, the values' own width, is given, v
+    was zero-padded to the q/k head dim: ``bound_ms`` is then the bound of
+    the function itself (q and k at their dim, v and the output at ``dv``)
+    and ``padded_bound_ms`` that of the padded work the kernel does."""
+    import torch
+    import torch.nn.functional as F
+
     for dt_name, t in timing.items():
         dtype = getattr(torch, dt_name)
         qd, kd, vd = (x.to(dtype) for x in (q, k, v))
-        lib_out, lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+        _, lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
             qd.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2),
-            is_causal=True))
+            is_causal=True, enable_gqa=True))
         b_ms, b_by, nbytes, ops = attention_bound_ms(qd, kd, vd, None)
-        t.update(sdpa_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
-                 ops=ops, shape=list(q.shape),
+        t.update(sdpa_ms=lib_ms, shape=list(q.shape))
+        if dv is not None:
+            D, es = q.shape[-1], qd.element_size()
+            if v.shape[:-1] != k.shape[:-1] or v[..., dv:].any():
+                fail(f"v {tuple(v.shape)} is not k's shape zero-padded "
+                     f"past {dv}")
+            t.update(padded_bound_ms=b_ms, padded_bytes=nbytes,
+                     padded_ops=ops)
+            # q and k read at D, v read and the output written at dv; per
+            # visible (query, key) pair 2 D operations for QK^T, 2 dv for PV
+            nbytes = ((qd.numel() + kd.numel()) * es
+                      + (vd.numel() // D + qd.numel() // D) * dv * es)
+            ops = ops // (4 * D) * (2 * D + 2 * dv)
+            b_ms, b_by, _, _ = roofline(nbytes, ops, BF16_FLOPS_PER_S)
+        t.update(bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops,
                  f32_core_bound_ms=max(nbytes / HBM_BYTES_PER_S,
                                        ops / F32_FLOPS_PER_S) * 1e3)
-    del captured, calls, q, k, v
-    torch.cuda.empty_cache()
 
-    # ---- kernel path against plain path: 2 layers at full width, f32 ------
-    cfg2 = dataclasses.replace(cfg, n_layers=MOE_PLAIN_LAYERS,
-                               layout=(("attn_moe", MOE_PLAIN_LAYERS),))
+
+def layers_vs_plain(cfg, layout, prompts: dict) -> None:
+    """The first layers of ``cfg`` (``layout``) at full width in f32 on
+    ``prompts`` (numpy ``tokens`` or a frame model's ``frames``): the
+    kernel path against the plain path, logits within 1e-3 x max |logit|
+    and every routed expert id equal save under a ``MOE_NEAR_TIE`` top-k
+    gap."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
+    from repro_torch.models import RunConfig, model_init, prefill
+
+    cfg2 = cut_depth(cfg, layout)
     run32 = RunConfig(activations_dtype="float32")
     params = model_init(0, cfg2, run32, device="cuda")
-    toks = torch.from_numpy(prompts).cuda()
+    batch = {k: torch.from_numpy(a).cuda() for k, a in prompts.items()}
+    B, S = next(iter(prompts.values())).shape[:2]
     paths = {}
     for name in ("kernel", "plain"):
         routes = []
@@ -1983,11 +2111,13 @@ def serve_moe() -> None:
                 stack.enter_context(plain_path())
             stack.enter_context(moe_route_recorder(routes))
             f0 = FLASH_KERNEL.launches
-            logits, _ = prefill(params, {"tokens": toks}, cfg2, run32)
+            logits, _ = prefill(params, batch, cfg2, run32)
             fl = FLASH_KERNEL.launches - f0
-        if fl != (MOE_PLAIN_LAYERS if name == "kernel" else 0):
+        if fl != (cfg2.n_layers if name == "kernel" else 0):
             fail(f"the {name} path launched flash attention {fl} times")
         paths[name] = (logits[..., :cfg.vocab], routes)
+    del params
+    torch.cuda.empty_cache()
     (lk, rk), (lp, rp) = paths["kernel"], paths["plain"]
     diff = float((lk - lp).abs().max())
     scale = float(lp.abs().max())
@@ -2002,46 +2132,445 @@ def serve_moe() -> None:
             fail(f"expert ids differ off a near-tie: {int(rows.sum())} "
                  f"tokens, {int((rows & near).sum())} near ties")
     finite = bool(lk.isfinite().all())
-    say("serve_vs_plain", arch=cfg.name, layers=MOE_PLAIN_LAYERS,
-        activations="float32", params_dtype="float32", batch=toks.shape[0],
-        prompt_len=toks.shape[1], max_abs_logit_diff=diff,
+    say("serve_vs_plain", arch=cfg.name, layers=cfg2.n_layers,
+        kinds=",".join(k for k, _ in layout), activations="float32",
+        params_dtype="float32", inputs=",".join(prompts), batch=B,
+        prompt_len=S, max_abs_logit_diff=diff,
         max_abs_logit=scale, ratio=f"{diff / scale:.3g}", bound="1e-3",
         finite=finite, routed_pairs=pairs, tokens_with_other_ids=differ,
         near_tie_exceptions=near_tie, near_tie_gap=MOE_NEAR_TIE)
     if not finite or not diff <= 1e-3 * scale:
-        fail(f"moonshot f32 logits: kernel path vs plain path {diff} > "
+        fail(f"{cfg.name} f32 logits: kernel path vs plain path {diff} > "
              f"1e-3 x {scale}")
-    print(json.dumps({"launches": launches, "max_abs_err": max(errs),
-                      "timing": timing}), flush=True)
 
 
-def phase_serve_moe(entries: list, alone_ms: dict) -> None:
-    """moonshot-v1-16b-a3b served on the card by the child ``--serve-moe``;
-    then the D = 128 flash kernel's ``[kernel_time]`` (the wrapper, SDPA
-    and the bound from the child, the kernel alone from
-    ``--serve-kernel-alone``), and the moonshot launches and errors added to
-    flash attention's entry of the kernels line."""
+def serve_requests(cfg):
+    """The 8 requests of the serving phases: prompt lengths and tokens
+    from seed 0."""
+    import numpy as np
+
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_REQUESTS)
+    reqs = [Request(i, rng.integers(0, cfg.vocab, int(n)).astype(np.int32),
+                    SERVE_MAX_TOKENS) for i, n in enumerate(lens)]
+    return rng, lens, reqs
+
+
+def init_line(tag: str, cfg, run, **extra):
+    """``model_init`` on the card for a bf16 run, timed, with one ``[tag]``
+    line (parameters, weight bytes, init time and peak). Returns the
+    parameters."""
+    import torch
+
+    from repro_torch.models import count_params, model_init
+    from repro_torch.models.layers import tree_leaves
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = model_init(0, cfg, run, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params))
+    say(tag, arch=cfg.name, **extra, d_model=cfg.d_model,
+        heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+        attn_head_dim=attn_head_dim(cfg), params=count_params(params),
+        weights_gib=f"{weight_bytes / 2**30:.2f}", init_s=f"{init_s:.2f}",
+        init_peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    return params
+
+
+def child_result(dims: dict, err: float | None = None,
+                 timing: dict | None = None) -> None:
+    """The last line of a serving child: its flash launches by head dim,
+    the largest kernel-vs-plain error and the kernel timings."""
+    print(json.dumps({"head_dim_launches": {str(d): n for d, n in dims.items()},
+                      "max_abs_err": err, "timing": timing or {}}),
+          flush=True)
+
+
+def serve_moe() -> None:
+    """``--serve-moe``: moonshot-v1-16b-a3b at full width and depth on the
+    card, in a process of its own (its 54 GiB of bf16 weights meet no other
+    phase's memory). Prints its ``[serve_moe]``, ``[kernel_vs_plain]``,
+    ``[serve_vs_plain]`` and ``[prefill_split]`` lines, then one JSON line
+    for the kernels line and ``[kernel_time]``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import RunConfig
+    from repro_torch.serve import generate
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matmuls are on: the MoE router must multiply in f32")
+    cfg, run = ARCHS[MOE_ARCH], RunConfig()
+    m = cfg.moe
+    params = init_line("serve_moe", cfg, run, layers=cfg.n_layers,
+                       experts=m.n_experts, top_k=m.top_k,
+                       d_expert=m.d_expert, shared=m.n_shared)
+    rng, lens, reqs = serve_requests(cfg)
+    generate(params, cfg, run, reqs[0].prompt[None, :128], 2, device="cuda")
+    results, launches = serve_batches("serve_moe", params, cfg, run, reqs)
+    routing_lines("serve_moe", params, cfg, run, results, reqs)
+
+    # ---- q/k/v of layers 0 and 47 from a full-width prefill, the split ----
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (ATTN_CHECK_B, ATTN_CHECK_S)).astype(np.int32)).cuda()
+    captured = capture_layers(params, cfg, run, {"tokens": toks},
+                              MOE_CAPTURE_LAYERS)
+    prompts = padded_prompts(reqs[:SERVE_MAX_BATCH])
+    moe_prefill_split(params, cfg, run, torch.from_numpy(prompts).cuda())
+    del params
+    torch.cuda.empty_cache()
+
+    # ---- the flash kernel against its plain version at D = 128 -----------
+    ragged = int(lens[SERVE_MAX_BATCH:].max())  # batch 1's length
+    err, timing = flash_checks("moonshot", captured, cfg.head_dim, ragged)
+    flash_timing(timing, *captured[0][:3])
+    del captured
+    torch.cuda.empty_cache()
+
+    # ---- kernel path against plain path: 2 layers at full width, f32 ------
+    layers_vs_plain(cfg, (("attn_moe", MOE_PLAIN_LAYERS),),
+                    {"tokens": prompts})
+    child_result({cfg.head_dim: launches}, err, timing)
+
+
+def serve_mla() -> None:
+    """``--serve-mla``: deepseek-v2-236b at full width, its dense first
+    layer and ``MLA_LAYOUT``'s MoE layers, on the card in a process of its
+    own: the same 8 requests through ``BatchServer`` (one ``wgmma_bf16``
+    flash launch at D = 192 a layer a prefill), routing from untimed
+    prefills, the flash kernel against its plain version on the q/k/v
+    (v zero-padded to 192) of the first and last layers, then the first
+    two layers in f32 on the kernel path against the plain path. Prints
+    ``[serve_mla]``, ``[kernel_vs_plain]`` and ``[serve_vs_plain]`` lines,
+    then one JSON line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import RunConfig
+    from repro_torch.serve import generate
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matmuls are on: the MoE router must multiply in f32")
+    full, run = ARCHS[MLA_ARCH], RunConfig()
+    cfg = cut_depth(full, MLA_LAYOUT)
+    m, mla = cfg.moe, cfg.mla
+    D = attn_head_dim(cfg)
+    params = init_line(
+        "serve_mla", cfg, run,
+        layers=f"{cfg.n_layers}_of_{full.n_layers}",
+        layout=",".join(f"{k}:{c}" for k, c in cfg.layout),
+        q_lora=mla.q_lora_rank, kv_lora=mla.kv_lora_rank,
+        qk_head_dim=f"{mla.qk_nope_head_dim}+{mla.qk_rope_head_dim}",
+        v_head_dim=mla.v_head_dim, experts=m.n_experts, top_k=m.top_k,
+        d_expert=m.d_expert, shared=m.n_shared, dense_d_ff=cfg.dense_d_ff)
+    rng, lens, reqs = serve_requests(cfg)
+    generate(params, cfg, run, reqs[0].prompt[None, :128], 2, device="cuda")
+    results, launches = serve_batches("serve_mla", params, cfg, run, reqs)
+    routing_lines("serve_mla", params, cfg, run, results, reqs)
+
+    # ---- q/k/v of the first and last layers of a full-width prefill -------
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (ATTN_CHECK_B, ATTN_CHECK_S)).astype(np.int32)).cuda()
+    captured = capture_layers(params, cfg, run, {"tokens": toks},
+                              (0, cfg.n_layers - 1))
+    del params
+    torch.cuda.empty_cache()
+    for layer, (q, k, v, _) in captured.items():
+        if v[..., mla.v_head_dim:].any() or q.shape[2] != cfg.n_heads:
+            fail(f"layer {layer}: v not zero past {mla.v_head_dim} or "
+                 f"{q.shape[2]} heads")
+    ragged = int(lens[SERVE_MAX_BATCH:].max())  # batch 1's length
+    err, timing = flash_checks("deepseek", captured, D, ragged)
+    flash_timing(timing, *captured[0][:3], dv=mla.v_head_dim)
+    del captured
+    torch.cuda.empty_cache()
+
+    # ---- kernel path against plain path: 2 layers at full width, f32 ------
+    layers_vs_plain(full, (("mla_dense", 1), ("mla_moe", 1)),
+                    {"tokens": padded_prompts(reqs[:SERVE_MAX_BATCH])})
+    child_result({D: launches}, err, timing)
+
+
+def int8_run(params, cfg, run, kv: str, x, feed, fault: str | None = None):
+    """One prefill of frames ``x`` and teacher-forced decode steps of
+    ``feed`` with the KV cache in ``kv``. Returns the logits (B, 1 + steps,
+    V), the caches and, by step, the K/V rows each decode step quantized
+    (the inputs of ``attention.quantize_kv``, in call order: K then V of
+    each layer). ``fault`` plants a fault in the int8 path: the decode
+    steps write zero scales (``decode_scale_zeroed``) or the first layer's
+    V scales over the prompt are zeroed (``prompt_v_scale_zeroed``)."""
+    import dataclasses
+
+    import torch
+
+    import repro_torch.models.attention as attention
+    from repro_torch.models import decode_step, prefill
+
+    r = dataclasses.replace(run, kv_cache_dtype=kv)
+    S, steps = x.shape[1], feed.shape[1]
+    lg, c = prefill(params, {"frames": x}, cfg, r, cache_len=S + steps)
+    if fault == "prompt_v_scale_zeroed":
+        next(iter(c.values()))[0]["v_scale"][:, :S] = 0
+    got, rows, quantize = [lg], [], attention.quantize_kv
+
+    def recorded(t):
+        rows[-1].append(t)
+        qv, sc = quantize(t)
+        return qv, (sc * 0 if fault == "decode_scale_zeroed" else sc)
+
+    with patched((attention, "quantize_kv", recorded)):
+        for t in range(steps):
+            rows.append([])
+            lg, c = decode_step(params, c, {"frames": feed[:, t:t + 1],
+                                            "pos": S + t}, cfg, r)
+            got.append(lg)
+    return torch.cat(got, 1)[..., :cfg.vocab], c, rows
+
+
+def int8_elem_err(c8, c_bf16, rows, S: int) -> tuple[float, float]:
+    """The largest error of a cached int8 K/V element, in half quanta (its
+    row's scale / 2): the prompt's rows against the bf16 cache's, and the
+    rows each decode step wrote (slot S + step) against the K/V that step
+    quantized (a stale slot or a scale left unwritten shows here; the
+    decode rows of the two caches differ by more, as they follow from
+    different caches). A zero scale reads inf (nan taken as inf)."""
+    layers = [lc for group in c8.values() for lc in group]
+    bf16 = [lc for group in c_bf16.values() for lc in group]
+    prompt = decode = 0.0
+    for s, step in enumerate(rows):
+        if len(step) != 2 * len(layers):
+            fail(f"decode step {s} quantized {len(step)} K/V rows, "
+                 f"expected {2 * len(layers)}")
+    for j, (lc, lb) in enumerate(zip(layers, bf16)):
+        for n, name in enumerate(("k", "v")):
+            sc = lc[f"{name}_scale"][:, :S]
+            err = lc[name][:, :S].float() * sc - lb[name][:, :S].float()
+            prompt = max(prompt, half_quanta(err, sc))
+            for s, step in enumerate(rows):
+                sc = lc[f"{name}_scale"][:, S + s]
+                err = (lc[name][:, S + s].float() * sc
+                       - step[2 * j + n][:, 0].float())
+                decode = max(decode, half_quanta(err, sc))
+    return prompt, decode
+
+
+def half_quanta(err, sc) -> float:
+    """max |err| / (sc / 2), nan (0 / 0) taken as inf."""
+    return float((err.abs() / (sc / 2)).nan_to_num(
+        nan=float("inf"), posinf=float("inf")).max())
+
+
+def int8_vs_bf16(params, cfg, run, frames) -> None:
+    """``[serve_int8]``: one prefill of ``frames`` and ``INT8_DECODE_STEPS``
+    teacher-forced decode steps (the same seeded frames fed to both) with
+    the int8 KV cache against the bf16 cache. Holds every cached K/V
+    element within half an int8 quantum (its row's amax / 254) of the K/V
+    it stands for (``int8_elem_err``), and the logits within
+    ``int8_logit_bound`` x max |logit|. Then each planted fault of
+    ``int8_run`` with its readings: the element check must flag it; whether
+    the logit bound does too is printed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.layers import tree_leaves
+
+    B, S = frames.shape[:2]
+    steps = INT8_DECODE_STEPS
+    feed = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (B, steps, cfg.d_model), dtype=np.float32)).cuda()
+    x = torch.from_numpy(frames).cuda()
+    logits, caches, cache_bytes = {}, {}, {}
+    for kv in ("bfloat16", "int8"):
+        logits[kv], caches[kv], rows = int8_run(params, cfg, run, kv, x, feed)
+        cache_bytes[kv] = sum(t.numel() * t.element_size()
+                              for layers in caches[kv].values()
+                              for lc in layers for t in tree_leaves(lc))
+    bound = int8_logit_bound(cfg.n_layers)
+    lb = logits["bfloat16"]
+    scale = float(lb.abs().max())
+
+    def readings(l8, c8, rows) -> tuple[float, float, float]:
+        prompt_err, decode_err = int8_elem_err(c8, caches["bfloat16"],
+                                               rows, S)
+        return float((l8 - lb).abs().max()), prompt_err, decode_err
+
+    l8 = logits["int8"]
+    diff, prompt_err, decode_err = readings(l8, caches["int8"], rows)
+    del caches["int8"]
+    agree = (l8.argmax(-1) == lb.argmax(-1)).float()
+    say("serve_int8", arch=cfg.name, layers=cfg.n_layers, batch=B,
+        prompt_len=S, decode_steps=steps, teacher_forced="seeded_frames",
+        max_abs_logit_diff=diff, max_abs_logit=scale,
+        ratio=f"{diff / scale:.4g}", bound=f"{bound:.4g}",
+        bound_rule="2*sqrt(layers)/254",
+        greedy_agreement=f"{float(agree.mean()):.4f}",
+        first_token_agreement=f"{float(agree[:, 0].mean()):.4f}",
+        cache_bytes_bf16=cache_bytes["bfloat16"],
+        cache_bytes_int8=cache_bytes["int8"],
+        cache_ratio=f"{cache_bytes['int8'] / cache_bytes['bfloat16']:.4f}",
+        max_elem_err_half_quanta=f"{prompt_err:.6f}",
+        decode_rows_max_elem_err_half_quanta=f"{decode_err:.6f}",
+        elem_bound="1 (+1e-4)", finite=bool(l8.isfinite().all()))
+    if not max(prompt_err, decode_err) <= 1 + 1e-4:
+        fail(f"an int8 cache element is {max(prompt_err, decode_err)} half "
+             "quanta off the K/V it stands for")
+    if not bool(l8.isfinite().all()) or not diff <= bound * scale:
+        fail(f"int8 cache logits {diff} > {bound:.4g} x {scale}")
+    for fault in INT8_FAULTS:
+        lf, cf, rows = int8_run(params, cfg, run, "int8", x, feed, fault)
+        f_diff, f_prompt, f_decode = readings(lf, cf, rows)
+        del cf
+        flagged = not max(f_prompt, f_decode) <= 1 + 1e-4
+        say("serve_int8_fault", arch=cfg.name, fault=fault,
+            max_elem_err_half_quanta=f_prompt,
+            decode_rows_max_elem_err_half_quanta=f_decode,
+            elements_flag_it=flagged, ratio=f"{f_diff / scale:.4g}",
+            bound=f"{bound:.4g}", logits_flag_it=f_diff > bound * scale)
+        if not flagged:
+            fail(f"the element check missed the planted fault {fault}")
+
+
+def int8_logit_bound(layers: int) -> float:
+    """The bound on max |logit(int8) - logit(bf16)| / max |logit|: a
+    cached element moves by at most half an int8 quantum, 1/254 of its
+    row's amax; each layer's K and V add one such relative error, and the
+    layers' errors, independent roundings, add as a random walk:
+    2 sqrt(layers) / 254 (0.0445 at 32 layers, under the 5e-2 ceiling)."""
+    return min(5e-2, 2 * layers**0.5 / 254)
+
+
+def serve_frames() -> None:
+    """``--serve-frames``: the frame-input models on the card, in a process
+    of their own: musicgen-medium at full width and depth and qwen2-vl-72b
+    at full width with ``FRAME_ARCHS``' depth (M-RoPE, GQA at G = 8), each
+    through ``generate`` on seeded numpy frame prompts in 2 batches of 4
+    (the serving phases' prompt lengths), the flash counts set to 0 just
+    before each prefill; then ``[serve_int8]`` on qwen2-vl; then, for
+    each model, the flash kernel against its plain version on the q/k/v of
+    the first and last layers of a full-width prefill of seeded frames
+    (bf16 and f32, with 7b's cuts) and its first ``FRAME_PLAIN_LAYERS``
+    layers in f32 on the kernel path against the plain path. Prints
+    ``[serve_frames]``, ``[serve_int8]``, ``[kernel_vs_plain]`` and
+    ``[serve_vs_plain]`` lines, then one JSON line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import RunConfig
+    from repro_torch.serve import generate
+
+    run = RunConfig()
+    dims: dict[int, int] = {}
+    errs = []
+    for name, depth in FRAME_ARCHS:
+        full = ARCHS[name]
+        cfg = full if depth is None else cut_depth(
+            full, ((full.layout[0][0], depth),))
+        params = init_line("serve_frames", cfg, run,
+                           layers=f"{cfg.n_layers}_of_{full.n_layers}",
+                           pos=cfg.pos, norm=cfg.norm, mlp=cfg.mlp)
+        _, lens, _ = serve_requests(cfg)
+        rng = np.random.default_rng(0)
+        batches = [rng.standard_normal(
+            (SERVE_MAX_BATCH, int(lens[b:b + SERVE_MAX_BATCH].max()),
+             cfg.d_model), dtype=np.float32)
+            for b in range(0, SERVE_REQUESTS, SERVE_MAX_BATCH)]
+        generate(params, cfg, run, batches[0][:, :128], 2, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        prefills, results = [], []
+        t0 = time.monotonic()
+        with counted_prefills(prefills):
+            for frames in batches:
+                results.append(generate(params, cfg, run, frames,
+                                        SERVE_MAX_TOKENS, device="cuda"))
+        serve_s = time.monotonic() - t0
+        launches = sum(batch_line("serve_frames", i, res, frames.shape[1],
+                                  counts, cfg, arch=cfg.name)
+                       for i, (res, frames, counts)
+                       in enumerate(zip(results, batches, prefills)))
+        if any(res.tokens.shape != (SERVE_MAX_BATCH, SERVE_MAX_TOKENS)
+               for res in results):
+            fail(f"{name}: token shapes {[r.tokens.shape for r in results]}")
+        D = attn_head_dim(cfg)
+        dims[D] = dims.get(D, 0) + launches
+        say("serve_frames", arch=cfg.name, batches=len(results),
+            prompt_lens=",".join(str(f.shape[1]) for f in batches),
+            max_tokens=SERVE_MAX_TOKENS, serve_s=f"{serve_s:.3f}",
+            tokens_per_s=f"{len(batches) * SERVE_MAX_BATCH * SERVE_MAX_TOKENS / serve_s:.1f}",
+            flash_launches=launches,
+            peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+        if cfg.pos == "mrope":
+            int8_vs_bf16(params, cfg, run, batches[0])
+
+        # ---- q/k/v of the first and last layers of a full-width prefill --
+        frames = torch.from_numpy(rng.standard_normal(
+            (ATTN_CHECK_B, ATTN_CHECK_S, cfg.d_model),
+            dtype=np.float32)).cuda()
+        captured = capture_layers(params, cfg, run, {"frames": frames},
+                                  (0, cfg.n_layers - 1))
+        del params, frames
+        torch.cuda.empty_cache()
+        err, _ = flash_checks(cfg.name, captured, D, batches[1].shape[1])
+        errs.append(err)
+        del captured
+        torch.cuda.empty_cache()
+
+        # ---- kernel path against plain path: 2 layers at full width, f32 --
+        layers_vs_plain(full, ((full.layout[0][0], FRAME_PLAIN_LAYERS),),
+                        {"frames": batches[0]})
+    child_result(dims, max(errs))
+
+
+def run_child(flag: str) -> dict:
+    """Run this script with ``flag`` in a child process, print its lines
+    and return its last line's JSON."""
     import torch
 
     torch.cuda.empty_cache()
     proc = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve()), "--serve-moe"],
-        capture_output=True, text=True, timeout=SERVE_MOE_TIMEOUT_S,
+        [sys.executable, str(Path(__file__).resolve()), flag],
+        capture_output=True, text=True, timeout=SERVE_CHILD_TIMEOUT_S,
     )
     lines = proc.stdout.strip().splitlines()
     for line in lines[:-1] if proc.returncode == 0 else lines:
         print(line, flush=True)
     if proc.returncode != 0:
-        fail(f"the child --serve-moe failed:\n{proc.stderr[-3000:]}")
-    res = json.loads(lines[-1])
+        fail(f"the child {flag} failed:\n{proc.stderr[-3000:]}")
+    return json.loads(lines[-1])
+
+
+def phase_serve_child(flag: str, case: str, entries: list,
+                      alone_ms: dict) -> None:
+    """A serving child (``--serve-moe``, ``--serve-mla``,
+    ``--serve-frames``); then, for a child that timed the flash kernel, its
+    ``[kernel_time]`` (the wrapper, SDPA and the bound from the child, the
+    kernel alone from ``--serve-kernel-alone``). The child's launches, by
+    head dim, and errors go into flash attention's entry of the kernels
+    line."""
+    res = run_child(flag)
     for dt_name, t in res["timing"].items():
-        alone = alone_ms[f"flash_attention/moonshot/{dt_name}"]
+        alone = alone_ms[f"flash_attention/{case}/{dt_name}"]
         if alone is None:
-            fail(f"no device time for the D = 128 flash kernel ({dt_name})")
+            fail(f"no device time for the {case} flash kernel ({dt_name})")
         extra = ({} if dt_name == "bfloat16" else dict(
             f32_core_bound_ms=f"{t['f32_core_bound_ms']:.5f}",
             alone_times_f32_core_bound=f"{alone / t['f32_core_bound_ms']:.2f}"))
-        say("kernel_time", kernel="flash_attention", case="moonshot",
+        if "padded_bound_ms" in t:
+            # bound_ms is the function's (v and the output unpadded); the
+            # padded work the kernel does is the secondary figure
+            extra.update(
+                bound_of="unpadded",
+                padded_bound_ms=f"{t['padded_bound_ms']:.5f}",
+                padded_bytes=t["padded_bytes"], padded_ops=t["padded_ops"],
+                alone_times_padded_bound=f"{alone / t['padded_bound_ms']:.2f}")
+        say("kernel_time", kernel="flash_attention", case=case,
             dtype=dt_name, shape=tuple(t["shape"]), ms=f"{t['ms']:.4f}",
             kernel_alone_ms=f"{alone:.4f}",
             alone_times_bound=f"{alone / t['bound_ms']:.2f}",
@@ -2052,8 +2581,12 @@ def phase_serve_moe(entries: list, alone_ms: dict) -> None:
             bytes=t["bytes"], ops=t["ops"],
             times_bound=f"{t['ms'] / t['bound_ms']:.1f}", **extra)
     flash = next(e for e in entries if e["name"] == "flash_attention")
-    flash["launches"] += res["launches"]
-    flash["max_abs_err"] = max(flash["max_abs_err"], res["max_abs_err"])
+    by_dim = flash["launches_by_head_dim"]
+    for d, n in res["head_dim_launches"].items():
+        by_dim[d] = by_dim.get(d, 0) + n
+        flash["launches"] += n
+    if res["max_abs_err"] is not None:
+        flash["max_abs_err"] = max(flash["max_abs_err"], res["max_abs_err"])
 
 
 # ---------------------------------------------------------------------------
@@ -3249,6 +3782,12 @@ def main() -> None:
     if sys.argv[1:] == ["--serve-moe"]:
         serve_moe()
         return
+    if sys.argv[1:] == ["--serve-mla"]:
+        serve_mla()
+        return
+    if sys.argv[1:] == ["--serve-frames"]:
+        serve_frames()
+        return
     if sys.argv[1:] == ["--segmin-kernel-alone"]:
         segmin_kernel_alone()
         return
@@ -3496,7 +4035,13 @@ def main() -> None:
     serve_entries, alone_ms = phase_serve()
 
     # ---- 7b. MoE serving: moonshot-v1-16b-a3b, flash attention at D = 128
-    phase_serve_moe(serve_entries, alone_ms)
+    phase_serve_child("--serve-moe", "moonshot", serve_entries, alone_ms)
+
+    # ---- 7c. MLA serving: deepseek-v2-236b, flash attention at D = 192
+    phase_serve_child("--serve-mla", "mla", serve_entries, alone_ms)
+
+    # ---- 7d. frame models: musicgen-medium, qwen2-vl-72b; the int8 cache
+    phase_serve_child("--serve-frames", "frames", serve_entries, alone_ms)
 
     # ---- 8. the segmented-min kernel through segmin / arbitrate ----------
     segmin_entries = phase_segmin()

@@ -38,6 +38,12 @@
 //   never passes through shared memory;
 // - key tiles are walked in ascending order with the same tile skipping as
 //   below, which the -1e30 cancellation of a fully masked first tile needs;
+// - D = 192 is MLA's query/key head dim (128 + 64; the model zero-pads
+//   its 128-wide values to 192): QK^T takes 12 k-steps over three 64-wide
+//   column blocks, O += P V is one m64n192k16 per k-step, and the O
+//   accumulator is 96 f32 registers a thread (64 at D = 128); one block an
+//   SM, three stages of K/V (197,760 bytes of shared memory; two stages,
+//   148,608 bytes, took 10% longer at MLA's prefill on an H100);
 // - at D <= 64 two blocks share an SM: the launch bounds cap the
 //   registers at 96 a thread, because with the producer warp 18 warps over
 //   4 schedulers put 5 on one, whose 16K registers give each at most 102
@@ -258,7 +264,8 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared layout of one head dim D. A tile row of DB <= 64 bf16 columns is
 // 32, 64 or 128 bytes, which is the TMA swizzle width and the wgmma layout
-// (B32, B64, B128); D = 128 is two such column blocks side by side.
+// (B32, B64, B128); D = 128 and D = 192 (MLA's q/k head dim) are two and
+// three such column blocks side by side.
 template <int D>
 struct Geo {
   static constexpr int DB = D < 64 ? D : 64;
@@ -461,6 +468,52 @@ __device__ __forceinline__ void wgmma_rs_m64n128(
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
       : "memory");
 }
+
+__device__ __forceinline__ void wgmma_rs_m64n192(
+    float (&d)[96], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
                                          const uint32_t (&a)[4],
@@ -469,6 +522,7 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
   if constexpr (D == 32) wgmma_rs_m64n32(o, a, db);
   if constexpr (D == 64) wgmma_rs_m64n64(o, a, db);
   if constexpr (D == 128) wgmma_rs_m64n128(o, a, db);
+  if constexpr (D == 192) wgmma_rs_m64n192(o, a, db);
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -487,7 +541,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // each; warp 8 is the producer, whose lane 0 loads the Q tile once and the
 // live K/V tiles in ascending order into a ring of STAGES stages.
 template <int D>
-__global__ void __launch_bounds__(THREADS, D == 128 ? 1 : 2)
+__global__ void __launch_bounds__(THREADS, D >= 128 ? 1 : 2)
     flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv,
@@ -806,6 +860,9 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
     case 128:
       return launch_typed<128>(bf16, q, k, v, o, qs, ks, vs, B, Sq, Sk, H,
                                KH, causal, window, q_offset, scale, stream);
+    case 192:
+      return launch_typed<192>(bf16, q, k, v, o, qs, ks, vs, B, Sq, Sk, H,
+                               KH, causal, window, q_offset, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -823,6 +880,8 @@ int flash_attention_smem_bytes(int bf16, int D) {
       return bf16 ? tc::Geo<64>::SMEM : (int)(smem_floats<64>() * 4);
     case 128:
       return bf16 ? tc::Geo<128>::SMEM : (int)(smem_floats<128>() * 4);
+    case 192:
+      return bf16 ? tc::Geo<192>::SMEM : (int)(smem_floats<192>() * 4);
     default:
       return 0;
   }

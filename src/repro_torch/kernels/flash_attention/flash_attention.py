@@ -13,7 +13,7 @@ the bf16 kernel need 16-byte aligned tensors whose strides are multiples of
 8 elements, and the wrapper raises on any other. The library is built at
 first use (``kernels.build``); ``flash_attention_cuda`` takes CUDA tensors
 only. ``KERNEL.launches`` counts its launches, ``KERNEL.variant_launches``
-each kernel's.
+each kernel's, ``KERNEL.head_dim_launches`` those at each head dim.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ import torch
 from ..build import CudaLibrary, check_tensor
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 192)
 DTYPES = (torch.float32, torch.bfloat16)
 # the kernel each input type runs
 VARIANTS = {torch.bfloat16: "wgmma_bf16", torch.float32: "cuda_core_f32"}
@@ -51,6 +51,7 @@ class FlashAttentionKernel(CudaLibrary):
         super().__init__("flash_attention", _SRC)
         self.launches = 0
         self.variant_launches = dict.fromkeys(VARIANTS.values(), 0)
+        self.head_dim_launches = dict.fromkeys(HEAD_DIMS, 0)
 
     def bind(self, lib: ctypes.CDLL) -> None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -134,4 +135,5 @@ def flash_attention_cuda(
                            f"cudaError {err}")
     KERNEL.launches += 1
     KERNEL.variant_launches[VARIANTS[q.dtype]] += 1
+    KERNEL.head_dim_launches[D] += 1
     return out

@@ -7,6 +7,12 @@
         --device cpu                             # plain PyTorch on the CPU
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch moonshot-v1-16b-a3b --device cpu  # the MoE model
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-236b --device cpu     # MLA + MoE
+
+Frame-input models (musicgen-medium, qwen2-vl-72b) serve through
+``serve.generate`` on frame prompts; ``BatchServer`` batches token prompts,
+as the reference's does.
 """
 from __future__ import annotations
 

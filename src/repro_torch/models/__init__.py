@@ -1,6 +1,6 @@
-"""Model substrate for serving: layers, GQA attention, SSD, MoE, blocks, LM.
-Twin of ``repro.models`` (the serving path; MLA and training come with
-later slices)."""
+"""Model substrate for serving: layers, GQA and MLA attention, SSD, MoE,
+blocks, LM. Twin of ``repro.models`` (the serving path; training comes with
+a later slice)."""
 from .config import (
     SHAPES,
     ArchConfig,

@@ -1,9 +1,9 @@
 """Decoder blocks for serving. Twin of ``repro.models.blocks``.
 
-Kinds ported: ``attn_dense`` (GQA + dense MLP), ``attn_moe`` (GQA + MoE
-FFN), ``ssd`` (Mamba-2, no FFN), ``hymba_g`` and ``hymba_w`` (global or
-sliding-window GQA in parallel with SSD heads, then an MLP). ``mla_dense``
-and ``mla_moe`` raise: MLA comes with ROADMAP.md, queue 1, item 6 step 3.
+Kinds: ``attn_dense`` (GQA + dense MLP), ``attn_moe`` (GQA + MoE FFN),
+``mla_dense`` and ``mla_moe`` (MLA + dense MLP or MoE FFN), ``ssd``
+(Mamba-2, no FFN), ``hymba_g`` and ``hymba_w`` (global or sliding-window
+GQA in parallel with SSD heads, then an MLP).
 
 Each kind has init (one layer; ``models.model`` stacks a group) / apply
 (prefill) / init_cache / decode. The MoE auxiliary loss of the reference's
@@ -15,19 +15,26 @@ import torch
 import torch.nn.functional as F
 
 from .attention import (
-    LATER,
     gqa_apply,
     gqa_decode,
     gqa_init,
     gqa_init_cache,
+    latent_cache_dtype,
+    mla_apply,
+    mla_decode,
+    mla_init,
+    mla_init_cache,
+    quantize_kv,
 )
 from .config import ArchConfig, RunConfig
 from .layers import Params, mlp_apply, mlp_init, norm_apply, norm_init
 from .moe import moe_apply_dense, moe_init
 from .ssm import ssd_block_apply, ssd_block_decode, ssd_init, ssd_init_cache
 
-KINDS = ("attn_dense", "attn_moe", "ssd", "hymba_g", "hymba_w")
+KINDS = ("attn_dense", "attn_moe", "mla_dense", "mla_moe", "ssd", "hymba_g",
+         "hymba_w")
 _ATTN = ("attn_dense", "attn_moe")
+_MLA = ("mla_dense", "mla_moe")
 
 
 def _window(kind: str, cfg: ArchConfig) -> int | None:
@@ -36,9 +43,6 @@ def _window(kind: str, cfg: ArchConfig) -> int | None:
 
 def _check_kind(kind: str) -> None:
     if kind not in KINDS:
-        if kind in ("mla_dense", "mla_moe"):
-            raise NotImplementedError(
-                f"block kind {kind!r} (MLA) is not ported ({LATER})")
         raise ValueError(kind)
 
 
@@ -66,6 +70,8 @@ def block_init(kind: str, gen, cfg: ArchConfig,
     p: Params = {"norm1": norm_init(cfg.d_model, device, cfg.norm)}
     if kind in _ATTN:
         p["attn"] = gqa_init(gen, cfg, device)
+    elif kind in _MLA:
+        p["attn"] = mla_init(gen, cfg, device)
     elif kind == "ssd":
         p["ssd"] = ssd_init(gen, cfg, device)
         return p  # mamba2 block has no FFN sublayer
@@ -84,9 +90,16 @@ def block_init(kind: str, gen, cfg: ArchConfig,
 
 
 # ---------------------------------------------------------------- prefill
+def _grow(t: torch.Tensor, length: int) -> torch.Tensor:
+    """``t`` zero-padded along dim 1 (the sequence) to ``length``."""
+    pad = [0, 0] * (t.dim() - 2) + [0, length - t.shape[1]]
+    return F.pad(t, pad)
+
+
 def _kv_to_cache(k, v, run: RunConfig, window: int | None, cache_len=None):
     """Full-sequence K/V -> decode cache layout (ring-truncated for SWA,
-    zero-padded to ``cache_len`` capacity for cache growth during decode)."""
+    zero-padded to ``cache_len`` capacity for cache growth during decode),
+    then quantized under an int8 cache."""
     if window:
         S = k.shape[1]
         if S >= window:
@@ -98,12 +111,12 @@ def _kv_to_cache(k, v, run: RunConfig, window: int | None, cache_len=None):
                 k = torch.roll(k, shift, dims=1)
                 v = torch.roll(v, shift, dims=1)
         else:
-            k = F.pad(k, (0, 0, 0, 0, 0, window - S))
-            v = F.pad(v, (0, 0, 0, 0, 0, window - S))
+            k, v = _grow(k, window), _grow(v, window)
     elif cache_len is not None and cache_len > k.shape[1]:
-        grow = cache_len - k.shape[1]
-        k = F.pad(k, (0, 0, 0, 0, 0, grow))
-        v = F.pad(v, (0, 0, 0, 0, 0, grow))
+        k, v = _grow(k, cache_len), _grow(v, cache_len)
+    if run.kv_cache_dtype == "int8":
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
     dt = getattr(torch, run.kv_cache_dtype)
     return {"k": k.to(dt), "v": v.to(dt)}
 
@@ -114,6 +127,13 @@ def _mixer_apply(kind, p, xn, cfg, run, positions, cache_len):
         out, (k, v) = gqa_apply(p["attn"], xn, cfg, run, positions,
                                 return_kv=True)
         return out, _kv_to_cache(k, v, run, None, cache_len)
+    if kind in _MLA:
+        out, (ckv, krope) = mla_apply(p["attn"], xn, cfg, run, positions,
+                                      return_kv=True)
+        if cache_len is not None and cache_len > ckv.shape[1]:
+            ckv, krope = _grow(ckv, cache_len), _grow(krope, cache_len)
+        dt = latent_cache_dtype(run)
+        return out, {"ckv": ckv.to(dt), "krope": krope.to(dt)}
     if kind == "ssd":
         return ssd_block_apply(p["ssd"], xn, cfg, return_state=True,
                                chunk=run.ssd_chunk)
@@ -150,6 +170,8 @@ def block_init_cache(kind: str, cfg: ArchConfig, run: RunConfig, batch: int,
     _check_kind(kind)
     if kind in _ATTN:
         return gqa_init_cache(cfg, run, batch, max_len, None, device)
+    if kind in _MLA:
+        return mla_init_cache(cfg, run, batch, max_len, device)
     if kind == "ssd":
         return ssd_init_cache(cfg, batch, device)
     return {
@@ -167,6 +189,8 @@ def block_decode(kind: str, p: Params, cache: dict, x: torch.Tensor,
     xn = norm_apply(p["norm1"], x)
     if kind in _ATTN:
         mix, cache = gqa_decode(p["attn"], cache, xn, cfg, run, pos)
+    elif kind in _MLA:
+        mix, cache = mla_decode(p["attn"], cache, xn, cfg, run, pos)
     elif kind == "ssd":
         mix, cache = ssd_block_decode(p["ssd"], cache, xn, cfg)
     else:  # hymba

@@ -5,9 +5,9 @@ One ``ArchConfig`` covers the 10 assigned architectures: dense llama-style,
 MoE (DeepSeek-V2 MLA / Moonlight), SSM (Mamba-2 SSD), hybrid (Hymba), audio
 (MusicGen backbone) and VLM (Qwen2-VL backbone). Layer stacks are described
 as ``layout`` groups of (block_kind, count); each group's weights are
-stacked on a leading "layers" dim, as in the reference. The port serves the
-kinds ``attn_dense``, ``attn_moe``, ``ssd``, ``hymba_g`` and ``hymba_w``;
-``use_pallas`` is not read (the kernels are chosen by the tensors' device).
+stacked on a leading "layers" dim, as in the reference. The port serves
+every kind; ``use_pallas`` is not read (the kernels are chosen by the
+tensors' device).
 """
 from __future__ import annotations
 

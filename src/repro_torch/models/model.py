@@ -1,12 +1,15 @@
 """Decoder LM for serving: embed -> block groups -> norm -> LM head. Twin of
 the serving half of ``repro.models.model``.
 
-Parameters keep the reference's tree: ``embed``, one ``g{i}`` per layout
-group with every leaf stacked on a leading "layers" dim, ``final_norm`` and
-(untied) ``lm_head``. ``model_init`` draws them in f32, one layer at a
-time, and stores the leaves that are only ever cast to the activations'
-dtype in ``run.activations_dtype``, which a model too large for the card
-in f32 needs. The reference scans each group with ``lax.scan``; the
+Parameters keep the reference's tree: ``embed`` (token models only), one
+``g{i}`` per layout group with every leaf stacked on a leading "layers"
+dim, ``final_norm`` and ``lm_head`` (untied, or a frame model's). A frame
+model (``embed_input="frames"``) reads precomputed embeddings
+``batch["frames"]`` (B, S, d) in place of ``batch["tokens"]``.
+``model_init`` draws the parameters in f32, one layer at a time, and
+stores the leaves that are only ever cast to the activations' dtype in
+``run.activations_dtype``, which a model too large for the card in f32
+needs. The reference scans each group with ``lax.scan``; the
 port loops over the layers and indexes the stacked weights. ``remat`` and
 sharding constraints have no meaning when serving on one card. Caches are
 per layer: ``caches["g{i}"]`` is a list with one dict per layer of the
@@ -21,7 +24,6 @@ from typing import Any
 import torch
 
 from ..device import resolve_device
-from .attention import LATER
 from .blocks import block_apply, block_decode, block_init, block_init_cache
 from .config import ArchConfig, RunConfig
 from .layers import (
@@ -32,8 +34,6 @@ from .rope import sinusoidal
 
 def check_run(run: RunConfig) -> None:
     """Raise on the RunConfig options the port does not implement."""
-    if run.kv_cache_dtype == "int8":
-        raise NotImplementedError(f"the int8 KV cache is not ported ({LATER})")
     if run.attn_stream_bf16 or run.ssd_stream_bf16:
         raise NotImplementedError(
             "attn_stream_bf16 / ssd_stream_bf16: the port's kernels compute "
@@ -48,14 +48,17 @@ def padded_vocab(cfg: ArchConfig, run: RunConfig) -> int:
 
 # the leaves whose every use is ``.to(x.dtype)`` of an activation: dense
 # weights and biases, the MoE expert stacks, the embedding and LM-head
-# tables. Norms, the router (``route`` multiplies in f32) and the SSD
-# block's conv, ``A_log``, ``D`` and ``dt_bias`` are read in f32.
+# tables. Norms, the router (``route`` multiplies in f32), MLA's ``wukv``
+# (``mla_decode`` absorbs it in f32) and the SSD block's conv, ``A_log``,
+# ``D`` and ``dt_bias`` are read in f32.
 _ACTIVATION_LEAVES = ("w", "b", "table", "wi", "wg", "wo",
                       "shared_wi", "shared_wg", "shared_wo")
+_READ_IN_F32 = ("router", "wukv")
 
 
 def _stored_as_activations(path: tuple[str, ...]) -> bool:
-    return path[-1] in _ACTIVATION_LEAVES and "router" not in path
+    return (path[-1] in _ACTIVATION_LEAVES
+            and not any(p in path for p in _READ_IN_F32))
 
 
 def _cast_tree(tree: Params, dtype: torch.dtype, path=()) -> Params:
@@ -107,16 +110,17 @@ def model_init(seed: int, cfg: ArchConfig, run: RunConfig, *,
     if dev.type != "meta":
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-    if cfg.embed_input != "tokens":
-        raise NotImplementedError(f"frame inputs are not ported ({LATER})")
     vp = padded_vocab(cfg, run)
-    params: Params = _cast_tree(
-        {"embed": embed_init(gen, vp, cfg.d_model, dev)}, dtype)
+    tokens = cfg.embed_input == "tokens"
+    params: Params = {}
+    if tokens:
+        params.update(_cast_tree(
+            {"embed": embed_init(gen, vp, cfg.d_model, dev)}, dtype))
     for gi, (kind, count) in enumerate(cfg.layout):
         params[f"g{gi}"] = _stack_init(
             lambda: block_init(kind, gen, cfg, dev), count, dtype)
     params["final_norm"] = norm_init(cfg.d_model, dev, cfg.norm)
-    if not cfg.tie_embeddings:
+    if not (cfg.tie_embeddings and tokens):
         params.update(_cast_tree(
             {"lm_head": embed_init(gen, vp, cfg.d_model, dev)}, dtype))
     return params
@@ -130,10 +134,11 @@ def _layer(gparams: Params, i: int) -> Params:
 
 def _embed(params, cfg: ArchConfig, run: RunConfig, batch: dict,
            pos0: int = 0) -> torch.Tensor:
-    if "tokens" not in batch:
-        raise NotImplementedError(f"frame inputs are not ported ({LATER})")
     dt = getattr(torch, run.activations_dtype)
-    x = embed_apply(params["embed"], batch["tokens"], dt)
+    if cfg.embed_input == "tokens":
+        x = embed_apply(params["embed"], batch["tokens"], dt)
+    else:  # modality frontend stub: precomputed frame/patch embeddings
+        x = batch["frames"].to(dt)
     if cfg.pos == "sinusoidal":
         S = x.shape[1]
         pos = pos0 + torch.arange(S, device=x.device)
@@ -142,7 +147,7 @@ def _embed(params, cfg: ArchConfig, run: RunConfig, batch: dict,
 
 
 def _logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    table = params.get("lm_head", params["embed"])
+    table = params["lm_head"] if "lm_head" in params else params["embed"]
     logits = lm_head_apply(table, x).float()
     vp = logits.shape[-1]
     if vp != cfg.vocab:  # mask padded vocab entries
@@ -154,8 +159,9 @@ def _logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def prefill(params: Params, batch: dict, cfg: ArchConfig, run: RunConfig,
             cache_len: int | None = None):
-    """Run the prompt ``batch["tokens"]`` (B, S); return (last-token logits
-    (B, 1, V_pad) f32, caches).
+    """Run the prompt ``batch["tokens"]`` (B, S) (a frame model's
+    ``batch["frames"]`` (B, S, d)); return (last-token logits (B, 1, V_pad)
+    f32, caches).
 
     ``cache_len`` pads non-ring caches to that capacity so decode can append.
     """
@@ -191,8 +197,9 @@ def init_caches(cfg: ArchConfig, run: RunConfig, batch: int, max_len: int,
 def decode_step(params: Params, caches: dict, batch: dict, cfg: ArchConfig,
                 run: RunConfig):
     """One decode step against the caches: ``batch`` holds ``tokens``
-    (B, 1) and ``pos``, the tokens already cached. Returns (logits
-    (B, 1, V_pad), caches), the caches updated."""
+    (B, 1) (a frame model's ``frames`` (B, 1, d)) and ``pos``, the tokens
+    already cached. Returns (logits (B, 1, V_pad), caches), the caches
+    updated."""
     check_run(run)
     pos = int(batch["pos"])
     x = _embed(params, cfg, run, batch, pos0=pos)

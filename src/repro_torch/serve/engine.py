@@ -5,7 +5,10 @@ queue-based batch server, and the deadline-batching primitive. Twin of
 ``generate`` and ``BatchServer`` take ``device=`` (default the card; a
 missing card raises). As in the reference, a batch is left-padded with
 token 0 to its longest prompt and no pad mask is applied, and sampling
-reads the logits of the real vocabulary (``[:, :vocab]``). Sampling with
+reads the logits of the real vocabulary (``[:, :vocab]``). A frame model's
+``generate`` takes frame prompts ``(B, S, d)`` and feeds back zero frames
+``(B, 1, d)`` at each decode step, as the reference's does; ``BatchServer``
+serves token prompts, as the reference's does. Sampling with
 ``temperature > 0`` draws from a ``torch.Generator`` seeded with ``seed``:
 deterministic per seed, not the reference's ``jax.random`` bits.
 """
@@ -40,7 +43,7 @@ def generate(
     params,
     cfg: ArchConfig,
     run: RunConfig,
-    prompts,  # (B, S) int tokens
+    prompts,  # (B, S) int tokens, or a frame model's frames (B, S, d)
     steps: int,
     temperature: float = 0.0,
     seed: int = 0,
@@ -48,12 +51,15 @@ def generate(
     device: torch.device | str = "cuda",
 ) -> GenResult:
     dev = resolve_device(device)
-    prompts = torch.as_tensor(prompts).to(dev, torch.int32)
-    B, S = prompts.shape
+    tokens = cfg.embed_input == "tokens"
+    prompts = torch.as_tensor(prompts).to(
+        dev, torch.int32 if tokens else torch.float32)
+    B, S = prompts.shape[:2]
+    key = "tokens" if tokens else "frames"
 
     _sync(dev)
     t0 = time.monotonic()
-    logits, caches = prefill(params, {"tokens": prompts}, cfg, run,
+    logits, caches = prefill(params, {key: prompts}, cfg, run,
                              cache_len=S + steps)
     _sync(dev)
     prefill_ms = (time.monotonic() - t0) * 1e3
@@ -72,7 +78,11 @@ def generate(
         out[:, t] = tok.cpu().numpy()
         if t == steps - 1:
             break
-        batch = {"tokens": tok[:, None].to(torch.int32), "pos": S + t}
+        batch = {"pos": S + t}
+        if tokens:
+            batch["tokens"] = tok[:, None].to(torch.int32)
+        else:  # frame models feed back an embedding stub
+            batch["frames"] = torch.zeros((B, 1, cfg.d_model), device=dev)
         logits, caches = decode_step(params, caches, batch, cfg, run)
     _sync(dev)
     decode_ms = (time.monotonic() - t1) * 1e3 / max(1, steps - 1)

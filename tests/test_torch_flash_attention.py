@@ -1,8 +1,8 @@
 """The port's attention (``repro_torch.kernels.flash_attention``) against the
 reference's Pallas flash kernel in interpret mode and its jnp oracle
 ``attention_ref``, on the reference's own sweep (``test_kernels.py``'s
-``ATTN_SHAPES``: MHA, GQA, MQA, ragged, window, rectangular blocks) and its
-``q_offset`` case.
+``ATTN_SHAPES``: MHA, GQA, MQA, ragged, window, rectangular blocks, plus
+MLA's head dim 192) and its ``q_offset`` case.
 
 On the CPU ``flash_attention`` runs the plain version, the function the
 CUDA kernels are held to on the card. Tolerances are the reference's own
@@ -46,6 +46,7 @@ ATTN_SHAPES = [
     (1, 200, 4, 2, 64, 64, 64, None),  # ragged (pad path)
     (2, 256, 4, 4, 128, 64, 64, 96),  # sliding window
     (1, 512, 2, 2, 64, 128, 256, 128),  # window, rectangular blocks
+    (1, 160, 4, 4, 192, 64, 64, None),  # MLA's q/k head dim 128 + 64
 ]
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -202,6 +203,8 @@ TC_CASES = [
     (2, 200, 200, 4, 2, 16, None, 0),  # D = 16, ragged Sq and Sk
     (1, 200, 200, 4, 1, 32, 40, 0),  # D = 32, MQA, window
     (1, 333, 333, 2, 2, 128, 100, 0),  # D = 128, two column blocks
+    (1, 333, 333, 4, 2, 192, 100, 0),  # D = 192, three blocks, GQA, window
+    (2, 200, 200, 4, 4, 192, None, 0),  # D = 192 (MLA), ragged Sq and Sk
     (2, 64, 1377, 4, 2, 64, 1024, 1313),  # a 64-query q_offset chunk
     (1, 40, 40, 2, 2, 64, None, 0),  # Sk below one key tile
 ]

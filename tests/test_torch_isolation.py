@@ -58,7 +58,10 @@ def test_importing_every_port_module_loads_neither_jax_nor_repro():
                  "repro_torch.configs.moonshot_v1_16b",
                  "repro_torch.configs.qwen1_5_32b",
                  "repro_torch.configs.stablelm_1_6b",
-                 "repro_torch.configs.starcoder2_7b"):
+                 "repro_torch.configs.starcoder2_7b",
+                 "repro_torch.configs.deepseek_v2_236b",
+                 "repro_torch.configs.musicgen_medium",
+                 "repro_torch.configs.qwen2_vl_72b"):
         assert name in mods
     code = (
         "import importlib, sys\n"
@@ -140,8 +143,8 @@ def test_serving_refuses_a_missing_card(monkeypatch):
 
 def test_moe_serving_refuses_a_missing_card(monkeypatch):
     """moonshot's init (f32 or bf16 storage) and server raise without a
-    card; the configurations still to port raise in ``get_arch``."""
-    from repro_torch.configs import LATER, get_arch
+    card, and so do the MLA and frame models' init and ``generate``."""
+    from repro_torch.configs import get_arch
 
     cfg = SMOKES["moonshot-v1-16b-a3b"]
     run = RunConfig()
@@ -154,9 +157,12 @@ def test_moe_serving_refuses_a_missing_card(monkeypatch):
         BatchServer(params, cfg, run)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         generate(params, cfg, run, torch.zeros((1, 4), dtype=torch.int32), 2)
-    for name in LATER:
-        with pytest.raises(KeyError, match="not ported yet"):
-            get_arch(name)
+    for name in ("deepseek-v2-236b", "musicgen-medium", "qwen2-vl-72b"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            model_init(0, get_arch(name, smoke=True), run)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            generate(params, get_arch(name, smoke=True), run,
+                     torch.zeros((1, 4, 128)), 2)
 
 
 def test_trace_replay_and_calibration_refuse_a_missing_card(monkeypatch):

@@ -6,8 +6,13 @@ at smoke width, on weights carried across by ``params_from_jax``.
 - ``prefill`` logits and every cache tensor, for ``hymba-1.5b`` (global and
   sliding-window GQA in parallel with SSD heads), ``smollm-135m``,
   ``stablelm-1.6b`` (layernorm), ``starcoder2-7b`` (gelu MLP, QKV bias) and
-  ``qwen1.5-32b`` (attention only), ``mamba2-1.3b`` (SSD only) and
-  ``moonshot-v1-16b-a3b`` (attention and a routed + shared MoE FFN). In f32 the port runs the
+  ``qwen1.5-32b`` (attention only), ``mamba2-1.3b`` (SSD only),
+  ``moonshot-v1-16b-a3b`` (attention and a routed + shared MoE FFN),
+  ``deepseek-v2-236b`` (MLA, a dense first layer, then MoE),
+  ``musicgen-medium`` (frame inputs, sinusoidal positions, layernorm, gelu)
+  and ``qwen2-vl-72b`` (frame inputs, M-RoPE, GQA). Frame models take
+  seeded numpy frames (B, S, d) where token models take tokens, as the
+  reference's ``tests/test_models.py`` builds its batches. In f32 the port runs the
   plain attention and ``ssd_scan`` where the reference runs its chunked
   online-softmax attention and its own ``ssd_scan``: the same functions
   summed in another order, held at atol 1e-4 (logits and caches). In the
@@ -19,11 +24,15 @@ at smoke width, on weights carried across by ``params_from_jax``.
   the smoke window 64: a 60-token prompt wraps the ring during decode, a
   70-token prompt enters decode through the prefill's rolled ring.
 - The full-width parameter counts on ``torch.device("meta")`` equal
-  ``count_params`` of the reference's ``abstract_init`` (moonshot:
-  28,888,467,456).
+  ``count_params`` of the reference's ``abstract_init`` (moonshot
+  28,888,467,456; deepseek 235,741,434,880; qwen2-vl 71,460,495,360;
+  musicgen 1,362,766,848).
 - ``model_init`` with bf16 activations stores the leaves that are only
-  read as ``.to(x.dtype)`` in bf16: prefill and decode logits with bf16
+  read as ``.to(x.dtype)`` in bf16 (MLA's ``wukv``, read in f32 by the
+  absorbed decode, stays f32): prefill and decode logits with bf16
   activations are bit-identical to those of the f32 run's tree.
+- The port serves the reference's ten configurations; the options it does
+  not implement (``attn_stream_bf16``, ``ssd_stream_bf16``) raise.
 """
 import jax
 import jax.numpy as jnp
@@ -40,7 +49,7 @@ from repro.models import decode_step as jax_decode
 from repro.models import init_caches as jax_init_caches
 from repro.models import model_init as jax_init
 from repro.models import prefill as jax_prefill
-from repro_torch.configs import ARCHS, LATER, SMOKES, get_arch
+from repro_torch.configs import ARCHS, SMOKES, get_arch
 from repro_torch.models import (
     RunConfig,
     count_params,
@@ -53,7 +62,13 @@ from repro_torch.models import (
 from repro_torch.models.blocks import block_init
 
 NAMES = ["hymba-1.5b", "smollm-135m", "mamba2-1.3b", "stablelm-1.6b",
-         "starcoder2-7b", "qwen1.5-32b", "moonshot-v1-16b-a3b"]
+         "starcoder2-7b", "qwen1.5-32b", "moonshot-v1-16b-a3b",
+         "deepseek-v2-236b", "musicgen-medium", "qwen2-vl-72b"]
+# the full-width parameter counts, pinned
+FULL_PARAMS = {"moonshot-v1-16b-a3b": 28_888_467_456,
+               "deepseek-v2-236b": 235_741_434_880,
+               "qwen2-vl-72b": 71_460_495_360,
+               "musicgen-medium": 1_362_766_848}
 RUN_KW = dict(remat="none", attn_chunk_q=32, attn_chunk_k=32, vocab_round=64,
               kv_cache_dtype="float32")
 TOL = {"float32": dict(logits=dict(atol=1e-4), cache=dict(atol=1e-4)),
@@ -71,8 +86,16 @@ def _one_torch_thread():
 
 
 def _tokens(cfg, B, S, seed):
+    """The model's inputs as numpy: tokens (B, S), or a frame model's
+    frames (B, S, d)."""
     rng = np.random.default_rng(seed)
+    if cfg.embed_input == "frames":
+        return rng.standard_normal((B, S, cfg.d_model), np.float32)
     return rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+
+
+def _key(cfg) -> str:
+    return "tokens" if cfg.embed_input == "tokens" else "frames"
 
 
 @pytest.fixture(scope="module")
@@ -136,10 +159,11 @@ def test_prefill_logits_and_caches_match_reference(models, name, dtype):
     jp, tp = models[name]
     kw = dict(RUN_KW, activations_dtype=dtype)
     toks = _tokens(JAX_SMOKES[name], 2, 70, seed=1)
+    key = _key(SMOKES[name])
     jl, jc = jax.jit(lambda p, t: jax_prefill(
-        p, {"tokens": t}, JAX_SMOKES[name], JaxRun(**kw), cache_len=80))(
+        p, {key: t}, JAX_SMOKES[name], JaxRun(**kw), cache_len=80))(
         jp, jnp.asarray(toks))
-    tl, tc = prefill(tp, {"tokens": torch.from_numpy(toks)}, SMOKES[name],
+    tl, tc = prefill(tp, {key: torch.from_numpy(toks)}, SMOKES[name],
                      RunConfig(**kw), cache_len=80)
     assert tl.shape == jl.shape and tl.dtype == torch.float32
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL[dtype]["logits"])
@@ -165,18 +189,19 @@ def test_decode_teacher_forced_matches_reference(models, name, prompt):
                               RunConfig(**kw))
     steps = 8
     toks = _tokens(jcfg, 2, prompt + steps, seed=2)
+    key = _key(tcfg)
     _, jc = jax.jit(lambda p, t: jax_prefill(
-        p, {"tokens": t}, jcfg, jrun, cache_len=prompt + steps))(
+        p, {key: t}, jcfg, jrun, cache_len=prompt + steps))(
         jp, jnp.asarray(toks[:, :prompt]))
-    _, tc = prefill(tp, {"tokens": torch.from_numpy(toks[:, :prompt])}, tcfg,
+    _, tc = prefill(tp, {key: torch.from_numpy(toks[:, :prompt])}, tcfg,
                     trun, cache_len=prompt + steps)
     dec = jax.jit(lambda p, c, t, pos: jax_decode(
-        p, c, {"tokens": t, "pos": pos}, jcfg, jrun))
+        p, c, {key: t, "pos": pos}, jcfg, jrun))
     for t in range(steps):
         pos = prompt + t
         one = toks[:, pos: pos + 1]
         jl, jc = dec(jp, jc, jnp.asarray(one), jnp.int32(pos))
-        tl, tc = decode_step(tp, tc, {"tokens": torch.from_numpy(one),
+        tl, tc = decode_step(tp, tc, {key: torch.from_numpy(one),
                                       "pos": pos}, tcfg, trun)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=2e-3,
                                    err_msg=f"step {t}")
@@ -200,9 +225,10 @@ def test_init_caches_and_decode_from_zero_state(models, name):
                 assert str(a.dtype) == str(b.dtype).removeprefix("torch.")
                 assert not b.any()
     one = _tokens(JAX_SMOKES[name], 2, 1, seed=3)
-    jl, _ = jax_decode(jp, jc, {"tokens": jnp.asarray(one), "pos": jnp.int32(5)},
+    key = _key(SMOKES[name])
+    jl, _ = jax_decode(jp, jc, {key: jnp.asarray(one), "pos": jnp.int32(5)},
                        JAX_SMOKES[name], JaxRun(**kw))
-    tl, _ = decode_step(tp, tc, {"tokens": torch.from_numpy(one), "pos": 5},
+    tl, _ = decode_step(tp, tc, {key: torch.from_numpy(one), "pos": 5},
                         SMOKES[name], RunConfig(**kw))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=2e-3)
 
@@ -214,8 +240,8 @@ def test_full_width_param_count_equals_reference(name):
     meta = model_init(0, ARCHS[name], run, device="meta")
     assert count_params(meta) == jax_count_params(shapes)
     assert all(t.device.type == "meta" for _, t in _leaves(meta))
-    if name == "moonshot-v1-16b-a3b":
-        assert count_params(meta) == 28_888_467_456
+    if name in FULL_PARAMS:
+        assert count_params(meta) == FULL_PARAMS[name]
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -235,18 +261,21 @@ def test_bf16_stored_params_give_bit_identical_logits(name):
         assert b.dtype in (torch.float32, torch.bfloat16), k
         assert torch.equal(b, a.to(b.dtype)), k
     cast = {k for k, t in _leaves(bf16) if t.dtype == torch.bfloat16}
-    assert "/embed/table" in cast and not any(
-        "norm" in k or "router" in k or k.rsplit("/", 1)[1] in (
+    assert ("/embed/table" in cast) == (cfg.embed_input == "tokens")
+    assert "/lm_head/table" in cast or cfg.tie_embeddings
+    assert not any(
+        "norm" in k or "router" in k or "wukv" in k or k.rsplit("/", 1)[1] in (
             "A_log", "D", "dt_bias", "conv_w", "conv_b") for k in cast)
     toks = _tokens(cfg, 2, 20, seed=6)
+    key = _key(cfg)
     outs = []
     for params in trees:
-        lg, caches = prefill(params, {"tokens": torch.from_numpy(toks)}, cfg,
+        lg, caches = prefill(params, {key: torch.from_numpy(toks)}, cfg,
                              run, cache_len=22)
         got = [lg]
         for t in range(2):
             lg, caches = decode_step(
-                params, caches, {"tokens": torch.from_numpy(toks[:, t:t + 1]),
+                params, caches, {key: torch.from_numpy(toks[:, t:t + 1]),
                                  "pos": 20 + t}, cfg, run)
             got.append(lg)
         outs.append(got)
@@ -266,26 +295,29 @@ def test_model_init_is_seeded():
 
 
 def test_unported_configs_and_options_raise():
-    assert sorted(LATER) == ["deepseek-v2-236b", "musicgen-medium",
-                             "qwen2-vl-72b"]
-    assert sorted([*ARCHS, *LATER]) == sorted(JAX_ARCHS)
-    for name, need in (("deepseek-v2-236b", "MLA"),
-                       ("musicgen-medium", "frame inputs"),
-                       ("qwen2-vl-72b", "M-RoPE")):
+    """Every configuration of the reference is served (the MLA kinds build);
+    the options the port does not implement still raise."""
+    assert sorted(ARCHS) == sorted(JAX_ARCHS) and len(ARCHS) == 10
+    assert sorted(SMOKES) == sorted(JAX_SMOKES)
+    for name in JAX_ARCHS:
         for smoke in (False, True):
-            with pytest.raises(KeyError, match=f"{need}.*item 6 step 3"):
-                get_arch(name, smoke=smoke)
-    assert get_arch("hymba-1.5b", smoke=True) is SMOKES["hymba-1.5b"]
+            assert get_arch(name, smoke=smoke) is (SMOKES if smoke
+                                                   else ARCHS)[name]
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch("llama-7b")
+    cfg = SMOKES["deepseek-v2-236b"]
     for kind in ("mla_dense", "mla_moe"):
-        with pytest.raises(NotImplementedError, match="item 6 step 3"):
-            block_init(kind, None, SMOKES["moonshot-v1-16b-a3b"],
-                       torch.device("meta"))
+        p = block_init(kind, None, cfg, torch.device("meta"))
+        assert sorted(p["attn"]) == ["kvnorm", "qnorm", "wdkv", "wdq", "wkr",
+                                     "wo", "wukv", "wuq"]
+        assert ("router" in p["ffn"]) == (kind == "mla_moe")
+    with pytest.raises(ValueError):
+        block_init("mla_sparse", None, cfg, torch.device("meta"))
     toks = torch.zeros((1, 4), dtype=torch.int32)
     for name in ("smollm-135m", "mamba2-1.3b"):  # attention only, SSD only
         cfg = SMOKES[name]
         params = model_init(0, cfg, RunConfig(), device="cpu")
-        for bad in (dict(kv_cache_dtype="int8"), dict(attn_stream_bf16=True),
-                    dict(ssd_stream_bf16=True)):
+        for bad in (dict(attn_stream_bf16=True), dict(ssd_stream_bf16=True)):
             with pytest.raises(NotImplementedError):
                 prefill(params, {"tokens": toks}, cfg, RunConfig(**bad))
             with pytest.raises(NotImplementedError):

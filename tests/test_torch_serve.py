@@ -1,6 +1,7 @@
 """The port's model serving (``repro_torch.serve``): ``generate`` against the
-reference's on the same weights, for every ported configuration at smoke
-width, and ``BatchServer``'s batch formation,
+reference's on the same weights, for every configuration at smoke width
+(the frame models on seeded numpy frames, fed back as zero frames at each
+decode step, as the reference does), and ``BatchServer``'s batch formation,
 slicing, left padding, reuse, close/drain and queue depth, as
 ``tests/test_serve.py`` checks the reference's.
 
@@ -48,33 +49,43 @@ def tiny():
 
 
 def _prompts(cfg, B, S, seed):
-    return np.random.default_rng(seed).integers(0, cfg.vocab, (B, S)).astype(
-        np.int32)
+    """Token prompts (B, S), or a frame model's frames (B, S, d)."""
+    rng = np.random.default_rng(seed)
+    if cfg.embed_input == "frames":
+        return rng.standard_normal((B, S, cfg.d_model), np.float32)
+    return rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
 
 
 def _jax_logit_gaps(jp, cfg, run, prompts, tokens):
     """The reference's top-two logit gap at each step of ``tokens`` (its own
-    greedy continuation), from its prefill and decode_step."""
-    B, S = prompts.shape
+    greedy continuation), from its prefill and decode_step (a frame model
+    is fed zero frames, as its ``generate`` does)."""
+    B, S = prompts.shape[:2]
     steps = tokens.shape[1]
+    frames = cfg.embed_input == "frames"
+    key = "frames" if frames else "tokens"
     logits, caches = jax.jit(lambda p, t: jax_prefill(
-        p, {"tokens": t}, cfg, run, cache_len=S + steps))(
+        p, {key: t}, cfg, run, cache_len=S + steps))(
         jp, jnp.asarray(prompts))
     dec = jax.jit(lambda p, c, t, pos: jax_decode(
-        p, c, {"tokens": t, "pos": pos}, cfg, run))
+        p, c, {key: t, "pos": pos}, cfg, run))
     gaps = []
     for t in range(steps):
         top2 = np.sort(np.asarray(logits[:, -1, : cfg.vocab]), axis=-1)[:, -2:]
         gaps.append(top2[:, 1] - top2[:, 0])
         if t < steps - 1:
-            logits, caches = dec(jp, caches, jnp.asarray(tokens[:, t:t + 1]),
+            nxt = (np.zeros((B, 1, cfg.d_model), np.float32) if frames
+                   else tokens[:, t:t + 1])
+            logits, caches = dec(jp, caches, jnp.asarray(nxt),
                                  jnp.int32(S + t))
     return np.stack(gaps, 1)  # (B, steps)
 
 
 @pytest.mark.parametrize("name", ["hymba-1.5b", "smollm-135m", "mamba2-1.3b",
                                   "stablelm-1.6b", "starcoder2-7b",
-                                  "qwen1.5-32b", "moonshot-v1-16b-a3b"])
+                                  "qwen1.5-32b", "moonshot-v1-16b-a3b",
+                                  "deepseek-v2-236b", "musicgen-medium",
+                                  "qwen2-vl-72b"])
 def test_generate_greedy_matches_reference(name):
     jcfg, cfg = JAX_SMOKES[name], SMOKES[name]
     jrun = JaxRun(**RUN_KW)

@@ -150,27 +150,30 @@ def test_from_hlo_on_hlo_text_equals_reference():
 
 
 def test_model_collective_mix_counts_the_reference_parameters():
-    """The parameter total of the port's meta-device init is the
-    reference's; moonshot's mix adds the expert-parallel all-to-all."""
-    from repro_torch.configs import get_arch
+    """For each of the reference's ten configurations the parameter total
+    of the port's meta-device init is the reference's and the mix equals the
+    reference's; the MoE models' mixes add the expert-parallel all-to-all.
+    An unknown configuration raises."""
+    from repro_torch.configs import ARCHS, get_arch
     from repro_torch.models import RunConfig, count_params, model_init
 
     import repro.configs as jconfigs
     import torch
 
-    for arch in ("smollm-135m", "moonshot-v1-16b-a3b"):
+    assert sorted(ARCHS) == sorted(jconfigs.ARCHS)
+    for arch in sorted(jconfigs.ARCHS):
         total = param_counts(jconfigs.get_arch(arch), JRunConfig())["total"]
         params = model_init(0, get_arch(arch), RunConfig(),
                             device=torch.device("meta"))
-        assert count_params(params) == total
+        assert count_params(params) == total, arch
         got = ttrace.model_collective_mix(arch, 16, device="cpu")
         ref = jtrace.model_collective_mix(arch, 16)
-        assert got.to_json() == ref.to_json()
+        assert got.to_json() == ref.to_json(), arch
         assert got.meta["collectives"]["all-reduce"] == 2.0 * total
         assert ("all-to-all" in got.meta["collectives"]) == (
-            arch == "moonshot-v1-16b-a3b")
-    with pytest.raises(KeyError, match="not ported yet"):
-        ttrace.model_collective_mix("deepseek-v2-236b", 16, device="cpu")
+            get_arch(arch).moe is not None)
+    with pytest.raises(KeyError, match="unknown arch"):
+        ttrace.model_collective_mix("llama-7b", 16, device="cpu")
 
 
 def _bcast_requests(n):
