@@ -11,13 +11,14 @@ non-zero before the result line:
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: the CUDA cycle kernels (``kernels/noc_cycle/csrc``), the two
    cost-table kernels (``kernels/dpm_cost/csrc``), the flash-attention
-   kernels (``kernels/flash_attention/csrc``), the SSD intra-chunk kernels
-   (``kernels/ssd/csrc``) and the segmented-min kernel
-   (``kernels/noc_step/csrc``), one ``nvcc`` per source, all five in
-   parallel; one ``[build] ptxas:`` line per compiled kernel instance
-   (registers, stack, spill stores and loads, static shared memory) and the
-   attention and SSD instances' dynamic shared memory, held equal to the
-   Python mirror that the CPU tests bound by 227 KB;
+   forward and backward kernels (``kernels/flash_attention/csrc``, two
+   sources), the SSD intra-chunk kernels (``kernels/ssd/csrc``) and the
+   segmented-min kernel (``kernels/noc_step/csrc``), one ``nvcc`` per
+   source, all six in parallel; one ``[build] ptxas:`` line per compiled
+   kernel instance (registers, stack, spill stores and loads, static shared
+   memory) and the attention (forward and backward) and SSD instances'
+   dynamic shared memory, held equal to the Python mirror that the CPU
+   tests bound by 227 KB;
 3. kernel vs plain: on an 8x8 mesh and torus with the paper's Table I
    (``NoCConfig()`` defaults), MU and DPM at two injection rates, both
    routes of the cycle kernel (``cluster_smem``: a thread-block cluster per
@@ -131,6 +132,30 @@ non-zero before the result line:
    (B = 4, S = 2,000), bf16 and f32, with the cuts of 7b, and
    ``[serve_vs_plain]`` of its first two layers in f32 (for qwen2-vl:
    M-RoPE and GQA at G = 8);
+7e. training (``[train]``, a child process, ``--train``): first the flash
+   backward kernel at stablelm's training shape (B = 2, S = 4,096, 32
+   heads of 64, bf16) alone from the profiler, through its wrapper, beside
+   its plain version, SDPA's backward and its bound (``[kernel_time]
+   kernel=flash_attention_bwd``); then ``stablelm-1.6b`` at full width and
+   depth (1.64 B random parameters from seed 0, f32 master weights and
+   AdamW moments, bf16 compute copy) trains 8 steps of B = 2 sequences of
+   4,096 tokens of ``synthetic_batch`` (seed 0, lr 3e-3, remat "none": the
+   training CLI's recipe) through ``repro_torch.train.train``: each step's
+   loss, grad norm and ms, the median step, tokens/s, the model-flops
+   share of the bf16 peak and the peak memory; the losses must be finite
+   and the last below the first, and the launch counts, set to 0 just
+   before, must show 24 forward (``wgmma_bf16``) and 24 backward
+   (``mma_bf16``) launches a step and no f32 kernel. One step split by
+   CUDA events (``[train_split]``: forward, backward, the flash kernels
+   inside each, clip, AdamW); the backward kernel against its plain
+   version on the q/k/v and output gradients of layers 0 and 23 of that
+   step and on seeded edge cases (GQA at G = 3 and 8, windows, Sk below
+   one tile, D = 16, 32, 128), bf16 at a per-row bound and f32 within
+   1e-5 x max |.|, two calls bit-equal; the first two layers in f32 on the
+   kernel path against the plain path (loss within 1e-5 relative, every
+   gradient leaf within 1e-3 x its max |.|); ``smollm-135m`` at full width
+   trained 6 steps with a checkpoint at step 3, a run resumed from it
+   beside the continuous run, and a saved state restored bit for bit;
 8. segmented min: ``segmin`` and ``arbitrate`` on the card over ten cases
    (tests/test_kernels.py's shapes; xsim's fused link + ejection id space
    at the 8x8, 16x16 and 32x32 grids with B = 4, 16 and 132 instances; the
@@ -178,22 +203,26 @@ non-zero before the result line:
     telemetry_calibration.json`` reproduced on its 16x16 mesh (nine
     iterations, the three-rate sweep, the energy constants), the loop's
     wall time split into host signature planning, compile and device time;
-13. the ``kernels`` JSON line (six kernels; flash attention's launches
-    also by head dim), then the result line.
+13. the ``kernels`` JSON line (seven kernels: the six TPU kernels' ports
+    and the flash backward, which replaces the reference's jnp backward;
+    flash attention's launches also by head dim), then the result line.
 
 Phases 4, 5, 7 and 8 read their kernels' profiler times from a child
 process of this script (``python3 chip_smoke.py --noc-cycle-alone``,
 ``--dpm-cost-alone``, ``--serve-kernel-alone`` and
 ``--segmin-kernel-alone``), phase 7 the split of one prefill's time by
-kernel family (``--prefill-profile``), and phases 7b, 7c and 7d run whole
-in a child each (``--serve-moe``, ``--serve-mla``, ``--serve-frames``).
+kernel family (``--prefill-profile``), and phases 7b, 7c, 7d and 7e run
+whole in a child each (``--serve-moe``, ``--serve-mla``, ``--serve-frames``,
+``--train``).
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -296,6 +325,43 @@ SSD_EDGE_CASES = (
     ("mamba2_smoke_n32_p32", 2, 100, 8, 1, 32, 32, 32),
     ("short_chunk_n16_p32", 2, 100, 4, 1, 16, 32, 100),
 )
+# the training phase (a child process): stablelm-1.6b at full width and
+# depth, TRAIN_BATCH sequences of TRAIN_SEQ tokens (SHAPES["train_4k"]'s
+# length; its global batch of 256 cut to 2 on one card), TRAIN_STEPS steps
+# of the training CLI's recipe (remat "none", lr 3e-3, seed 0)
+TRAIN_ARCH = "stablelm-1.6b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 2, 4096, 3e-3
+TRAIN_PLAIN_LAYERS = 2  # its first layers in f32, kernel path against plain
+# The backward kernel against its plain version. bf16: each gradient row's
+# error norm within BWD_ROW_RTOL of the row's norm, the norm floored at
+# BWD_ROW_FLOOR x the mean row norm. The kernel rounds P and dS to bf16 for
+# its second products and its outputs to bf16, each a relative 2^-9
+# (0.002) an element; summed with random signs over a row the three give
+# about 0.005 (an H100 measured 0.0037-0.0065 on seeded inputs, D = 16 to
+# 128, and up to 0.0105 on the small, cancelling dq of stablelm's last
+# layer), so 2e-2 leaves a margin of 2 or more; a dropped 64-key tile
+# gives about 1 (tests/test_torch_flash_backward.py emulates both on the
+# CPU). The floor: a row whose gradient cancels to
+# (nearly) 0 (the first causal row's dq is exactly 0: p = 1 on its one
+# key, where dout . v equals delta) carries the rounding of its terms, not
+# of its sum. f32: within BWD_F32_RTOL x max |.| of each output.
+BWD_ROW_RTOL = 2e-2
+BWD_ROW_FLOOR = 0.1
+BWD_F32_RTOL = 1e-5
+# edge cases of the backward's tiles on seeded random inputs
+# (label, B, S, H, KH, D, window)
+BWD_EDGE_CASES = (
+    ("gqa3_window", 2, 333, 6, 2, 64, 100),
+    ("gqa8", 1, 300, 8, 1, 64, None),
+    ("sk_below_one_tile", 2, 40, 4, 2, 64, None),
+    ("d16", 2, 200, 4, 2, 16, None),
+    ("d32_window", 2, 333, 4, 1, 32, 70),
+    ("d128", 2, 333, 4, 2, 128, 100),
+)
+# the checkpoint round trip: smollm-135m at full width, a save at step
+# CKPT_AT of CKPT_STEPS
+CKPT_ARCH = "smollm-135m"
+CKPT_STEPS, CKPT_AT, CKPT_BATCH, CKPT_SEQ = 6, 3, 4, 1024
 # the segmented-min phase: tests/test_kernels.py's shapes (candidates,
 # segments), then xsim's fused link + ejection id space at the repo's grids
 # (name, mesh side, instances B)
@@ -544,13 +610,15 @@ def check_earlier(phase: str, topo: str, rate: float, algo: str,
 def build_kernels() -> None:
     """Build every kernel library at once, one ``nvcc`` per source."""
     from repro_torch.kernels.dpm_cost import KERNEL as DPM_KERNEL
+    from repro_torch.kernels.flash_attention import BWD_KERNEL
     from repro_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
     from repro_torch.kernels.noc_cycle import KERNEL
     from repro_torch.kernels.noc_step import KERNEL as SEGMIN_KERNEL
     from repro_torch.kernels.ssd import KERNEL as SSD_KERNEL
 
     kernels = [("noc_cycle", KERNEL), ("dpm_cost", DPM_KERNEL),
-               ("flash_attention", FLASH_KERNEL), ("ssd", SSD_KERNEL),
+               ("flash_attention", FLASH_KERNEL),
+               ("flash_attention_bwd", BWD_KERNEL), ("ssd", SSD_KERNEL),
                ("noc_step", SEGMIN_KERNEL)]
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(kernels)) as pool:
@@ -563,7 +631,8 @@ def build_kernels() -> None:
         for kernel, report in ptxas_report(k.build_log):
             print(f"[build] ptxas: library={name} kernel={kernel} {report}",
                   flush=True)
-    check_smem_mirrors(FLASH_KERNEL.build(), SSD_KERNEL.build())
+    check_smem_mirrors(FLASH_KERNEL.build(), SSD_KERNEL.build(),
+                       BWD_KERNEL.build())
 
 
 def kernel_name(mangled: str) -> str:
@@ -614,14 +683,15 @@ def ptxas_report(log: str) -> list[tuple[str, str]]:
     return out
 
 
-def check_smem_mirrors(flash_lib, ssd_lib) -> None:
-    """Print each attention and SSD kernel instance's dynamic shared memory
-    as its library computes it, and fail if the Python mirror that the CPU
-    tests hold to the 227 KB limit says otherwise."""
+def check_smem_mirrors(flash_lib, ssd_lib, bwd_lib) -> None:
+    """Print each attention (forward and backward) and SSD kernel
+    instance's dynamic shared memory as its library computes it, and fail
+    if the Python mirror that the CPU tests hold to the 227 KB limit says
+    otherwise."""
     import torch
 
     from repro_torch.kernels.flash_attention.flash_attention import (
-        HEAD_DIMS, smem_bytes as flash_smem,
+        BWD_HEAD_DIMS, HEAD_DIMS, bwd_smem_bytes, smem_bytes as flash_smem,
     )
     from repro_torch.kernels.ssd.ssd import (
         TC_MAX_CHUNK, TC_SHAPES, smem_bytes as ssd_smem,
@@ -635,6 +705,16 @@ def check_smem_mirrors(flash_lib, ssd_lib) -> None:
             say("build", smem=f"{name}<{D}>", dynamic_smem=got)
             if got != flash_smem(dtype, D):
                 fail(f"flash smem mirror: {got} != {flash_smem(dtype, D)}")
+        for D in BWD_HEAD_DIMS:
+            for part in ("dkdv", "dq"):
+                got = bwd_lib.flash_attention_bwd_smem_bytes(
+                    bf16, D, int(part == "dkdv"))
+                kind = "tc_kernel" if bf16 else "kernel<f32>"
+                say("build", smem=f"flash_bwd_{part}_{kind}<{D}>",
+                    dynamic_smem=got)
+                if got != bwd_smem_bytes(dtype, D, part):
+                    fail(f"flash backward smem mirror: {got} != "
+                         f"{bwd_smem_bytes(dtype, D, part)}")
         name = "ssd_intra_tc_kernel" if bf16 else "ssd_intra_kernel<f32>"
         for N, P in TC_SHAPES:
             args = (TC_MAX_CHUNK, N, P)
@@ -2528,6 +2608,468 @@ def serve_frames() -> None:
     child_result(dims, max(errs))
 
 
+# ---------------------------------------------------------------------------
+# training: stablelm-1.6b through repro_torch.train.train, flash attention
+# forward and backward kernels
+# ---------------------------------------------------------------------------
+def bwd_bound_ms(q, k, window, q_offset=0) -> tuple[float, str, int, int]:
+    """Least time the card could take for one attention backward: the
+    larger of q, k, v, out, dout and lse read once and dq, dk, dv written
+    once over HBM bandwidth, and 10 D operations per visible (query, key)
+    pair (Q K^T and dO V^T recomputed, P^T dO, dS^T Q, dS K; the masks
+    counted exactly) over the bf16 tensor-core rate."""
+    from repro_torch.kernels.flash_attention import attention_mask
+
+    B, Sq, H, D = q.shape
+    pairs = int(attention_mask(Sq, k.shape[1], causal=True, window=window,
+                               q_offset=q_offset, device=q.device).sum())
+    nbytes = 4 * (q.numel() + k.numel()) * q.element_size() + B * Sq * H * 4
+    return roofline(nbytes, 10 * D * pairs * B * H, BF16_FLOPS_PER_S)
+
+
+def row_rel_err(got, want) -> float:
+    """The largest ||got - want|| / max(||want||, BWD_ROW_FLOOR x the mean
+    row norm of want) over the rows (each a D-vector)."""
+    g, w = got.float(), want.float()
+    norms = w.norm(dim=-1)
+    floor = BWD_ROW_FLOOR * float(norms.mean())
+    return float(((g - w).norm(dim=-1) / norms.clamp_min(max(floor, 1e-30)))
+                 .max())
+
+
+def check_bwd(label, q, k, v, dout, window, q_offset, dtype) -> dict:
+    """The backward kernel against its plain version on the card, on the
+    forward kernel's own out and lse (so that the backward alone is
+    compared); bf16 at the per-row bound ``BWD_ROW_RTOL``, f32 within
+    ``BWD_F32_RTOL`` x max |.|; a second call must give the same bits."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_ref,
+        flash_attention_cuda, flash_attention_ref,
+    )
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        BWD_VARIANTS,
+    )
+
+    q, k, v, dout = (t.to(dtype) for t in (q, k, v, dout))
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    lse_err = float((lse - flash_attention_ref(q, k, v, return_lse=True,
+                                               **kw)[1]).abs().max())
+    fn = lambda: flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    got, k_ms = median_ms(fn)
+    again = fn()
+    repeat_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+    want, p_ms = median_ms(lambda: flash_attention_bwd_ref(
+        q, k, v, out, lse, dout, **kw))
+    errs = [float((a.float() - b.float()).abs().max())
+            for a, b in zip(got, want)]
+    scales = [float(b.float().abs().max()) for b in want]
+    rows = [row_rel_err(a, b) for a, b in zip(got, want)]
+    finite = all(bool(t.isfinite().all()) for t in got)
+    bf16 = dtype == torch.bfloat16
+    ok = (max(rows) <= BWD_ROW_RTOL if bf16 else
+          all(e <= BWD_F32_RTOL * s for e, s in zip(errs, scales)))
+    say("kernel_vs_plain", kernel="flash_attention_bwd", case=label,
+        dtype=str(dtype).removeprefix("torch."), variant=BWD_VARIANTS[dtype],
+        shape=tuple(q.shape), kv=tuple(k.shape), window=window,
+        q_offset=q_offset,
+        max_abs_err_dq_dk_dv=",".join(f"{e:.3g}" for e in errs),
+        max_abs_dq_dk_dv=",".join(f"{s:.3g}" for s in scales),
+        max_row_rel_err_dq_dk_dv=",".join(f"{r:.3g}" for r in rows),
+        bound=(f"row_rel<={BWD_ROW_RTOL}" if bf16
+               else f"abs<={BWD_F32_RTOL}*max"),
+        lse_max_abs_err=f"{lse_err:.3g}", repeat_equal=repeat_equal,
+        finite=finite, kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}")
+    if not (ok and finite and repeat_equal and lse_err <= 1e-3):
+        fail(f"flash_attention_bwd != plain on {label} {dtype}: errors "
+             f"{errs}, row {rows}, lse {lse_err}, repeat {repeat_equal}")
+    return dict(err=max(errs), ms=k_ms, plain_ms=p_ms)
+
+
+def bwd_kernel_time() -> dict:
+    """The backward kernel at stablelm's training shape on seeded inputs:
+    alone from the profiler (its three kernels), through the wrapper, the
+    plain version, SDPA's backward on the same bf16 inputs (the library
+    yardstick) and the bound. Run first in the ``--train`` child."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_ref,
+        flash_attention_cuda,
+    )
+
+    B, S, H, D = TRAIN_BATCH, TRAIN_SEQ, 32, 64
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, dout = (torch.randn((B, S, H, D), generator=g, device="cuda")
+                     .to(torch.bfloat16) for _ in range(4))
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    fn = lambda: flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+    alone, kernels = profiled_ms(fn, "flash_bwd")
+    if alone is None:
+        fail("no device time for the flash backward kernels")
+    _, ms = median_ms(fn)
+    _, p_ms = median_ms(lambda: flash_attention_bwd_ref(q, k, v, out, lse,
+                                                        dout))
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    do = dout.transpose(1, 2)
+    _, lib_ms = median_ms(lambda: torch.autograd.grad(
+        o, (qt, kt, vt), do, retain_graph=True))
+    b_ms, b_by, nbytes, ops = bwd_bound_ms(q, k, None)
+    say("kernel_time", kernel="flash_attention_bwd", case="stablelm",
+        dtype="bfloat16", shape=(B, S, H, D), ms=f"{ms:.4f}",
+        kernel_alone_ms=f"{alone:.4f}", kernels_per_call=kernels,
+        plain_ms=f"{p_ms:.4f}", sdpa_bwd_ms=f"{lib_ms:.4f}",
+        vs_sdpa=f"{ms / lib_ms:.3f}", alone_vs_sdpa=f"{alone / lib_ms:.3f}",
+        bound_ms=f"{b_ms:.5f}", bound_by=b_by, bytes=nbytes, ops=ops,
+        times_bound=f"{ms / b_ms:.1f}",
+        alone_times_bound=f"{alone / b_ms:.1f}")
+    return dict(ms=ms, alone_ms=alone, plain_ms=p_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def train_run_config():
+    """The training CLI's RunConfig at ``TRAIN_SEQ`` on a full-size
+    configuration (``launch/train.py``)."""
+    from repro_torch.models import RunConfig
+
+    return RunConfig(remat="none", attn_chunk_q=min(512, TRAIN_SEQ),
+                     attn_chunk_k=min(1024, TRAIN_SEQ),
+                     learning_rate=TRAIN_LR, vocab_round=128)
+
+
+def train_main(cfg, run) -> tuple[int, int]:
+    """The main path: ``train`` on the card for ``TRAIN_STEPS`` steps, the
+    launch counts set to 0 just before and read just after. Returns the
+    forward and backward flash launches."""
+    import statistics
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import BWD_KERNEL
+    from repro_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
+    from repro_torch.models import count_params, model_init
+    from repro_torch.train import LoopConfig, train
+
+    n_params = count_params(model_init(0, cfg, run, device="meta"))
+    loop = LoopConfig(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                      log_every=0, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_counts()
+    BWD_KERNEL.reset()
+    res = train(cfg, run, loop, device="cuda")
+    torch.cuda.synchronize()
+    fwd = dict(FLASH_KERNEL.variant_launches)
+    bwd = dict(BWD_KERNEL.variant_launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, (loss, gn, ms) in enumerate(zip(res.losses, res.grad_norms,
+                                           res.step_ms)):
+        say("train", arch=cfg.name, step=i + 1, loss=repr(loss),
+            grad_norm=repr(gn), ms=f"{ms:.2f}")
+    L = cfg.n_layers
+    want_fwd = {"wgmma_bf16": TRAIN_STEPS * L * (2 if run.remat == "block"
+                                                 else 1),
+                "cuda_core_f32": 0}
+    want_bwd = {"mma_bf16": TRAIN_STEPS * L, "cuda_core_f32": 0}
+    med = statistics.median(res.step_ms[2:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    flops = (6 * n_params * tokens
+             + 12 * cfg.head_dim * pairs * cfg.n_heads * L * TRAIN_BATCH)
+    finite = all(map(math.isfinite, res.losses + res.grad_norms))
+    say("train", part="summary", arch=cfg.name, layers=L,
+        d_model=cfg.d_model, heads=cfg.n_heads, head_dim=cfg.head_dim,
+        params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        steps=TRAIN_STEPS, lr=TRAIN_LR, remat=run.remat,
+        params_dtype=run.params_dtype, master="float32",
+        first_loss=repr(res.losses[0]), last_loss=repr(res.losses[-1]),
+        median_step_ms_3_to_8=f"{med:.2f}",
+        tokens_per_s=f"{tokens / med * 1e3:.1f}",
+        model_flops_per_step=flops,
+        model_flops_share_of_bf16_peak=f"{flops / (med / 1e3) / BF16_FLOPS_PER_S:.4f}",
+        peak_mem_gib=f"{peak:.2f}",
+        flash_fwd_launches=",".join(f"{k}:{n}" for k, n in fwd.items()),
+        flash_bwd_launches=",".join(f"{k}:{n}" for k, n in bwd.items()),
+        wall_s=f"{res.wall_s:.2f}", finite=finite)
+    if not finite or not res.losses[-1] < res.losses[0]:
+        fail(f"training did not lower a finite loss: {res.losses}")
+    if fwd != want_fwd or bwd != want_bwd:
+        fail(f"training launched flash {fwd} and its backward {bwd}, "
+             f"expected {want_fwd} and {want_bwd}")
+    return sum(fwd.values()), sum(bwd.values())
+
+
+def train_split(cfg, run) -> dict:
+    """One training step split by CUDA events: forward (flash forward
+    kernel ms apart), backward (flash backward kernel ms apart), clip and
+    AdamW; the q/k/v and output gradients of the first and last layers'
+    attention captured on the way."""
+    import torch
+
+    import repro_torch.kernels.flash_attention.ops as flash_ops
+    import repro_torch.models.attention as attention
+    from repro_torch.models import loss_fn, model_init
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.train import (
+        adamw_update, cast_params, clip_by_global_norm, cosine_lr,
+        init_state, synthetic_batch,
+    )
+
+    f32_run = dataclasses.replace(run, activations_dtype="float32")
+    state = init_state(model_init(0, cfg, f32_run, device="cuda"))
+    batch = synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 0, 0, device="cuda")
+    layers, captured, spans = (0, cfg.n_layers - 1), {}, {"fwd": [], "bwd": []}
+    attn_fn = attention.flash_attention
+
+    def capture(q, k, v, **kw):
+        i = len(captured.setdefault("calls", []))
+        captured["calls"].append(i)
+        out = attn_fn(q, k, v, **kw)
+        if i in layers:
+            captured[i] = [q.detach(), k.detach(), v.detach(), None]
+            out.register_hook(lambda g, i=i: captured[i].__setitem__(3, g))
+        return out
+
+    def evented(name, fn):
+        def run_(*a, **kw):
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            e[0].record()
+            out = fn(*a, **kw)
+            e[1].record()
+            spans[name].append(e)
+            return out
+        return run_
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    with patched((attention, "flash_attention", capture),
+                 (flash_ops, "flash_attention_cuda",
+                  evented("fwd", flash_ops.flash_attention_cuda)),
+                 (flash_ops, "flash_attention_bwd_cuda",
+                  evented("bwd", flash_ops.flash_attention_bwd_cuda))):
+        torch.cuda.synchronize()
+        alias = tree_map(lambda t: t.detach().requires_grad_(True),
+                         state.params)
+        ev[0].record()
+        with torch.enable_grad():
+            loss, _ = loss_fn(cast_params(alias, getattr(torch, run.params_dtype)),
+                              batch, cfg, run)
+        ev[1].record()
+        leaves = tree_leaves(alias)
+        grads = torch.autograd.grad(loss, leaves)
+        ev[2].record()
+        it = iter(grads)
+        grads = tree_map(lambda _: next(it), alias)
+        grads, gnorm = clip_by_global_norm(grads)
+        ev[3].record()
+        adamw_update(state, grads, run, cosine_lr(run, warmup=2,
+                                                  total=TRAIN_STEPS))
+        ev[4].record()
+        torch.cuda.synchronize()
+    span = lambda a, b: ev[a].elapsed_time(ev[b])
+    sums = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+    say("train_split", arch=cfg.name, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        step_ms=f"{span(0, 4):.2f}", forward_ms=f"{span(0, 1):.2f}",
+        flash_fwd_ms=f"{sums['fwd']:.2f}", flash_fwd_calls=len(spans["fwd"]),
+        backward_ms=f"{span(1, 2):.2f}", flash_bwd_ms=f"{sums['bwd']:.2f}",
+        flash_bwd_calls=len(spans["bwd"]), clip_ms=f"{span(2, 3):.2f}",
+        adamw_ms=f"{span(3, 4):.2f}", loss=repr(float(loss.detach())),
+        grad_norm=repr(float(gnorm)))
+    del state, alias, grads, leaves, loss
+    torch.cuda.empty_cache()
+    if any(captured.get(i, [None])[-1] is None for i in layers):
+        fail("no output gradient captured for the first and last layers")
+    return {i: captured[i] for i in layers}
+
+
+def train_vs_plain(cfg, run) -> None:
+    """The first ``TRAIN_PLAIN_LAYERS`` layers at full width in f32 (one
+    sequence of ``TRAIN_SEQ``): loss and every gradient leaf on the kernel
+    path against the plain path."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import BWD_KERNEL
+    from repro_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
+    from repro_torch.models import loss_fn, model_init, value_and_grad
+    from repro_torch.models.layers import tree_flatten
+    from repro_torch.train import synthetic_batch
+
+    cfg2 = cut_depth(cfg, ((cfg.layout[0][0], TRAIN_PLAIN_LAYERS),))
+    run32 = dataclasses.replace(run, params_dtype="float32",
+                                activations_dtype="float32")
+    params = model_init(0, cfg2, run32, device="cuda")
+    batch = synthetic_batch(cfg2, 1, TRAIN_SEQ, 0, 0, device="cuda")
+    paths = {}
+    for name in ("kernel", "plain"):
+        with contextlib.ExitStack() as stack:
+            if name == "plain":
+                stack.enter_context(plain_path())
+            f0, b0 = FLASH_KERNEL.launches, BWD_KERNEL.launches
+            (loss, _), grads = value_and_grad(
+                lambda p: loss_fn(p, batch, cfg2, run32), params)
+            torch.cuda.synchronize()
+            n = (FLASH_KERNEL.launches - f0, BWD_KERNEL.launches - b0)
+        want = (cfg2.n_layers,) * 2 if name == "kernel" else (0, 0)
+        if n != want:
+            fail(f"the {name} path launched flash forward/backward {n}")
+        paths[name] = (float(loss), tree_flatten(grads))
+    (lk, gk), (lp, gp) = paths["kernel"], paths["plain"]
+    worst, worst_leaf = 0.0, ""
+    for (name, a), (_, b) in zip(gk, gp):
+        r = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if r >= worst:
+            worst, worst_leaf = r, name
+    rel = abs(lk - lp) / abs(lp)
+    say("train_vs_plain", arch=cfg.name, layers=cfg2.n_layers, batch=1,
+        seq=TRAIN_SEQ, activations="float32", params_dtype="float32",
+        loss_kernel=repr(lk), loss_plain=repr(lp), loss_rel_diff=f"{rel:.3g}",
+        loss_bound="1e-5", leaves=len(gk), worst_grad_ratio=f"{worst:.3g}",
+        worst_leaf=worst_leaf, grad_bound="1e-3 x max|.| per leaf")
+    if not (rel <= 1e-5 and worst <= 1e-3):
+        fail(f"{cfg.name} f32 training: kernel path vs plain path loss "
+             f"{rel}, worst gradient leaf {worst_leaf} {worst}")
+    del params, paths
+    torch.cuda.empty_cache()
+
+
+def train_checkpoints() -> None:
+    """``CKPT_ARCH`` at full width: ``CKPT_STEPS`` steps through ``train``
+    with a save at step ``CKPT_AT``; the run resumed from a copy of that
+    checkpoint beside the continuous run's steps; a state saved after
+    ``CKPT_AT`` steps of ``build_train_step`` and restored, bit for bit.
+    The directory is in the checkout's ``build/`` and removed after."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.ckpt import latest_step, restore, save
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import model_init
+    from repro_torch.train import (
+        LoopConfig, build_train_step, cosine_lr, init_state, synthetic_batch,
+        train,
+    )
+
+    cfg = ARCHS[CKPT_ARCH]
+    run = dataclasses.replace(train_run_config(),
+                              attn_chunk_q=min(512, CKPT_SEQ),
+                              attn_chunk_k=min(1024, CKPT_SEQ))
+    (ROOT / "build").mkdir(exist_ok=True)
+    base = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=ROOT / "build"))
+    try:
+        loop = dict(steps=CKPT_STEPS, batch=CKPT_BATCH, seq=CKPT_SEQ,
+                    ckpt_every=CKPT_AT, log_every=0)
+        cont = train(cfg, run, LoopConfig(ckpt_dir=str(base / "a"), **loop))
+        step_dir = f"step_{CKPT_AT:08d}"
+        shutil.copytree(base / "a" / step_dir, base / "b" / step_dir)
+        resumed = train(cfg, run, LoopConfig(ckpt_dir=str(base / "b"), **loop))
+        if resumed.resumed_from != CKPT_AT or latest_step(base / "b") != CKPT_STEPS:
+            fail(f"resume from step {CKPT_AT}: resumed_from="
+                 f"{resumed.resumed_from}, latest {latest_step(base / 'b')}")
+        for i, (a, b) in enumerate(zip(cont.losses[CKPT_AT:], resumed.losses)):
+            say("train_ckpt", arch=cfg.name, step=CKPT_AT + i + 1,
+                continuous_loss=repr(a), resumed_loss=repr(b),
+                equal=a == b, abs_diff=f"{abs(a - b):.3g}")
+        # a state saved and restored, bit for bit
+        f32_run = dataclasses.replace(run, activations_dtype="float32")
+        state = init_state(model_init(0, cfg, f32_run, device="cuda"))
+        step_fn = build_train_step(cfg, run, lr_fn=cosine_lr(
+            run, warmup=max(2, CKPT_STEPS // 20), total=CKPT_STEPS))
+        for s in range(CKPT_AT):
+            state, _ = step_fn(state, synthetic_batch(
+                cfg, CKPT_BATCH, CKPT_SEQ, 0, s, device="cuda"))
+        save(base / "c", CKPT_AT, state)
+        back = restore(base / "c", CKPT_AT, state)
+        loop_ckpt = restore(base / "a", CKPT_AT, state)
+        same = all(torch.equal(a, b) and a.dtype == b.dtype for a, b in
+                   zip(tree_leaves_state(state), tree_leaves_state(back)))
+        same_loop = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves_state(state), tree_leaves_state(loop_ckpt)))
+        say("train_ckpt", part="round_trip", arch=cfg.name, step=CKPT_AT,
+            leaves=len(tree_leaves_state(state)), restored_equal=same,
+            equal_to_loop_checkpoint=same_loop,
+            resumed_from=resumed.resumed_from)
+        if not same:
+            fail("a restored checkpoint differs from the state saved")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def tree_leaves_state(state) -> list:
+    """Every tensor of a ``TrainState``: the step, then the parameters and
+    moments in the checkpoint's leaf order."""
+    from repro_torch.models.layers import tree_flatten
+
+    return [state.step] + [t for part in state[1:]
+                           for _, t in tree_flatten(part)]
+
+
+def train_child() -> None:
+    """``--train``: stablelm-1.6b trained at full width and depth on the
+    card, in a process of its own. Prints ``[kernel_time]``, ``[train]``,
+    ``[train_split]``, ``[train_vs_plain]``, ``[kernel_vs_plain]
+    kernel=flash_attention_bwd`` and ``[train_ckpt]`` lines, then one JSON
+    line for the kernels line."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matmuls are on: the f32 comparison needs f32 products")
+    timing = bwd_kernel_time()
+    cfg, run = ARCHS[TRAIN_ARCH], train_run_config()
+    fwd, bwd = train_main(cfg, run)
+    captured = train_split(cfg, run)
+    errs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for layer, (q, k, v, dout) in captured.items():
+            errs.append(check_bwd(f"stablelm_l{layer}", q, k, v, dout, None,
+                                  0, dtype)["err"])
+    del captured
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for label, B, S, H, KH, D, window in BWD_EDGE_CASES:
+        q, dout = (torch.randn((B, S, H, D), generator=g, device="cuda")
+                   for _ in range(2))
+        k, v = (torch.randn((B, S, KH, D), generator=g, device="cuda")
+                for _ in range(2))
+        for dtype in (torch.bfloat16, torch.float32):
+            errs.append(check_bwd(label, q, k, v, dout, window, 0,
+                                  dtype)["err"])
+    train_vs_plain(cfg, run)
+    train_checkpoints()
+    print(json.dumps({"fwd_launches": fwd, "bwd_launches": bwd,
+                      "head_dim": cfg.head_dim, "max_abs_err": max(errs),
+                      "timing": timing}), flush=True)
+
+
+def phase_train_child(entries: list) -> None:
+    """The ``--train`` child; its forward launches join flash attention's
+    entry of the kernels line, and the backward kernel gets its own."""
+    res = run_child("--train")
+    flash = next(e for e in entries if e["name"] == "flash_attention")
+    by_dim = flash["launches_by_head_dim"]
+    d = str(res["head_dim"])
+    by_dim[d] = by_dim.get(d, 0) + res["fwd_launches"]
+    flash["launches"] += res["fwd_launches"]
+    t = res["timing"]
+    entries.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:134",
+        "launches": res["bwd_launches"],
+        "max_abs_err": res["max_abs_err"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+    })
+
+
 def run_child(flag: str) -> dict:
     """Run this script with ``flag`` in a child process, print its lines
     and return its last line's JSON."""
@@ -3788,6 +4330,9 @@ def main() -> None:
     if sys.argv[1:] == ["--serve-frames"]:
         serve_frames()
         return
+    if sys.argv[1:] == ["--train"]:
+        train_child()
+        return
     if sys.argv[1:] == ["--segmin-kernel-alone"]:
         segmin_kernel_alone()
         return
@@ -4042,6 +4587,9 @@ def main() -> None:
 
     # ---- 7d. frame models: musicgen-medium, qwen2-vl-72b; the int8 cache
     phase_serve_child("--serve-frames", "frames", serve_entries, alone_ms)
+
+    # ---- 7e. training: stablelm-1.6b, the flash backward kernel ----------
+    phase_train_child(serve_entries)
 
     # ---- 8. the segmented-min kernel through segmin / arbitrate ----------
     segmin_entries = phase_segmin()

@@ -1,0 +1,4 @@
+"""Checkpoints: async save, auto-resume. Twin of ``repro.ckpt``."""
+from .checkpoint import latest_step, restore, save
+
+__all__ = ["latest_step", "restore", "save"]

@@ -8,7 +8,7 @@ The port serves all ten of the reference's configurations: ``hymba-1.5b``
 attention, MLA), and the frame-input backbones ``musicgen-medium``
 (sinusoidal positions) and ``qwen2-vl-72b`` (M-RoPE positions).
 """
-from ..models.config import ArchConfig
+from ..models.config import SHAPES, ArchConfig, ShapeConfig
 from . import (
     deepseek_v2_236b,
     hymba_1_5b,
@@ -46,4 +46,22 @@ def get_arch(name: str, smoke: bool = False) -> ArchConfig:
     return table[name]
 
 
-__all__ = ["ARCHS", "SMOKES", "get_arch"]
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+def cells(arch: str | None = None) -> list[tuple[str, str]]:
+    """All (arch, shape) dry-run cells, with long_500k restricted to
+    sub-quadratic archs (full-attention skips recorded by the caller)."""
+    out = []
+    for a, cfg in ARCHS.items():
+        if arch and a != arch:
+            continue
+        for s in SHAPES:
+            if s == "long_500k" and not cfg.sub_quadratic:
+                continue
+            out.append((a, s))
+    return out
+
+
+__all__ = ["ARCHS", "SHAPES", "SMOKES", "cells", "get_arch", "get_shape"]

@@ -10,7 +10,12 @@
 //
 // with KV head h / G, a key visible when k < Sk, k <= q (causal) and
 // k > q - window (sliding window), masked scores set to the finite -1e30,
-// an online softmax in f32 and the output in the input type.
+// an online softmax in f32 and the output in the input type. Given a
+// non-null lse pointer, each kernel also writes the row's log-sum-exp of
+// the scaled, masked scores (natural log, f32, (B, Sq, H)), which the
+// backward (flash_attention_bwd.cu) recomputes the probabilities from, as
+// the reference's _flash_fwd_impl returns it to its backward; serving
+// passes null and writes none.
 //
 // bf16 inputs: flash_fwd_tc_kernel, built for Hopper's tensor cores.
 // What bounds it: at the serving shapes (hymba: B = 4, S = 2000, 25 query
@@ -109,9 +114,9 @@ constexpr size_t smem_floats() {
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, Strides qs, Strides ks,
-    Strides vs, int Sq, int Sk, int H, int G, int causal, int window,
-    int q_offset, float scale) {
+    const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+    Strides qs, Strides ks, Strides vs, int Sq, int Sk, int H, int G,
+    int causal, int window, int q_offset, float scale) {
   constexpr int DJ = D / 16;  // accumulator columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;                // [BQ][D], pre-scaled
@@ -230,11 +235,14 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     T* orow = o + (((long long)b * Sq + row) * H + h) * D;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) store(orow + tx + 16 * j, acc[i][j] / den);
+    // m is in units of the scaled score (Q was scaled on load)
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * Sq + row) * H + h] = m[i] + logf(den);
   }
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            Strides qs, Strides ks, Strides vs, int B, int Sq, int Sk, int H,
            int KH, int causal, int window, int q_offset, float scale,
            cudaStream_t stream) {
@@ -246,7 +254,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kernel<<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), qs, ks, vs, Sq, Sk, H,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, qs, ks, vs, Sq, Sk, H,
       H / KH, causal, window, q_offset, scale);
   return (int)cudaGetLastError();
 }
@@ -261,6 +269,7 @@ constexpr int BK = 64;   // keys per tile: the n of S = Q K^T
 constexpr int CONSUMERS = 256;
 constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // Shared layout of one head dim D. A tile row of DB <= 64 bf16 columns is
 // 32, 64 or 128 bytes, which is the TMA swizzle width and the wgmma layout
@@ -545,7 +554,8 @@ __global__ void __launch_bounds__(THREADS, D >= 128 ? 1 : 2)
     flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv,
-                        __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H,
+                        __nv_bfloat16* __restrict__ o,
+                        float* __restrict__ lse, int Sq, int Sk, int H,
                         int G, int causal, int window, int q_offset,
                         float scale_log2) {
   using Gm = Geo<D>;
@@ -733,6 +743,12 @@ __global__ void __launch_bounds__(THREADS, D >= 128 ? 1 : 2)
     const int row = q0 + row0 + 8 * r;
     if (row >= Sq) continue;
     const float den = fmaxf(l[r], 1e-30f);
+    // m is the row max of the unscaled score Q K^T and l sums
+    // exp2((s - m) scale log2 e) = exp((s - m) scale): the natural-log
+    // log-sum-exp of the scaled scores is m scale + ln l
+    if (lse != nullptr && t == 0)
+      lse[((long long)b * Sq + row) * H + h] =
+          m[r] * (scale_log2 * LN2) + logf(den);
     __nv_bfloat16* orow = o + (((long long)b * Sq + row) * H + h) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
@@ -794,8 +810,9 @@ bool make_map(CUtensorMap* map, const void* ptr, int heads, int S, int B,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, Strides qs,
-           Strides ks, Strides vs, int B, int Sq, int Sk, int H, int KH,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           Strides qs, Strides ks, Strides vs, int B, int Sq, int Sk, int H,
+           int KH,
            int causal, int window, int q_offset, float scale,
            cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
@@ -809,8 +826,8 @@ int launch(const void* q, const void* k, const void* v, void* o, Strides qs,
   if (err != cudaSuccess) return (int)err;
   dim3 grid(H, B, (Sq + BQ - 1) / BQ);
   kernel<<<grid, THREADS, Geo<D>::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Sk, H, H / KH, causal,
-      window, q_offset, scale * LOG2E);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, Sq, Sk, H, H / KH,
+      causal, window, q_offset, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -820,14 +837,14 @@ int launch(const void* q, const void* k, const void* v, void* o, Strides qs,
 // the CUDA-core one.
 template <int D>
 int launch_typed(int bf16, const void* q, const void* k, const void* v,
-                 void* o, Strides qs, Strides ks, Strides vs, int B, int Sq,
-                 int Sk, int H, int KH, int causal, int window, int q_offset,
-                 float scale, cudaStream_t stream) {
+                 void* o, float* lse, Strides qs, Strides ks, Strides vs,
+                 int B, int Sq, int Sk, int H, int KH, int causal, int window,
+                 int q_offset, float scale, cudaStream_t stream) {
   if (bf16)
-    return tc::launch<D>(q, k, v, o, qs, ks, vs, B, Sq, Sk, H, KH, causal,
-                         window, q_offset, scale, stream);
-  return launch<float, D>(q, k, v, o, qs, ks, vs, B, Sq, Sk, H, KH, causal,
-                          window, q_offset, scale, stream);
+    return tc::launch<D>(q, k, v, o, lse, qs, ks, vs, B, Sq, Sk, H, KH,
+                         causal, window, q_offset, scale, stream);
+  return launch<float, D>(q, k, v, o, lse, qs, ks, vs, B, Sq, Sk, H, KH,
+                          causal, window, q_offset, scale, stream);
 }
 
 }  // namespace
@@ -835,13 +852,14 @@ int launch_typed(int bf16, const void* q, const void* k, const void* v,
 extern "C" {
 
 // Launch on ``stream``; returns the cudaError_t of the launch (0 on
-// success). ``bf16`` selects __nv_bfloat16 inputs and output (the
+// success). ``lse``, when not null, receives the (B, Sq, H) f32 row
+// log-sum-exp. ``bf16`` selects __nv_bfloat16 inputs and output (the
 // tensor-core kernel, whose pointers must be 16-byte aligned and whose
 // strides must be multiples of 8 elements), else float; ``window`` <= 0
 // means no window; strides are in elements.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, int bf16, int B, int Sq, int Sk, int H,
-                           int KH, int D, long long qsb, long long qss,
+                           void* o, float* lse, int bf16, int B, int Sq,
+                           int Sk, int H, int KH, int D, long long qsb, long long qss,
                            long long qsh, long long ksb, long long kss,
                            long long ksh, long long vsb, long long vss,
                            long long vsh, int causal, int window,
@@ -849,19 +867,19 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
   switch (D) {
     case 16:
-      return launch_typed<16>(bf16, q, k, v, o, qs, ks, vs, B, Sq, Sk, H, KH,
-                              causal, window, q_offset, scale, stream);
+      return launch_typed<16>(bf16, q, k, v, o, lse, qs, ks, vs, B, Sq, Sk,
+                              H, KH, causal, window, q_offset, scale, stream);
     case 32:
-      return launch_typed<32>(bf16, q, k, v, o, qs, ks, vs, B, Sq, Sk, H, KH,
-                              causal, window, q_offset, scale, stream);
+      return launch_typed<32>(bf16, q, k, v, o, lse, qs, ks, vs, B, Sq, Sk,
+                              H, KH, causal, window, q_offset, scale, stream);
     case 64:
-      return launch_typed<64>(bf16, q, k, v, o, qs, ks, vs, B, Sq, Sk, H, KH,
-                              causal, window, q_offset, scale, stream);
+      return launch_typed<64>(bf16, q, k, v, o, lse, qs, ks, vs, B, Sq, Sk,
+                              H, KH, causal, window, q_offset, scale, stream);
     case 128:
-      return launch_typed<128>(bf16, q, k, v, o, qs, ks, vs, B, Sq, Sk, H,
+      return launch_typed<128>(bf16, q, k, v, o, lse, qs, ks, vs, B, Sq, Sk, H,
                                KH, causal, window, q_offset, scale, stream);
     case 192:
-      return launch_typed<192>(bf16, q, k, v, o, qs, ks, vs, B, Sq, Sk, H,
+      return launch_typed<192>(bf16, q, k, v, o, lse, qs, ks, vs, B, Sq, Sk, H,
                                KH, causal, window, q_offset, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;

@@ -13,7 +13,21 @@ the bf16 kernel need 16-byte aligned tensors whose strides are multiples of
 8 elements, and the wrapper raises on any other. The library is built at
 first use (``kernels.build``); ``flash_attention_cuda`` takes CUDA tensors
 only. ``KERNEL.launches`` counts its launches, ``KERNEL.variant_launches``
-each kernel's, ``KERNEL.head_dim_launches`` those at each head dim.
+each kernel's, ``KERNEL.head_dim_launches`` those at each head dim. With
+``return_lse`` the forward also writes the row log-sum-exp that the
+backward reads; without it the kernel gets a null pointer and writes none
+(serving).
+
+The backward (``csrc/flash_attention_bwd.cu``, ``BWD_KERNEL``) replaces
+the reference's hand-written jnp backward ``repro.models.attention.
+_flash_bwd_impl``; the JAX package has no Pallas backward. bf16 inputs run
+its tensor-core kernels (``mma_bf16``: mma.sync m16n8k16), f32 inputs its
+CUDA-core kernels (``cuda_core_f32``), at the head dims ``BWD_HEAD_DIMS``.
+One call of ``flash_attention_bwd_cuda`` launches three kernels (delta =
+rowsum(dout * out), then dK/dV, then dQ) and counts as one launch in
+``BWD_KERNEL.launches``, ``variant_launches`` and ``head_dim_launches``.
+It reads every tensor as a contiguous ``(B, S, heads, D)`` array and makes
+its inputs so (autograd's ``dout`` may come with other strides).
 """
 from __future__ import annotations
 
@@ -31,6 +45,12 @@ DTYPES = (torch.float32, torch.bfloat16)
 VARIANTS = {torch.bfloat16: "wgmma_bf16", torch.float32: "cuda_core_f32"}
 # the bf16 kernel's tiles: query rows per block, keys per K/V tile
 TC_BQ, TC_BK = 128, 64
+_BWD_SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention_bwd.cu"
+BWD_HEAD_DIMS = (16, 32, 64, 128)
+BWD_VARIANTS = {torch.bfloat16: "mma_bf16", torch.float32: "cuda_core_f32"}
+# the backward's tiles: keys per dK/dV block and query rows per dQ block,
+# each walking the other side in tiles of the same size
+BWD_BLOCK = 64
 
 
 def smem_bytes(dtype: torch.dtype, D: int) -> int:
@@ -42,6 +62,28 @@ def smem_bytes(dtype: torch.dtype, D: int) -> int:
         stages = 2 if D == 128 else 3
         return 1024 + TC_BQ * D * 2 + stages * 2 * TC_BK * D * 2 + 128
     return 4 * (64 * D + D * 65 + 64 * D + 64 * 64)
+
+
+def bwd_smem_bytes(dtype: torch.dtype, D: int, part: str) -> int:
+    """Dynamic shared memory of one block of the backward's ``part``
+    (``"dkdv"`` or ``"dq"``) at head dim ``D``, as
+    ``flash_attention_bwd_smem_bytes`` in the source computes it. bf16:
+    rows padded by 8 elements (16 bytes) so that the mma fragments' 32-bit
+    loads meet no bank twice; dK/dV holds K, V, Q, dO and the transposed Q
+    and dO of 64 rows, dQ holds Q, dO, K, V and the transposed K; both the
+    tile's lse and delta in f32. f32: tiles of D + 1 columns; dK/dV holds
+    K, V, Q, dO, P and dS, dQ holds Q, dO, K, V and dS."""
+    n = BWD_BLOCK
+    if dtype == torch.bfloat16:
+        rows = (D + 8) * 2 * n  # one (64, D) tile, padded rows
+        cols = (n + 8) * 2 * D  # one transposed (D, 64) tile
+        return (4 * rows + (2 if part == "dkdv" else 1) * cols
+                + (2 * n * 4 if part == "dkdv" else 0))
+    tile = 4 * n * (D + 1)
+    pt = 4 * n * (n + 1)
+    if part == "dkdv":
+        return 4 * tile + 2 * pt + 2 * n * 4
+    return 4 * tile + pt
 
 
 class FlashAttentionKernel(CudaLibrary):
@@ -56,14 +98,39 @@ class FlashAttentionKernel(CudaLibrary):
     def bind(self, lib: ctypes.CDLL) -> None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.flash_attention_launch.argtypes = (
-            [p] * 4 + [i] * 7 + [ll] * 9 + [i] * 3 + [ctypes.c_float, p]
+            [p] * 5 + [i] * 7 + [ll] * 9 + [i] * 3 + [ctypes.c_float, p]
         )
         lib.flash_attention_launch.restype = ctypes.c_int
         lib.flash_attention_smem_bytes.argtypes = [i, i]
         lib.flash_attention_smem_bytes.restype = ctypes.c_int
 
 
+class FlashAttentionBwdKernel(CudaLibrary):
+    """The backward's library, its build report and launch counters."""
+
+    def __init__(self):
+        super().__init__("flash_attention_bwd", _BWD_SRC)
+        self.launches = 0
+        self.variant_launches = dict.fromkeys(BWD_VARIANTS.values(), 0)
+        self.head_dim_launches = dict.fromkeys(BWD_HEAD_DIMS, 0)
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.variant_launches = dict.fromkeys(BWD_VARIANTS.values(), 0)
+        self.head_dim_launches = dict.fromkeys(BWD_HEAD_DIMS, 0)
+
+    def bind(self, lib: ctypes.CDLL) -> None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attention_bwd_launch.argtypes = (
+            [p] * 10 + [i] * 10 + [ctypes.c_float, p]
+        )
+        lib.flash_attention_bwd_launch.restype = ctypes.c_int
+        lib.flash_attention_bwd_smem_bytes.argtypes = [i, i, i]
+        lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_int
+
+
 KERNEL = FlashAttentionKernel()
+BWD_KERNEL = FlashAttentionBwdKernel()
 
 
 def _check(q, k, v) -> None:
@@ -109,10 +176,12 @@ def flash_attention_cuda(
     causal: bool = True,
     window: int | None = None,
     q_offset: int = 0,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Attention through the CUDA kernel on PyTorch's current stream:
     ``(B, Sq, H, D)`` in ``q.dtype``, the contract of
-    ``ref.flash_attention_ref``."""
+    ``ref.flash_attention_ref``; with ``return_lse`` the pair
+    ``(out, lse)``, ``lse`` ``(B, Sq, H)`` f32."""
     _check(q, k, v)
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
@@ -121,11 +190,14 @@ def flash_attention_cuda(
     lib = KERNEL.build()
     with torch.cuda.device(q.device):
         out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+        lse = (torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
+               if return_lse else None)
         if out.numel() == 0:
-            return out
+            return (out, lse) if return_lse else out
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if return_lse else None,
             int(q.dtype == torch.bfloat16), B, Sq, Sk, H, KH, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             int(causal), window or 0, q_offset, D**-0.5, stream,
@@ -136,4 +208,67 @@ def flash_attention_cuda(
     KERNEL.launches += 1
     KERNEL.variant_launches[VARIANTS[q.dtype]] += 1
     KERNEL.head_dim_launches[D] += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def check_backward(q: torch.Tensor) -> None:
+    """Raise unless the backward kernel takes ``q``'s head dim: the grad
+    path on the card has no other engine."""
+    D = q.shape[-1]
+    if D not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash attention's backward kernel takes head dims "
+            f"{BWD_HEAD_DIMS}, not {D}: training MLA (D = 192) on the card "
+            "waits for ROADMAP queue 1 item 6 step 6 (the flash backward at "
+            "D = 192 with v of its own width)")
+
+
+def flash_attention_bwd_cuda(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Sk, KH, D)
+    v: torch.Tensor,  # (B, Sk, KH, D)
+    out: torch.Tensor,  # (B, Sq, H, D)
+    lse: torch.Tensor,  # (B, Sq, H) f32
+    dout: torch.Tensor,  # (B, Sq, H, D)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    q_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` through the CUDA backward kernels on PyTorch's
+    current stream, in the inputs' dtype: the contract of
+    ``ref.flash_attention_bwd_ref``. Deterministic: no atomics, each
+    gradient element summed by one thread in a fixed order."""
+    _check(q, k, v)
+    check_backward(q)
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    q, k, v, out, dout = (t.contiguous() for t in (q, k, v, out, dout))
+    lse = lse.float().contiguous()
+    for name, t, shape in (("out", out, (B, Sq, H, D)),
+                           ("dout", dout, (B, Sq, H, D))):
+        check_tensor(name, t, q.dtype, shape, q.device)
+    check_tensor("lse", lse, torch.float32, (B, Sq, H), q.device)
+    lib = BWD_KERNEL.build()
+    with torch.cuda.device(q.device):
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        if q.numel() == 0 or k.numel() == 0:
+            return dq.zero_(), dk.zero_(), dv.zero_()
+        delta = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), int(q.dtype == torch.bfloat16),
+            B, Sq, Sk, H, KH, D, int(causal), window or 0, q_offset,
+            D**-0.5, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: "
+                           f"cudaError {err}")
+    BWD_KERNEL.launches += 1
+    BWD_KERNEL.variant_launches[BWD_VARIANTS[q.dtype]] += 1
+    BWD_KERNEL.head_dim_launches[D] += 1
+    return dq, dk, dv

@@ -1,18 +1,50 @@
-"""Attention by device: the CUDA kernel on the card, the plain version on
-the CPU. Twin of ``repro.kernels.flash_attention.ops`` (model layout
-``(B, S, H, D)``); the port's ``gqa_apply`` calls it for prefill.
+"""Attention by device, forward and backward: the CUDA kernels on the card,
+the plain versions on the CPU. Twin of ``repro.kernels.flash_attention.
+ops`` (model layout ``(B, S, H, D)``) and, for the gradient, of the
+reference's ``chunked_attention`` with its ``jax.custom_vjp``; the port's
+``gqa_apply`` and ``mla_apply`` call it for prefill and for training.
 
 ``flash_attention`` takes ``device=`` (default the card; a missing card
-raises) and moves its inputs there. CUDA tensors launch the kernel or
-raise; CPU tensors run ``ref.flash_attention_ref``. Nothing falls back.
+raises) and moves its inputs there. With grad off, or no input that
+requires grad, it runs the forward alone and writes no log-sum-exp
+(serving). Otherwise it goes through one ``torch.autograd.Function`` on
+both devices, which saves ``q, k, v, out, lse`` and runs the backward from
+them: on the card the forward kernel with its LSE output and the backward
+kernel, on the CPU ``ref.flash_attention_ref`` and
+``ref.flash_attention_bwd_ref``. CUDA tensors launch the kernels or raise
+(a head dim the backward kernel does not take raises before the forward
+runs); nothing falls back.
 """
 from __future__ import annotations
 
 import torch
 
 from ...device import resolve_device
-from .flash_attention import flash_attention_cuda
-from .ref import flash_attention_ref
+from .flash_attention import (
+    check_backward, flash_attention_bwd_cuda, flash_attention_cuda,
+)
+from .ref import flash_attention_bwd_ref, flash_attention_ref
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention whose backward recomputes ``p`` from the saved row
+    log-sum-exp, as the reference's ``_flash_bwd_rule`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        fwd = flash_attention_cuda if q.is_cuda else flash_attention_ref
+        out, lse = fwd(q, k, v, return_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = flash_attention_bwd_cuda if q.is_cuda else flash_attention_bwd_ref
+        dq, dk, dv = bwd(q, k, v, out, lse, dout, **ctx.kw)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(
@@ -26,10 +58,15 @@ def flash_attention(
     device: torch.device | str = "cuda",
 ) -> torch.Tensor:
     dev = resolve_device(device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"no attention engine for device {dev}")
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if grad and dev.type == "cuda":
+        check_backward(q)
     q, k, v = (t.to(dev) for t in (q, k, v))
     kw = dict(causal=causal, window=window, q_offset=q_offset)
+    if grad:
+        return FlashAttention.apply(q, k, v, causal, window, q_offset)
     if dev.type == "cuda":
         return flash_attention_cuda(q, k, v, **kw)
-    if dev.type == "cpu":
-        return flash_attention_ref(q, k, v, **kw)
-    raise ValueError(f"no attention engine for device {dev}")
+    return flash_attention_ref(q, k, v, **kw)

@@ -1,10 +1,16 @@
-"""Plain PyTorch attention: the CPU path and the CUDA kernel's oracle.
+"""Plain PyTorch attention, forward and backward: the CPU path and the
+CUDA kernels' oracles.
 
-The math of the reference's oracle ``repro.kernels.flash_attention.ref.
-attention_ref`` (f32 scores, masked with the finite ``-1e30``, softmax,
-output in ``q.dtype``), in the model layout ``(B, S, H, D)`` that the
-kernel takes. GQA reads KV head ``h // G`` through a reshape rather than a
-repeat.
+The forward is the math of the reference's oracle ``repro.kernels.
+flash_attention.ref.attention_ref`` (f32 scores, masked with the finite
+``-1e30``, softmax, output in ``q.dtype``), in the model layout
+``(B, S, H, D)`` that the kernel takes; with ``return_lse`` it also returns
+the row log-sum-exp of the scaled, masked scores (natural log, f32), as the
+reference's ``_flash_fwd_impl`` returns it for its backward. The backward
+is the math of the reference's hand-written ``_flash_bwd_impl``
+(``repro/models/attention.py``) in one block, without chunks. GQA reads KV
+head ``h // G`` through a reshape rather than a repeat, and sums the KV
+gradients over the G query heads of each KV head.
 """
 from __future__ import annotations
 
@@ -34,7 +40,10 @@ def flash_attention_ref(
     causal: bool = True,
     window: int | None = None,
     q_offset: int = 0,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
+    """``(B, Sq, H, D)`` in ``q.dtype``; with ``return_lse`` the pair
+    ``(out, lse)``, ``lse`` ``(B, Sq, H)`` f32."""
     B, Sq, H, D = q.shape
     Sk, KH = k.shape[1], k.shape[2]
     G = H // KH
@@ -45,4 +54,46 @@ def flash_attention_ref(
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return out.reshape(B, Sq, H, D).to(q.dtype)
+    out = out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(s, dim=-1)  # (B, KH, G, Sq)
+    return out, lse.permute(0, 3, 1, 2).reshape(B, Sq, H)
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Sk, KH, D)
+    v: torch.Tensor,  # (B, Sk, KH, Dv)
+    out: torch.Tensor,  # (B, Sq, H, Dv)
+    lse: torch.Tensor,  # (B, Sq, H) f32
+    dout: torch.Tensor,  # (B, Sq, H, Dv)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    q_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` in the inputs' dtypes, accumulated in f32:
+    ``delta = rowsum(dout * out)``, ``p = exp(min(s - lse, 30))`` masked to
+    0, ``dv = p^T dout``, ``ds = p (dout v^T - delta) D^-1/2``,
+    ``dq = ds k``, ``dk = ds^T q``."""
+    B, Sq, H, D = q.shape
+    Sk, KH, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // KH
+    qf = q.float().reshape(B, Sq, KH, G, D)
+    kf, vf = k.float(), v.float()
+    dof = dout.float().reshape(B, Sq, KH, G, Dv)
+    delta = (dof * out.float().reshape(B, Sq, KH, G, Dv)).sum(-1)
+    scale = D**-0.5
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
+    rows = lambda t: t.reshape(B, Sq, KH, G).permute(0, 2, 3, 1)[..., None]
+    p = torch.exp(torch.clamp(s - rows(lse.float()), max=30.0))
+    mask = attention_mask(Sq, Sk, causal=causal, window=window,
+                          q_offset=q_offset, device=q.device)
+    p = torch.where(mask, p, 0.0)  # (B, KH, G, Sq, Sk)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
+    ds = p * (dp - rows(delta)) * scale
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(B, Sq, H, D)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -6,7 +6,10 @@ for ``models.ssm.ssd_scan`` (same signature subset), which the port's
 ``ssd_scan_kernel`` and ``ssd_intra_chunk`` take ``device=`` (default the
 card; a missing card raises) and move their inputs there. CUDA tensors
 launch the kernel or raise; CPU tensors run ``ref.ssd_intra_chunk_ref``.
-Nothing falls back.
+Nothing falls back. The kernel has no backward yet: on the card a call
+under grad, with an input that requires grad, raises (the ctypes launch
+would cut the autograd graph without a word); on the CPU the plain
+version is differentiable and trains.
 """
 from __future__ import annotations
 
@@ -22,6 +25,12 @@ def ssd_intra_chunk(x, dt, A, Bm, Cm, chunk: int, *,
     """The intra-chunk outputs ``(y, sc, dec, cum)`` of ``ref.py``'s
     contract, by device."""
     dev = resolve_device(device)
+    if dev.type == "cuda" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, Bm, Cm)):
+        raise NotImplementedError(
+            "the SSD intra-chunk kernel has no backward yet: training an SSD "
+            "layer (mamba2, hymba) on the card waits for ROADMAP queue 1 "
+            "item 6 step 5 (the SSD backward kernel)")
     x, dt, A, Bm, Cm = (t.to(dev) for t in (x, dt, A, Bm, Cm))
     if dev.type == "cuda":
         return ssd_intra_chunk_cuda(x, dt.float(), A.float().contiguous(),

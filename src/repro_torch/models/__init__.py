@@ -1,6 +1,5 @@
-"""Model substrate for serving: layers, GQA and MLA attention, SSD, MoE,
-blocks, LM. Twin of ``repro.models`` (the serving path; training comes with
-a later slice)."""
+"""Model substrate for training and serving: layers, GQA and MLA
+attention, SSD, MoE, blocks, LM. Twin of ``repro.models``."""
 from .config import (
     SHAPES,
     ArchConfig,
@@ -13,11 +12,16 @@ from .config import (
 from .convert import params_from_jax
 from .layers import count_params
 from .model import (
+    abstract_init,
     decode_step,
+    forward,
     init_caches,
+    loss_fn,
+    make_train_step,
     model_init,
     padded_vocab,
     prefill,
+    value_and_grad,
 )
 
 __all__ = [
@@ -28,11 +32,16 @@ __all__ = [
     "RunConfig",
     "SSMConfig",
     "ShapeConfig",
+    "abstract_init",
     "count_params",
     "decode_step",
+    "forward",
     "init_caches",
+    "loss_fn",
+    "make_train_step",
     "model_init",
     "padded_vocab",
     "params_from_jax",
     "prefill",
+    "value_and_grad",
 ]

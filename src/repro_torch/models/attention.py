@@ -1,15 +1,19 @@
-"""Attention for prefill and decode: GQA (full or sliding window) and
-DeepSeek-V2 multi-head latent attention (MLA). Twin of the serving half of
+"""Attention for training, prefill and decode: GQA (full or sliding window)
+and DeepSeek-V2 multi-head latent attention (MLA). Twin of
 ``repro.models.attention``.
 
-Prefill attention goes through ``kernels.flash_attention.ops.
-flash_attention``: the CUDA kernel when the tensors are on the card, the
-plain version on the CPU. It computes the function of the reference's
-``chunked_attention`` (the jnp path), which the reference meant the Pallas
-kernel to replace on its accelerator. MLA's values (head dim 128) are
+Training and prefill attention go through ``kernels.flash_attention.ops.
+flash_attention``: the CUDA kernels when the tensors are on the card, the
+plain versions on the CPU. It computes the function of the reference's
+``chunked_attention`` (the jnp path, which the reference meant the Pallas
+kernel to replace on its accelerator) and, under autograd, its gradient:
+the reference's hand-written backward ``_flash_bwd_impl``, on the card the
+backward kernel. MLA's values (head dim 128) are
 zero-padded to the query/key head dim (192) for the kernel, which has one
 head dim for q, k and v, and the output is sliced back: the padded columns
 are zeros and the scale ``D**-0.5`` is MLA's ``(nope + rope)**-0.5``.
+The backward kernel does not take D = 192, so MLA trains on the CPU only
+(on the card a call under grad raises).
 
 Decode attends one query against a contiguous KV cache in plain PyTorch, as
 the reference does in jnp; the port writes the new token into the cache in

@@ -1,4 +1,4 @@
-"""Decoder blocks for serving. Twin of ``repro.models.blocks``.
+"""Decoder blocks for training and serving. Twin of ``repro.models.blocks``.
 
 Kinds: ``attn_dense`` (GQA + dense MLP), ``attn_moe`` (GQA + MoE FFN),
 ``mla_dense`` and ``mla_moe`` (MLA + dense MLP or MoE FFN), ``ssd``
@@ -6,8 +6,10 @@ Kinds: ``attn_dense`` (GQA + dense MLP), ``attn_moe`` (GQA + MoE FFN),
 GQA in parallel with SSD heads, then an MLP).
 
 Each kind has init (one layer; ``models.model`` stacks a group) / apply
-(prefill) / init_cache / decode. The MoE auxiliary loss of the reference's
-``block_apply`` belongs to training and is not returned.
+(training: ``(x, aux)``, the MoE load-balance loss or 0, no cache) /
+prefill (``(x, cache)``) / init_cache / decode. The reference's
+``block_apply`` returns ``(x, aux, cache)`` and builds the cache under
+``collect_cache``; the port splits the two uses.
 """
 from __future__ import annotations
 
@@ -47,19 +49,22 @@ def _check_kind(kind: str) -> None:
 
 
 def _moe_ffn(pf: Params, xn: torch.Tensor, cfg: ArchConfig,
-             run: RunConfig) -> torch.Tensor:
-    """The MoE FFN. The reference runs ``moe_impl="ep"`` (expert parallel,
-    shard_map all_to_all) only under a device mesh and the dense path
-    without one; the port has no mesh, so both values compute the dense
-    path."""
-    return moe_apply_dense(pf, xn, cfg)[0]
+             run: RunConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MoE FFN: ``(y, aux)``. The reference runs ``moe_impl="ep"``
+    (expert parallel, shard_map all_to_all) only under a device mesh and
+    the dense path without one; the port has no mesh, so both values
+    compute the dense path."""
+    return moe_apply_dense(pf, xn, cfg)
 
 
 def _ffn(kind: str, pf: Params, xn: torch.Tensor, cfg: ArchConfig,
-         run: RunConfig) -> torch.Tensor:
+         run: RunConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """The FFN sublayer: ``(y, aux)``, aux the MoE load-balance loss, a
+    zero f32 scalar for a dense MLP."""
     if kind.endswith("_moe"):
         return _moe_ffn(pf, xn, cfg, run)
-    return mlp_apply(pf, xn, cfg.mlp)
+    return (mlp_apply(pf, xn, cfg.mlp),
+            torch.zeros((), dtype=torch.float32, device=xn.device))
 
 
 # ---------------------------------------------------------------- init
@@ -121,47 +126,73 @@ def _kv_to_cache(k, v, run: RunConfig, window: int | None, cache_len=None):
     return {"k": k.to(dt), "v": v.to(dt)}
 
 
-def _mixer_apply(kind, p, xn, cfg, run, positions, cache_len):
-    """The token-mixing sublayer. Returns (out, cache)."""
+def _mixer_apply(kind, p, xn, cfg, run, positions, collect_cache,
+                 cache_len=None):
+    """The token-mixing sublayer. Returns (out, cache), the cache None
+    unless ``collect_cache``."""
+    kv = dict(return_kv=collect_cache)
     if kind in _ATTN:
-        out, (k, v) = gqa_apply(p["attn"], xn, cfg, run, positions,
-                                return_kv=True)
+        out = gqa_apply(p["attn"], xn, cfg, run, positions, **kv)
+        if not collect_cache:
+            return out, None
+        out, (k, v) = out
         return out, _kv_to_cache(k, v, run, None, cache_len)
     if kind in _MLA:
-        out, (ckv, krope) = mla_apply(p["attn"], xn, cfg, run, positions,
-                                      return_kv=True)
+        out = mla_apply(p["attn"], xn, cfg, run, positions, **kv)
+        if not collect_cache:
+            return out, None
+        out, (ckv, krope) = out
         if cache_len is not None and cache_len > ckv.shape[1]:
             ckv, krope = _grow(ckv, cache_len), _grow(krope, cache_len)
         dt = latent_cache_dtype(run)
         return out, {"ckv": ckv.to(dt), "krope": krope.to(dt)}
     if kind == "ssd":
-        return ssd_block_apply(p["ssd"], xn, cfg, return_state=True,
-                               chunk=run.ssd_chunk)
+        out = ssd_block_apply(p["ssd"], xn, cfg, return_state=collect_cache,
+                              chunk=run.ssd_chunk)
+        return out if collect_cache else (out, None)
     w = _window(kind, cfg)
-    a, (k, v) = gqa_apply(p["attn"], xn, cfg, run, positions, window=w,
-                          return_kv=True)
-    s, st = ssd_block_apply(p["ssd"], xn, cfg, return_state=True,
-                            chunk=run.ssd_chunk)
-    cache = {"attn": _kv_to_cache(k, v, run, w, cache_len), "ssm": st}
+    a = gqa_apply(p["attn"], xn, cfg, run, positions, window=w, **kv)
+    s = ssd_block_apply(p["ssd"], xn, cfg, return_state=collect_cache,
+                        chunk=run.ssd_chunk)
+    cache = None
+    if collect_cache:
+        (a, (k, v)), (s, st) = a, s
+        cache = {"attn": _kv_to_cache(k, v, run, w, cache_len), "ssm": st}
     out = 0.5 * (norm_apply(p["bnorm_a"], a) + norm_apply(p["bnorm_s"], s))
     return out, cache
 
 
-def block_apply(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig,
-                run: RunConfig, positions: torch.Tensor,
-                cache_len: int | None = None):
-    """One layer's prefill. Returns (x_out, cache)."""
+def _block(kind, p, x, cfg, run, positions, collect_cache, cache_len=None):
+    """One layer: (x_out, aux, cache|None), the reference's
+    ``block_apply``."""
     _check_kind(kind)
     mix, cache = _mixer_apply(
         kind, p,
         norm_apply(p["norm1"], x, stats_only_f32=run.norm_stats_only_f32),
-        cfg, run, positions, cache_len,
+        cfg, run, positions, collect_cache, cache_len,
     )
     x = x + mix
     if kind == "ssd":
-        return x, cache
+        return x, torch.zeros((), dtype=torch.float32, device=x.device), cache
     xn = norm_apply(p["norm2"], x, stats_only_f32=run.norm_stats_only_f32)
-    return x + _ffn(kind, p["ffn"], xn, cfg, run), cache
+    y, aux = _ffn(kind, p["ffn"], xn, cfg, run)
+    return x + y, aux, cache
+
+
+def block_apply(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig,
+                run: RunConfig, positions: torch.Tensor):
+    """One layer's training forward. Returns (x_out, aux): aux the MoE
+    load-balance loss (f32 scalar), 0 for the other kinds."""
+    x, aux, _ = _block(kind, p, x, cfg, run, positions, False)
+    return x, aux
+
+
+def block_prefill(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig,
+                  run: RunConfig, positions: torch.Tensor,
+                  cache_len: int | None = None):
+    """One layer's prefill. Returns (x_out, cache)."""
+    x, _, cache = _block(kind, p, x, cfg, run, positions, True, cache_len)
+    return x, cache
 
 
 # ---------------------------------------------------------------- decode
@@ -203,4 +234,4 @@ def block_decode(kind: str, p: Params, cache: dict, x: torch.Tensor,
     if kind == "ssd":
         return x, cache
     xn = norm_apply(p["norm2"], x)
-    return x + _ffn(kind, p["ffn"], xn, cfg, run), cache
+    return x + _ffn(kind, p["ffn"], xn, cfg, run)[0], cache

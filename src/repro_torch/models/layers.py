@@ -5,7 +5,8 @@ Parameters keep the reference's tree and layout: a dense weight is
 ``scale`` (and ``bias`` for layernorm), tables are ``(vocab, d)``. The
 reference's logical-axis specs drive sharding and have no counterpart on one
 card, so ``*_init`` return parameters only, of one layer (``stack_init``
-stacks a group's layers on a leading dim). Random draws come from an
+stacks a group's layers on a leading dim). ``tree_map`` and
+``tree_flatten`` walk the nested dicts. Random draws come from an
 explicit ``torch.Generator``; on the ``meta`` device nothing is drawn.
 """
 from __future__ import annotations
@@ -108,6 +109,50 @@ def mlp_apply(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
     # jax.nn.gelu is the tanh approximation by default
     h = F.gelu(dense_apply(p["wi"], x), approximate="tanh")
     return dense_apply(p["wo"], h)
+
+
+def stack_init(init_fn, gen, n: int, cast=None) -> Params:
+    """``n`` layers of ``init_fn(gen)`` stacked on a leading "layers" dim
+    (the reference's ``stack_init``, which vmaps over split keys; one
+    generator here, drawn layer after layer). The layers are drawn one at a
+    time and copied into the stack, so the peak is the stack plus one
+    layer's draws; ``cast`` maps each drawn layer's tree to the one stored
+    (the stack takes the first layer's dtypes)."""
+    cast = cast or (lambda t: t)
+    layer = cast(init_fn(gen))
+    stack = tree_map(lambda t: t.new_empty((n, *t.shape)), layer)
+    _copy_into(stack, layer, 0)
+    del layer
+    for i in range(1, n):
+        _copy_into(stack, init_fn(gen), i)
+    return stack
+
+
+def _copy_into(stack: Params, layer: Params, i: int) -> None:
+    for k, v in layer.items():
+        if isinstance(v, dict):
+            _copy_into(stack[k], v, i)
+        elif v.device.type != "meta":
+            stack[k][i].copy_(v)
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts (and of ``rest``, trees of
+    the same keys), keeping the tree."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_flatten(tree, prefix: str = "") -> list[tuple[str, Any]]:
+    """``(path, leaf)`` pairs of nested dicts in the order of
+    ``jax.tree_util`` (keys sorted), paths joined by ``/``."""
+    if isinstance(tree, dict):
+        return [pair for k in sorted(tree)
+                for pair in tree_flatten(tree[k], f"{prefix}/{k}"
+                                         if prefix else str(k))]
+    return [(prefix, tree)]
 
 
 def tree_leaves(tree) -> list:

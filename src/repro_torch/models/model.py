@@ -1,5 +1,6 @@
-"""Decoder LM for serving: embed -> block groups -> norm -> LM head. Twin of
-the serving half of ``repro.models.model``.
+"""Decoder LM: embed -> block groups -> norm -> LM head, for training
+(``forward``/``loss_fn``/``make_train_step``) and serving (``prefill``/
+``decode_step``). Twin of ``repro.models.model``.
 
 Parameters keep the reference's tree: ``embed`` (token models only), one
 ``g{i}`` per layout group with every leaf stacked on a leading "layers"
@@ -10,12 +11,16 @@ model (``embed_input="frames"``) reads precomputed embeddings
 stores the leaves that are only ever cast to the activations' dtype in
 ``run.activations_dtype``, which a model too large for the card in f32
 needs. The reference scans each group with ``lax.scan``; the
-port loops over the layers and indexes the stacked weights. ``remat`` and
-sharding constraints have no meaning when serving on one card. Caches are
+port loops over the layers. Serving indexes the stacked weights; training
+unbinds each stacked leaf once per forward, so that autograd stacks each
+leaf's gradient once (a per-layer index would build a zero tensor of the
+whole stack in every layer's backward). ``run.remat == "block"``
+recomputes each layer in the backward (``torch.utils.checkpoint``, the
+reference's ``jax.checkpoint`` of the scan body; the attention forward
+kernel then runs twice a layer); any other value keeps the activations.
+Sharding constraints have no meaning on one card. Caches are
 per layer: ``caches["g{i}"]`` is a list with one dict per layer of the
 group (the reference stacks them); decode writes KV caches in place.
-
-``forward``/``loss_fn`` and training come with the training slice.
 """
 from __future__ import annotations
 
@@ -24,10 +29,15 @@ from typing import Any
 import torch
 
 from ..device import resolve_device
-from .blocks import block_apply, block_decode, block_init, block_init_cache
+from torch.utils.checkpoint import checkpoint
+
+from .blocks import (
+    block_apply, block_decode, block_init, block_init_cache, block_prefill,
+)
 from .config import ArchConfig, RunConfig
 from .layers import (
     Params, embed_apply, embed_init, lm_head_apply, norm_apply, norm_init,
+    stack_init, tree_leaves, tree_map,
 )
 from .rope import sinusoidal
 
@@ -67,32 +77,6 @@ def _cast_tree(tree: Params, dtype: torch.dtype, path=()) -> Params:
             for k, v in tree.items()}
 
 
-def _stack_init(init_fn, count: int, dtype: torch.dtype) -> Params:
-    """``count`` layers of ``init_fn()`` stacked on a leading dim, drawn one
-    layer at a time in f32 and stored by ``_cast_tree`` in ``dtype``: the
-    peak is the stack plus one layer's f32 draws."""
-    layer = _cast_tree(init_fn(), dtype)
-    stack = _map(lambda t: t.new_empty((count, *t.shape)), layer)
-    _copy_into(stack, layer, 0)
-    del layer
-    for i in range(1, count):
-        _copy_into(stack, init_fn(), i)
-    return stack
-
-
-def _map(fn, tree: Params) -> Params:
-    return {k: _map(fn, v) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
-
-
-def _copy_into(stack: Params, layer: Params, i: int) -> None:
-    for k, v in layer.items():
-        if isinstance(v, dict):
-            _copy_into(stack[k], v, i)
-        elif v.device.type != "meta":
-            stack[k][i].copy_(v)
-
-
 def model_init(seed: int, cfg: ArchConfig, run: RunConfig, *,
                device: torch.device | str = "cuda") -> Params:
     """Random parameters drawn from a ``torch.Generator`` seeded with
@@ -117,13 +101,21 @@ def model_init(seed: int, cfg: ArchConfig, run: RunConfig, *,
         params.update(_cast_tree(
             {"embed": embed_init(gen, vp, cfg.d_model, dev)}, dtype))
     for gi, (kind, count) in enumerate(cfg.layout):
-        params[f"g{gi}"] = _stack_init(
-            lambda: block_init(kind, gen, cfg, dev), count, dtype)
+        params[f"g{gi}"] = stack_init(
+            lambda g: block_init(kind, g, cfg, dev), gen, count,
+            lambda t: _cast_tree(t, dtype))
     params["final_norm"] = norm_init(cfg.d_model, dev, cfg.norm)
     if not (cfg.tie_embeddings and tokens):
         params.update(_cast_tree(
             {"lm_head": embed_init(gen, vp, cfg.d_model, dev)}, dtype))
     return params
+
+
+def abstract_init(cfg: ArchConfig, run: RunConfig) -> Params:
+    """The parameter tree's shapes and dtypes on ``torch.device("meta")``,
+    allocating nothing (the reference's ``abstract_init`` without its
+    sharding specs, which one card does not use)."""
+    return model_init(0, cfg, run, device="meta")
 
 
 def _layer(gparams: Params, i: int) -> Params:
@@ -146,6 +138,26 @@ def _embed(params, cfg: ArchConfig, run: RunConfig, batch: dict,
     return x
 
 
+def _unbind(gparams: Params, count: int) -> list[Params]:
+    """The group's layers as views, each stacked leaf unbound once."""
+    parts = tree_map(lambda t: torch.unbind(t, 0), gparams)
+    return [tree_map(lambda t: t[i], parts) for i in range(count)]
+
+
+def _group_apply(kind: str, gparams: Params, count: int, x: torch.Tensor,
+                 cfg: ArchConfig, run: RunConfig, positions: torch.Tensor):
+    """The group's layers in order: (x, summed aux f32)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in _unbind(gparams, count):
+        if run.remat == "block":
+            x, a = checkpoint(block_apply, kind, lp, x, cfg, run, positions,
+                              use_reentrant=False)
+        else:
+            x, a = block_apply(kind, lp, x, cfg, run, positions)
+        aux = aux + a
+    return x, aux
+
+
 def _logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     table = params["lm_head"] if "lm_head" in params else params["embed"]
     logits = lm_head_apply(table, x).float()
@@ -154,6 +166,68 @@ def _logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
         mask = torch.arange(vp, device=x.device) < cfg.vocab
         logits = torch.where(mask, logits, -1e30)
     return logits
+
+
+def forward(params: Params, batch: dict, cfg: ArchConfig, run: RunConfig):
+    """Training forward: ``(loss, metrics)``. ``batch`` holds ``tokens``
+    (B, S) (a frame model's ``frames`` (B, S, d)) and ``labels`` (B, S).
+    The loss is the mean cross-entropy (from ``logsumexp`` of the f32
+    logits) plus ``run.z_loss`` times the mean squared log-normaliser plus
+    the MoE load-balance loss times its coefficient."""
+    check_run(run)
+    x = _embed(params, cfg, run, batch)
+    B, S = x.shape[0], x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for gi, (kind, count) in enumerate(cfg.layout):
+        x, aux = _group_apply(kind, params[f"g{gi}"], count, x, cfg, run,
+                              positions)
+        aux_total = aux_total + aux
+    x = norm_apply(params["final_norm"], x)
+    logits = _logits(params, cfg, x)
+    labels = batch["labels"].to(device=x.device, dtype=torch.long)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    ce = (lse - ll).mean()
+    zl = run.z_loss * (lse**2).mean()
+    aux_coef = cfg.moe.aux_loss_coef if cfg.moe else 0.0
+    loss = ce + zl + aux_coef * aux_total
+    return loss, {"ce": ce, "z_loss": zl, "moe_aux": aux_total}
+
+
+def loss_fn(params: Params, batch: dict, cfg: ArchConfig, run: RunConfig):
+    return forward(params, batch, cfg, run)
+
+
+def value_and_grad(fn, params: Params, *args):
+    """``((value, aux), grads)`` of ``fn(params, *args) -> (value, aux)``,
+    the gradients a tree like ``params`` (zeros for a leaf the value does
+    not reach), as ``jax.value_and_grad(fn, has_aux=True)`` returns them.
+    The leaves are differentiated through detached aliases, so that the
+    caller may update ``params`` in place afterwards."""
+    alias = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    leaves = tree_leaves(alias)
+    with torch.enable_grad():
+        value, aux = fn(alias, *args)
+        grads = torch.autograd.grad(value, leaves, allow_unused=True)
+    it = iter(torch.zeros_like(t) if g is None else g
+              for t, g in zip(leaves, grads))
+    return ((value.detach(), tree_map(lambda t: t.detach(), aux)),
+            tree_map(lambda _: next(it), alias))
+
+
+def make_train_step(cfg: ArchConfig, run: RunConfig, optimizer):
+    """(state, batch) -> (state, metrics); ``optimizer`` has
+    ``update(state, grads)`` (``repro_torch.train.optim``)."""
+
+    def train_step(state, batch):
+        (loss, metrics), grads = value_and_grad(
+            lambda p: loss_fn(p, batch, cfg, run), state.params)
+        state = optimizer.update(state, grads)
+        return state, dict(metrics, loss=loss)
+
+    return train_step
 
 
 @torch.no_grad()
@@ -174,8 +248,8 @@ def prefill(params: Params, batch: dict, cfg: ArchConfig, run: RunConfig,
     for gi, (kind, count) in enumerate(cfg.layout):
         caches[f"g{gi}"] = []
         for i in range(count):
-            x, cache = block_apply(kind, _layer(params[f"g{gi}"], i), x, cfg,
-                                   run, positions, cache_len=cache_len)
+            x, cache = block_prefill(kind, _layer(params[f"g{gi}"], i), x,
+                                     cfg, run, positions, cache_len=cache_len)
             caches[f"g{gi}"].append(cache)
     x = norm_apply(params["final_norm"], x)
     return _logits(params, cfg, x[:, -1:, :]), caches

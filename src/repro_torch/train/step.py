@@ -1,0 +1,65 @@
+"""The train step: loss -> grads -> clip -> AdamW, with microbatch
+gradient accumulation and a cast compute copy over f32 master parameters.
+Twin of ``repro.train.step``."""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..models.config import ArchConfig, RunConfig
+from ..models.layers import tree_map
+from ..models.model import loss_fn, value_and_grad
+from .optim import TrainState, adamw_update, clip_by_global_norm, cosine_lr
+
+
+def cast_params(params, dtype: torch.dtype):
+    """Every leaf cast to ``dtype``; differentiable, so the gradients come
+    back to the f32 masters in f32."""
+    return tree_map(lambda x: x.to(dtype), params)
+
+
+def build_train_step(
+    cfg: ArchConfig,
+    run: RunConfig,
+    *,
+    accum: int = 1,
+    lr_fn: Callable | None = None,
+):
+    """Returns ``train_step(state, batch) -> (state, metrics)``; the state's
+    tensors are updated in place (``optim.adamw_update``).
+
+    ``accum`` > 1 splits the batch into microbatches whose gradients sum in
+    an f32 accumulator, then divides by ``accum``."""
+    compute_dtype = getattr(torch, run.params_dtype)
+    lr_fn = lr_fn or cosine_lr(run)
+
+    def loss_of(params, batch):
+        return loss_fn(cast_params(params, compute_dtype), batch, cfg, run)
+
+    def train_step(state: TrainState, batch: dict):
+        metrics = {}
+        if accum == 1:
+            (loss, metrics), grads = value_and_grad(loss_of, state.params,
+                                                    batch)
+        else:
+            mbs = {k: x.reshape(accum, x.shape[0] // accum, *x.shape[1:])
+                   for k, x in batch.items()}
+            grads = tree_map(torch.zeros_like, state.params)
+            loss = 0.0
+            for i in range(accum):
+                (l, _), g = value_and_grad(
+                    loss_of, state.params, {k: x[i] for k, x in mbs.items()})
+                tree_map(lambda a, b: a.add_(b), grads, g)
+                loss = loss + l
+                del g
+            grads = tree_map(lambda g: g / accum, grads)
+            loss = loss / accum
+        lr = lr_fn(state.step)
+        grads, gnorm = clip_by_global_norm(grads)
+        new_state = adamw_update(state, grads, run, lr_fn)
+        out = {"loss": loss, "grad_norm": gnorm, "lr": lr}
+        out.update(metrics)
+        return new_state, out
+
+    return train_step

@@ -1,0 +1,212 @@
+"""The port's attention backward (``repro_torch.kernels.flash_attention``)
+against the reference's hand-written backward.
+
+- ``flash_attention_bwd_ref`` (the CPU path and the backward kernel's
+  oracle) against ``jax.vjp`` of ``repro.models.attention.
+  chunked_attention`` and against ``_flash_bwd_impl`` called directly, on
+  seeded f32 inputs: causal MHA, GQA at G = 3 with a window, G = 8, D = 16,
+  64 and 128, a ragged S and a ``q_offset`` chunk. atol 1e-5: both are the
+  same f32 function summed in another order (the reference in 32-wide
+  chunks), a few ulps of O(1) gradients apart.
+- ``flash_attention_ref(..., return_lse=True)``'s row log-sum-exp against
+  ``_flash_fwd_impl``'s, atol 1e-5 (the same reason).
+- The ``torch.autograd.Function`` behind ``flash_attention`` on the CPU
+  against ``torch.autograd`` through the plain forward, atol 1e-5; without
+  grad the serving path keeps its plain forward and no graph.
+- The bf16 kernel's arithmetic (P and dS rounded to bf16 before their
+  second products, the gradients to bf16) emulated here, not in the
+  package, within half the per-row bound that ``chip_smoke.py`` holds the
+  kernel to (``BWD_ROW_RTOL`` 2e-2, rows floored at a tenth of the mean row
+  norm), and a dropped 64-key tile over ten times that bound.
+- Each backward kernel instance's shared memory within a block's 227 KB;
+  on the card, a head dim the backward kernel lacks (MLA's 192) and the SSD
+  kernel refuse a call under grad.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models.attention import (
+    _flash_bwd_impl,
+    _flash_fwd_impl,
+    chunked_attention,
+)
+from repro_torch.kernels.flash_attention import (
+    FlashAttention,
+    attention_mask,
+    flash_attention,
+    flash_attention_bwd_cuda,
+    flash_attention_bwd_ref,
+    flash_attention_ref,
+)
+from repro_torch.kernels.flash_attention.flash_attention import (
+    BWD_HEAD_DIMS,
+    bwd_smem_bytes,
+)
+from repro_torch.kernels.ssd import ssd_intra_chunk
+
+# (B, Sq, Sk, H, KH, D, window, q_offset)
+CASES = [
+    (2, 96, 96, 4, 4, 64, None, 0),  # causal MHA
+    (1, 80, 80, 6, 2, 16, 24, 0),  # GQA G = 3, window
+    (1, 64, 64, 8, 1, 128, None, 0),  # GQA G = 8, D = 128
+    (2, 77, 77, 3, 1, 64, None, 0),  # ragged S, G = 3
+    (1, 40, 100, 4, 2, 32, 50, 60),  # q_offset chunk with a window
+]
+IDS = ["mha", "g3_window_d16", "g8_d128", "ragged_g3", "q_offset_window"]
+ATOL = 1e-5
+CHUNK = 32
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _inputs(B, Sq, Sk, H, KH, D, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s, np.float32)
+            for s in ((B, Sq, H, D), (B, Sk, KH, D), (B, Sk, KH, D),
+                      (B, Sq, H, D))]
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_bwd_ref_matches_jax_vjp_and_flash_bwd_impl(case):
+    B, Sq, Sk, H, KH, D, window, q_offset = case
+    q, k, v, do = _inputs(B, Sq, Sk, H, KH, D)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    out, lse = flash_attention_ref(tq, tk, tv, return_lse=True, **kw)
+    got = flash_attention_bwd_ref(tq, tk, tv, out, lse, tdo, **kw)
+
+    def fwd(q_, k_, v_):
+        return chunked_attention(q_, k_, v_, chunk_q=CHUNK, chunk_k=CHUNK,
+                                 **kw)
+
+    jout, vjp = jax.vjp(fwd, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=ATOL)
+    for a, b in zip(got, vjp(jnp.asarray(do))):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL)
+    jo, jlse = _flash_fwd_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               True, window, CHUNK, CHUNK, q_offset)
+    direct = _flash_bwd_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             jlse, jo, jnp.asarray(do), True, window, CHUNK,
+                             CHUNK, q_offset)
+    for a, b in zip(got, direct):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_lse_matches_flash_fwd_impl(case):
+    B, Sq, Sk, H, KH, D, window, q_offset = case
+    q, k, v, _ = _inputs(B, Sq, Sk, H, KH, D, seed=1)
+    _, lse = flash_attention_ref(*map(torch.from_numpy, (q, k, v)),
+                                 causal=True, window=window,
+                                 q_offset=q_offset, return_lse=True)
+    _, jlse = _flash_fwd_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              True, window, CHUNK, CHUNK, q_offset)
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (B, Sq, H)
+    np.testing.assert_allclose(lse.numpy(),
+                               np.asarray(jlse).reshape(B, Sq, H), atol=ATOL)
+
+
+@pytest.mark.parametrize("window", [None, 20])
+def test_autograd_function_matches_autograd_of_the_plain_forward(window):
+    q, k, v, do = map(torch.from_numpy, _inputs(2, 50, 50, 6, 2, 32, seed=2))
+    grads = []
+    for fn in (lambda *a: flash_attention(*a, window=window, device="cpu"),
+               lambda *a: flash_attention_ref(*a, window=window)):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves)
+        grads.append(torch.autograd.grad(out, leaves, do))
+    out = flash_attention(*(t.requires_grad_(True) for t in (q, k, v)),
+                          window=window, device="cpu")
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    for a, b in zip(*grads):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=ATOL)
+
+
+def test_serving_forward_builds_no_graph():
+    q, k, v, _ = map(torch.from_numpy, _inputs(1, 20, 20, 2, 2, 16))
+    with torch.no_grad():
+        out = flash_attention(*(t.requires_grad_(True) for t in (q, k, v)),
+                              device="cpu")
+    assert out.grad_fn is None
+    plain = flash_attention(q.detach(), k.detach(), v.detach(), device="cpu")
+    assert plain.grad_fn is None and torch.equal(out, plain)
+    assert issubclass(FlashAttention, torch.autograd.Function)
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _bwd_bf16_emulated(q, k, v, out, lse, dout, drop_tile=None):
+    """The bf16 kernel's arithmetic: bf16 inputs, f32 products, P and dS
+    rounded to bf16 before P^T dO, dS^T Q and dS K, gradients rounded to
+    bf16; ``drop_tile`` zeroes one 64-key tile of P (a planted fault)."""
+    B, S, H, D = q.shape
+    qf, kf, vf, of, dof = (_bf16(t) for t in (q, k, v, out, dout))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * D**-0.5
+    p = torch.exp(torch.clamp(s - lse.permute(0, 2, 1)[..., None], max=30.0))
+    p = torch.where(attention_mask(S, S, causal=True, window=None,
+                                   q_offset=0), p, 0.0)
+    if drop_tile is not None:
+        p[..., 64 * drop_tile: 64 * drop_tile + 64] = 0.0
+    delta = (dof * of).sum(-1).permute(0, 2, 1)[..., None]
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta) * D**-0.5
+    dv = torch.einsum("bhqk,bqhd->bkhd", _bf16(p), dof)
+    dk = torch.einsum("bhqk,bqhd->bkhd", _bf16(ds), qf)
+    dq = torch.einsum("bhqk,bkhd->bqhd", _bf16(ds), kf)
+    return tuple(_bf16(t) for t in (dq, dk, dv))
+
+
+def _row_rel(got, want, floor=0.1):
+    norms = want.norm(dim=-1)
+    return float(((got - want).norm(dim=-1)
+                  / norms.clamp_min(floor * float(norms.mean()))).max())
+
+
+def test_bf16_backward_arithmetic_within_the_chip_row_bound():
+    """chip_smoke.py's BWD_ROW_RTOL (2e-2) holds the emulated kernel
+    arithmetic with a margin of two and catches a dropped key tile."""
+    q, k, v, do = (_bf16(torch.from_numpy(a))
+                   for a in _inputs(1, 256, 256, 2, 2, 64, seed=3))
+    out, lse = flash_attention_ref(q, k, v, return_lse=True)
+    want = flash_attention_bwd_ref(q, k, v, _bf16(out), lse, do)
+    got = _bwd_bf16_emulated(q, k, v, out, lse, do)
+    errs = [_row_rel(a, b) for a, b in zip(got, want)]
+    assert max(errs) <= 1e-2, errs
+    dropped = _bwd_bf16_emulated(q, k, v, out, lse, do, drop_tile=1)
+    assert max(_row_rel(a, b) for a, b in zip(dropped, want)) > 0.2
+    # the floor: the first causal row's dq is exactly 0 (p = 1 on its one
+    # key, where dout . v equals delta)
+    assert float(want[0][:, 0].abs().max()) < 1e-6
+
+
+@pytest.mark.parametrize("part", ["dkdv", "dq"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", BWD_HEAD_DIMS)
+def test_backward_kernel_shared_memory_fits_a_block(D, dtype, part):
+    assert 0 < bwd_smem_bytes(dtype, D, part) <= 232_448
+
+
+def test_card_refuses_training_what_it_has_no_backward_for(monkeypatch):
+    q = torch.zeros((1, 8, 2, 192), requires_grad=True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention_bwd_cuda(q.detach(), q.detach(), q.detach(),
+                                 q.detach(), torch.zeros((1, 8, 2)),
+                                 q.detach())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(NotImplementedError, match="item 6 step 6"):
+        flash_attention(q, q, q, device="cuda")
+    x = torch.zeros((1, 8, 2, 16), requires_grad=True)
+    dt, bm = torch.zeros((1, 8, 2)), torch.zeros((1, 8, 1, 16))
+    with pytest.raises(NotImplementedError, match="item 6 step 5"):
+        ssd_intra_chunk(x, dt, torch.zeros(2), bm, bm, 4, device="cuda")

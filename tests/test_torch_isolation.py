@@ -61,7 +61,13 @@ def test_importing_every_port_module_loads_neither_jax_nor_repro():
                  "repro_torch.configs.starcoder2_7b",
                  "repro_torch.configs.deepseek_v2_236b",
                  "repro_torch.configs.musicgen_medium",
-                 "repro_torch.configs.qwen2_vl_72b"):
+                 "repro_torch.configs.qwen2_vl_72b",
+                 "repro_torch.train.data",
+                 "repro_torch.train.optim",
+                 "repro_torch.train.step",
+                 "repro_torch.train.loop",
+                 "repro_torch.ckpt.checkpoint",
+                 "repro_torch.launch.train"):
         assert name in mods
     code = (
         "import importlib, sys\n"
@@ -189,3 +195,21 @@ def test_trace_replay_and_calibration_refuse_a_missing_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         dp_broadcast_schedule(6)
     assert replay_host(tr, cfg, device="cpu").total_cycles > 0
+
+
+def test_training_refuses_a_missing_card(monkeypatch):
+    """``train`` and the training CLI default to the card and raise without
+    one; the same loop runs with ``device="cpu"``."""
+    from repro_torch.launch.train import main as train_cli
+    from repro_torch.train import LoopConfig, synthetic_batch, train
+
+    cfg = SMOKES["smollm-135m"]
+    run = RunConfig(vocab_round=64)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    loop = LoopConfig(steps=1, batch=1, seq=8, log_every=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(cfg, run, loop)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_cli(["--arch", "smollm-135m", "--smoke", "--steps", "1"])
+    assert train(cfg, run, loop, device="cpu").final_step == 1
+    assert synthetic_batch(cfg, 1, 8, 0, 0)["tokens"].device.type == "cpu"

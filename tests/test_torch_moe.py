@@ -27,7 +27,7 @@ import repro_torch.models.moe as tmoe
 from repro.configs import SMOKES as JAX_SMOKES
 from repro_torch.configs import ARCHS, SMOKES
 from repro_torch.models import RunConfig
-from repro_torch.models.blocks import block_apply, block_init
+from repro_torch.models.blocks import block_init, block_prefill
 
 NAME = "moonshot-v1-16b-a3b"
 TOL = {"float32": dict(atol=1e-5, rtol=1e-5), "bfloat16": dict(atol=4e-2)}
@@ -174,9 +174,9 @@ def test_moe_impl_ep_computes_the_dense_path(dtype):
     p = block_init("attn_moe", gen, cfg, torch.device("cpu"))
     x = torch.randn((2, 24, cfg.d_model), generator=gen).to(TDT[dtype])
     pos = torch.arange(24, dtype=torch.int32).expand(2, 24)
-    outs = [block_apply("attn_moe", p, x, cfg,
-                        RunConfig(activations_dtype=dtype, moe_impl=impl),
-                        pos)
+    outs = [block_prefill("attn_moe", p, x, cfg,
+                          RunConfig(activations_dtype=dtype, moe_impl=impl),
+                          pos)
             for impl in ("dense", "ep")]
     assert torch.equal(outs[0][0], outs[1][0])
     for a, b in zip(outs[0][1].values(), outs[1][1].values()):
