@@ -133,11 +133,14 @@ non-zero before the result line:
    ``[serve_vs_plain]`` of its first two layers in f32 (for qwen2-vl:
    M-RoPE and GQA at G = 8);
 7e. training (``[train]``, a child process, ``--train``): first the flash
-   backward kernel at stablelm's training shape (B = 2, S = 4,096, 32
-   heads of 64, bf16) alone from the profiler, through its wrapper, beside
-   its plain version, SDPA's backward and its bound (``[kernel_time]
-   kernel=flash_attention_bwd``); then ``stablelm-1.6b`` at full width and
-   depth (1.64 B random parameters from seed 0, f32 master weights and
+   backward at stablelm's training shape (B = 2, S = 4,096, 32 heads of
+   64, bf16) on both routes from one run (``wgmma``, the main path's, and
+   ``mma_sync``, the comparison), each alone from the profiler and through
+   its wrapper (the routes in turns), beside the plain version, SDPA's
+   backward, the bound (10 D a visible pair) and the two-pass design's
+   floor (14 D) (``[kernel_time] kernel=flash_attention_bwd route=``);
+   then ``stablelm-1.6b`` at full width and depth (1.64 B random
+   parameters from seed 0, f32 master weights and
    AdamW moments, bf16 compute copy) trains 8 steps of B = 2 sequences of
    4,096 tokens of ``synthetic_batch`` (seed 0, lr 3e-3, remat "none": the
    training CLI's recipe) through ``repro_torch.train.train``: each step's
@@ -145,15 +148,17 @@ non-zero before the result line:
    share of the bf16 peak and the peak memory; the losses must be finite
    and the last below the first, and the launch counts, set to 0 just
    before, must show 24 forward (``wgmma_bf16``) and 24 backward
-   (``mma_bf16``) launches a step and no f32 kernel. One step split by
-   CUDA events (``[train_split]``: forward, backward, the flash kernels
-   inside each, clip, AdamW); the backward kernel against its plain
-   version on the q/k/v and output gradients of layers 0 and 23 of that
-   step and on seeded edge cases (GQA at G = 3 and 8, windows, Sk below
-   one tile, D = 16, 32, 128), bf16 at a per-row bound and f32 within
-   1e-5 x max |.|, two calls bit-equal; the first two layers in f32 on the
-   kernel path against the plain path (loss within 1e-5 relative, every
-   gradient leaf within 1e-3 x its max |.|); ``smollm-135m`` at full width
+   (``wgmma_bf16``) launches a step and no ``mma_bf16`` or f32 kernel. One
+   step split by CUDA events (``[train_split]``: forward, backward, the
+   flash kernels inside each, clip, AdamW); the backward kernels against
+   their plain version on the q/k/v and output gradients of layers 0 and
+   23 of that step and on seeded edge cases (GQA at G = 3 and 8, windows,
+   Sk below one tile, D = 16, 32, 128, a 40-query chunk at q_offset 60 of
+   100 keys under a window), bf16 on both routes at a per-row bound and
+   f32 within 1e-5 x max |.|, two calls bit-equal; the first two layers in
+   f32 on the kernel path against the plain path (loss within 1e-5
+   relative, every gradient leaf within 1e-3 x its max |.|); ``smollm-135m``
+   at full width
    trained 6 steps with a checkpoint at step 3, a run resumed from it
    beside the continuous run, and a saved state restored bit for bit;
 8. segmented min: ``segmin`` and ``arbitrate`` on the card over ten cases
@@ -205,7 +210,8 @@ non-zero before the result line:
     wall time split into host signature planning, compile and device time;
 13. the ``kernels`` JSON line (seven kernels: the six TPU kernels' ports
     and the flash backward, which replaces the reference's jnp backward;
-    flash attention's launches also by head dim), then the result line.
+    flash attention's launches also by head dim, the backward's by
+    route), then the result line.
 
 Phases 4, 5, 7 and 8 read their kernels' profiler times from a child
 process of this script (``python3 chip_smoke.py --noc-cycle-alone``,
@@ -349,14 +355,17 @@ BWD_ROW_RTOL = 2e-2
 BWD_ROW_FLOOR = 0.1
 BWD_F32_RTOL = 1e-5
 # edge cases of the backward's tiles on seeded random inputs
-# (label, B, S, H, KH, D, window)
+# (label, B, Sq, Sk, H, KH, D, window, q_offset); the last is a chunk of
+# 40 queries at position 60 of 100 keys under a window (the CPU tests'
+# q_offset case)
 BWD_EDGE_CASES = (
-    ("gqa3_window", 2, 333, 6, 2, 64, 100),
-    ("gqa8", 1, 300, 8, 1, 64, None),
-    ("sk_below_one_tile", 2, 40, 4, 2, 64, None),
-    ("d16", 2, 200, 4, 2, 16, None),
-    ("d32_window", 2, 333, 4, 1, 32, 70),
-    ("d128", 2, 333, 4, 2, 128, 100),
+    ("gqa3_window", 2, 333, 333, 6, 2, 64, 100, 0),
+    ("gqa8", 1, 300, 300, 8, 1, 64, None, 0),
+    ("sk_below_one_tile", 2, 40, 40, 4, 2, 64, None, 0),
+    ("d16", 2, 200, 200, 4, 2, 16, None, 0),
+    ("d32_window", 2, 333, 333, 4, 1, 32, 70, 0),
+    ("d128", 2, 333, 333, 4, 2, 128, 100, 0),
+    ("q_offset_window", 1, 40, 100, 4, 2, 32, 50, 60),
 )
 # the checkpoint round trip: smollm-135m at full width, a save at step
 # CKPT_AT of CKPT_STEPS
@@ -610,7 +619,7 @@ def check_earlier(phase: str, topo: str, rate: float, algo: str,
 def build_kernels() -> None:
     """Build every kernel library at once, one ``nvcc`` per source."""
     from repro_torch.kernels.dpm_cost import KERNEL as DPM_KERNEL
-    from repro_torch.kernels.flash_attention import BWD_KERNEL
+    from repro_torch.kernels.flash_attention import BWD_KERNEL, BWD_WGMMA_LIB
     from repro_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
     from repro_torch.kernels.noc_cycle import KERNEL
     from repro_torch.kernels.noc_step import KERNEL as SEGMIN_KERNEL
@@ -618,8 +627,9 @@ def build_kernels() -> None:
 
     kernels = [("noc_cycle", KERNEL), ("dpm_cost", DPM_KERNEL),
                ("flash_attention", FLASH_KERNEL),
-               ("flash_attention_bwd", BWD_KERNEL), ("ssd", SSD_KERNEL),
-               ("noc_step", SEGMIN_KERNEL)]
+               ("flash_attention_bwd", BWD_KERNEL),
+               ("flash_attention_bwd_wgmma", BWD_WGMMA_LIB),
+               ("ssd", SSD_KERNEL), ("noc_step", SEGMIN_KERNEL)]
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(kernels)) as pool:
         for f in [pool.submit(k.build) for _, k in kernels]:
@@ -632,7 +642,7 @@ def build_kernels() -> None:
             print(f"[build] ptxas: library={name} kernel={kernel} {report}",
                   flush=True)
     check_smem_mirrors(FLASH_KERNEL.build(), SSD_KERNEL.build(),
-                       BWD_KERNEL.build())
+                       BWD_KERNEL.build(), BWD_WGMMA_LIB.build())
 
 
 def kernel_name(mangled: str) -> str:
@@ -683,11 +693,11 @@ def ptxas_report(log: str) -> list[tuple[str, str]]:
     return out
 
 
-def check_smem_mirrors(flash_lib, ssd_lib, bwd_lib) -> None:
-    """Print each attention (forward and backward) and SSD kernel
-    instance's dynamic shared memory as its library computes it, and fail
-    if the Python mirror that the CPU tests hold to the 227 KB limit says
-    otherwise."""
+def check_smem_mirrors(flash_lib, ssd_lib, bwd_lib, bwd_wgmma_lib) -> None:
+    """Print each attention (forward and backward, both backward routes)
+    and SSD kernel instance's dynamic shared memory as its library computes
+    it, and fail if the Python mirror that the CPU tests hold to the 227 KB
+    limit says otherwise."""
     import torch
 
     from repro_torch.kernels.flash_attention.flash_attention import (
@@ -707,14 +717,21 @@ def check_smem_mirrors(flash_lib, ssd_lib, bwd_lib) -> None:
                 fail(f"flash smem mirror: {got} != {flash_smem(dtype, D)}")
         for D in BWD_HEAD_DIMS:
             for part in ("dkdv", "dq"):
-                got = bwd_lib.flash_attention_bwd_smem_bytes(
-                    bf16, D, int(part == "dkdv"))
-                kind = "tc_kernel" if bf16 else "kernel<f32>"
-                say("build", smem=f"flash_bwd_{part}_{kind}<{D}>",
-                    dynamic_smem=got)
-                if got != bwd_smem_bytes(dtype, D, part):
-                    fail(f"flash backward smem mirror: {got} != "
-                         f"{bwd_smem_bytes(dtype, D, part)}")
+                dkdv = int(part == "dkdv")
+                routes = [("mma_sync", bwd_lib.flash_attention_bwd_smem_bytes(
+                    bf16, D, dkdv), "tc_kernel" if bf16 else "kernel<f32>")]
+                if bf16:
+                    routes.append((
+                        "wgmma",
+                        bwd_wgmma_lib.flash_attention_bwd_wgmma_smem_bytes(
+                            D, dkdv), "wgmma_kernel"))
+                for route, got, kind in routes:
+                    want = bwd_smem_bytes(dtype, D, part, route=route)
+                    say("build", smem=f"flash_bwd_{part}_{kind}<{D}>",
+                        route=route, dynamic_smem=got)
+                    if got != want:
+                        fail(f"flash backward smem mirror ({route}): {got} "
+                             f"!= {want}")
         name = "ssd_intra_tc_kernel" if bf16 else "ssd_intra_kernel<f32>"
         for N, P in TC_SHAPES:
             args = (TC_MAX_CHUNK, N, P)
@@ -751,6 +768,25 @@ def profiled_ms(fn, match: str = "") -> tuple[float | None, int]:
         if count:
             return total / 1e3, count
     return None, 0
+
+
+def kernel_split_ms(fn, match: str) -> dict:
+    """Device ms of one call of ``fn`` by CUDA kernel, for the kernels whose
+    names contain ``match`` (``torch.profiler``; empty when the trace holds
+    no device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {re.search(rf"{match}\w*", e.key)[0]: e.device_time_total / 1e3
+            for e in prof.key_averages()
+            if getattr(e, "device_time_total", 0.0) > 0 and match in e.key
+            and e.device_type == DeviceType.CUDA}
 
 
 def median_ms(fn, reps: int = 3):
@@ -2638,10 +2674,12 @@ def row_rel_err(got, want) -> float:
 
 
 def check_bwd(label, q, k, v, dout, window, q_offset, dtype) -> dict:
-    """The backward kernel against its plain version on the card, on the
-    forward kernel's own out and lse (so that the backward alone is
-    compared); bf16 at the per-row bound ``BWD_ROW_RTOL``, f32 within
-    ``BWD_F32_RTOL`` x max |.|; a second call must give the same bits."""
+    """The backward kernels against their plain version on the card, on
+    the forward kernel's own out and lse (so that the backward alone is
+    compared); bf16 on both routes (``wgmma``, ``mma_sync``) at the per-row
+    bound ``BWD_ROW_RTOL``, f32 (one kernel whatever the route) within
+    ``BWD_F32_RTOL`` x max |.|; a second call of each must give the same
+    bits."""
     import torch
 
     from repro_torch.kernels.flash_attention import (
@@ -2649,7 +2687,7 @@ def check_bwd(label, q, k, v, dout, window, q_offset, dtype) -> dict:
         flash_attention_cuda, flash_attention_ref,
     )
     from repro_torch.kernels.flash_attention.flash_attention import (
-        BWD_VARIANTS,
+        BWD_ROUTES, BWD_VARIANTS,
     )
 
     q, k, v, dout = (t.to(dtype) for t in (q, k, v, dout))
@@ -2657,42 +2695,53 @@ def check_bwd(label, q, k, v, dout, window, q_offset, dtype) -> dict:
     out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
     lse_err = float((lse - flash_attention_ref(q, k, v, return_lse=True,
                                                **kw)[1]).abs().max())
-    fn = lambda: flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
-    got, k_ms = median_ms(fn)
-    again = fn()
-    repeat_equal = all(torch.equal(a, b) for a, b in zip(got, again))
     want, p_ms = median_ms(lambda: flash_attention_bwd_ref(
         q, k, v, out, lse, dout, **kw))
-    errs = [float((a.float() - b.float()).abs().max())
-            for a, b in zip(got, want)]
     scales = [float(b.float().abs().max()) for b in want]
-    rows = [row_rel_err(a, b) for a, b in zip(got, want)]
-    finite = all(bool(t.isfinite().all()) for t in got)
     bf16 = dtype == torch.bfloat16
-    ok = (max(rows) <= BWD_ROW_RTOL if bf16 else
-          all(e <= BWD_F32_RTOL * s for e, s in zip(errs, scales)))
-    say("kernel_vs_plain", kernel="flash_attention_bwd", case=label,
-        dtype=str(dtype).removeprefix("torch."), variant=BWD_VARIANTS[dtype],
-        shape=tuple(q.shape), kv=tuple(k.shape), window=window,
-        q_offset=q_offset,
-        max_abs_err_dq_dk_dv=",".join(f"{e:.3g}" for e in errs),
-        max_abs_dq_dk_dv=",".join(f"{s:.3g}" for s in scales),
-        max_row_rel_err_dq_dk_dv=",".join(f"{r:.3g}" for r in rows),
-        bound=(f"row_rel<={BWD_ROW_RTOL}" if bf16
-               else f"abs<={BWD_F32_RTOL}*max"),
-        lse_max_abs_err=f"{lse_err:.3g}", repeat_equal=repeat_equal,
-        finite=finite, kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}")
-    if not (ok and finite and repeat_equal and lse_err <= 1e-3):
-        fail(f"flash_attention_bwd != plain on {label} {dtype}: errors "
-             f"{errs}, row {rows}, lse {lse_err}, repeat {repeat_equal}")
-    return dict(err=max(errs), ms=k_ms, plain_ms=p_ms)
+    res = {}
+    for route in BWD_ROUTES if bf16 else BWD_ROUTES[:1]:
+        fn = lambda: flash_attention_bwd_cuda(q, k, v, out, lse, dout,
+                                              route=route, **kw)
+        got, k_ms = median_ms(fn)
+        again = fn()
+        repeat_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+        errs = [float((a.float() - b.float()).abs().max())
+                for a, b in zip(got, want)]
+        rows = [row_rel_err(a, b) for a, b in zip(got, want)]
+        finite = all(bool(t.isfinite().all()) for t in got)
+        ok = (max(rows) <= BWD_ROW_RTOL if bf16 else
+              all(e <= BWD_F32_RTOL * s for e, s in zip(errs, scales)))
+        say("kernel_vs_plain", kernel="flash_attention_bwd", case=label,
+            dtype=str(dtype).removeprefix("torch."), route=route,
+            variant=BWD_VARIANTS[route][dtype], shape=tuple(q.shape),
+            kv=tuple(k.shape), window=window, q_offset=q_offset,
+            max_abs_err_dq_dk_dv=",".join(f"{e:.3g}" for e in errs),
+            max_abs_dq_dk_dv=",".join(f"{s:.3g}" for s in scales),
+            max_row_rel_err_dq_dk_dv=",".join(f"{r:.3g}" for r in rows),
+            bound=(f"row_rel<={BWD_ROW_RTOL}" if bf16
+                   else f"abs<={BWD_F32_RTOL}*max"),
+            lse_max_abs_err=f"{lse_err:.3g}", repeat_equal=repeat_equal,
+            finite=finite, kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}")
+        if not (ok and finite and repeat_equal and lse_err <= 1e-3):
+            fail(f"flash_attention_bwd ({route}) != plain on {label} "
+                 f"{dtype}: errors {errs}, row {rows}, lse {lse_err}, "
+                 f"repeat {repeat_equal}")
+        res[route] = dict(err=max(errs), ms=k_ms)
+    return dict(err=max(r["err"] for r in res.values()), plain_ms=p_ms,
+                routes=res)
 
 
 def bwd_kernel_time() -> dict:
-    """The backward kernel at stablelm's training shape on seeded inputs:
-    alone from the profiler (its three kernels), through the wrapper, the
-    plain version, SDPA's backward on the same bf16 inputs (the library
-    yardstick) and the bound. Run first in the ``--train`` child."""
+    """The backward kernels at stablelm's training shape on seeded inputs,
+    both routes from one run: each alone from the profiler (its three
+    kernels) and through the wrapper (CUDA events, the routes in turns),
+    the plain version, SDPA's backward on the same bf16 inputs (the library
+    yardstick), the bound (10 D a visible pair) and the design floor of the
+    two-pass kernels (14 D: Q K^T and dO V^T recomputed in each pass). Run
+    first in the ``--train`` child."""
+    import statistics
+
     import torch
     import torch.nn.functional as F
 
@@ -2700,17 +2749,29 @@ def bwd_kernel_time() -> dict:
         flash_attention_bwd_cuda, flash_attention_bwd_ref,
         flash_attention_cuda,
     )
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        BWD_ROUTES, BWD_VARIANTS,
+    )
 
     B, S, H, D = TRAIN_BATCH, TRAIN_SEQ, 32, 64
     g = torch.Generator(device="cuda").manual_seed(0)
     q, k, v, dout = (torch.randn((B, S, H, D), generator=g, device="cuda")
                      .to(torch.bfloat16) for _ in range(4))
     out, lse = flash_attention_cuda(q, k, v, return_lse=True)
-    fn = lambda: flash_attention_bwd_cuda(q, k, v, out, lse, dout)
-    alone, kernels = profiled_ms(fn, "flash_bwd")
-    if alone is None:
-        fail("no device time for the flash backward kernels")
-    _, ms = median_ms(fn)
+    fns = {r: (lambda r=r: flash_attention_bwd_cuda(q, k, v, out, lse, dout,
+                                                    route=r))
+           for r in BWD_ROUTES}
+    alone, split = {}, {}
+    for route, fn in fns.items():
+        alone[route] = profiled_ms(fn, "flash_bwd")
+        if alone[route][0] is None:
+            fail(f"no device time for the flash backward kernels ({route})")
+        split[route] = kernel_split_ms(fn, "flash_bwd")
+    runs = {r: [] for r in BWD_ROUTES}
+    for turn in (BWD_ROUTES, BWD_ROUTES[::-1], BWD_ROUTES):
+        for route in turn:
+            runs[route].append(timed(fns[route])[1])
+    wrapper = {r: statistics.median(t) for r, t in runs.items()}
     _, p_ms = median_ms(lambda: flash_attention_bwd_ref(q, k, v, out, lse,
                                                         dout))
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
@@ -2720,16 +2781,31 @@ def bwd_kernel_time() -> dict:
     _, lib_ms = median_ms(lambda: torch.autograd.grad(
         o, (qt, kt, vt), do, retain_graph=True))
     b_ms, b_by, nbytes, ops = bwd_bound_ms(q, k, None)
-    say("kernel_time", kernel="flash_attention_bwd", case="stablelm",
-        dtype="bfloat16", shape=(B, S, H, D), ms=f"{ms:.4f}",
-        kernel_alone_ms=f"{alone:.4f}", kernels_per_call=kernels,
-        plain_ms=f"{p_ms:.4f}", sdpa_bwd_ms=f"{lib_ms:.4f}",
-        vs_sdpa=f"{ms / lib_ms:.3f}", alone_vs_sdpa=f"{alone / lib_ms:.3f}",
-        bound_ms=f"{b_ms:.5f}", bound_by=b_by, bytes=nbytes, ops=ops,
-        times_bound=f"{ms / b_ms:.1f}",
-        alone_times_bound=f"{alone / b_ms:.1f}")
-    return dict(ms=ms, alone_ms=alone, plain_ms=p_ms, library_ms=lib_ms,
-                bound_ms=b_ms, bound_by=b_by)
+    floor_ms = 1.4 * ops / BF16_FLOPS_PER_S * 1e3
+    for route in BWD_ROUTES:
+        a_ms, kernels = alone[route]
+        ms = wrapper[route]
+        say("kernel_time", kernel="flash_attention_bwd", case="stablelm",
+            dtype="bfloat16", route=route,
+            variant=BWD_VARIANTS[route][torch.bfloat16], shape=(B, S, H, D),
+            ms=f"{ms:.4f}",
+            ms_runs=",".join(f"{t:.4f}" for t in runs[route]),
+            kernel_alone_ms=f"{a_ms:.4f}", kernels_per_call=kernels,
+            kernels_ms=",".join(f"{k}:{t:.4f}"
+                                for k, t in split[route].items())
+            or "not measured",
+            plain_ms=f"{p_ms:.4f}", sdpa_bwd_ms=f"{lib_ms:.4f}",
+            vs_sdpa=f"{ms / lib_ms:.3f}",
+            alone_vs_sdpa=f"{a_ms / lib_ms:.3f}",
+            bound_ms=f"{b_ms:.5f}", bound_by=b_by, bytes=nbytes, ops=ops,
+            design_floor_ms=f"{floor_ms:.5f}",
+            times_bound=f"{ms / b_ms:.2f}",
+            alone_times_bound=f"{a_ms / b_ms:.2f}",
+            alone_times_floor=f"{a_ms / floor_ms:.2f}",
+            achieved_tflops_of_executed=f"{1.4 * ops / a_ms / 1e9:.1f}")
+    return dict(ms=wrapper["wgmma"], alone_ms=alone["wgmma"][0],
+                plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by)
 
 
 def train_run_config():
@@ -2774,7 +2850,8 @@ def train_main(cfg, run) -> tuple[int, int]:
     want_fwd = {"wgmma_bf16": TRAIN_STEPS * L * (2 if run.remat == "block"
                                                  else 1),
                 "cuda_core_f32": 0}
-    want_bwd = {"mma_bf16": TRAIN_STEPS * L, "cuda_core_f32": 0}
+    want_bwd = {"wgmma_bf16": TRAIN_STEPS * L, "mma_bf16": 0,
+                "cuda_core_f32": 0}
     med = statistics.median(res.step_ms[2:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
     pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
@@ -2800,7 +2877,7 @@ def train_main(cfg, run) -> tuple[int, int]:
     if fwd != want_fwd or bwd != want_bwd:
         fail(f"training launched flash {fwd} and its backward {bwd}, "
              f"expected {want_fwd} and {want_bwd}")
-    return sum(fwd.values()), sum(bwd.values())
+    return sum(fwd.values()), sum(bwd.values()), bwd
 
 
 def train_split(cfg, run) -> dict:
@@ -3023,7 +3100,7 @@ def train_child() -> None:
         fail("TF32 matmuls are on: the f32 comparison needs f32 products")
     timing = bwd_kernel_time()
     cfg, run = ARCHS[TRAIN_ARCH], train_run_config()
-    fwd, bwd = train_main(cfg, run)
+    fwd, bwd, bwd_by_variant = train_main(cfg, run)
     captured = train_split(cfg, run)
     errs = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -3033,17 +3110,18 @@ def train_child() -> None:
     del captured
     torch.cuda.empty_cache()
     g = torch.Generator(device="cuda").manual_seed(1)
-    for label, B, S, H, KH, D, window in BWD_EDGE_CASES:
-        q, dout = (torch.randn((B, S, H, D), generator=g, device="cuda")
+    for label, B, Sq, Sk, H, KH, D, window, q_off in BWD_EDGE_CASES:
+        q, dout = (torch.randn((B, Sq, H, D), generator=g, device="cuda")
                    for _ in range(2))
-        k, v = (torch.randn((B, S, KH, D), generator=g, device="cuda")
+        k, v = (torch.randn((B, Sk, KH, D), generator=g, device="cuda")
                 for _ in range(2))
         for dtype in (torch.bfloat16, torch.float32):
-            errs.append(check_bwd(label, q, k, v, dout, window, 0,
+            errs.append(check_bwd(label, q, k, v, dout, window, q_off,
                                   dtype)["err"])
     train_vs_plain(cfg, run)
     train_checkpoints()
     print(json.dumps({"fwd_launches": fwd, "bwd_launches": bwd,
+                      "bwd_launches_by_variant": bwd_by_variant,
                       "head_dim": cfg.head_dim, "max_abs_err": max(errs),
                       "timing": timing}), flush=True)
 
@@ -3061,9 +3139,10 @@ def phase_train_child(entries: list) -> None:
     entries.append({
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention_bwd.cu",
+                  "flash_attention_bwd_wgmma.cu",
         "replaces": "src/repro/models/attention.py:134",
         "launches": res["bwd_launches"],
+        "launches_by_route": res["bwd_launches_by_variant"],
         "max_abs_err": res["max_abs_err"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],

@@ -18,16 +18,24 @@ each kernel's, ``KERNEL.head_dim_launches`` those at each head dim. With
 backward reads; without it the kernel gets a null pointer and writes none
 (serving).
 
-The backward (``csrc/flash_attention_bwd.cu``, ``BWD_KERNEL``) replaces
-the reference's hand-written jnp backward ``repro.models.attention.
-_flash_bwd_impl``; the JAX package has no Pallas backward. bf16 inputs run
-its tensor-core kernels (``mma_bf16``: mma.sync m16n8k16), f32 inputs its
-CUDA-core kernels (``cuda_core_f32``), at the head dims ``BWD_HEAD_DIMS``.
-One call of ``flash_attention_bwd_cuda`` launches three kernels (delta =
+The backward replaces the reference's hand-written jnp backward
+``repro.models.attention._flash_bwd_impl``; the JAX package has no Pallas
+backward. ``flash_attention_bwd_cuda`` takes a ``route`` (``BWD_ROUTES``)
+for bf16 inputs: ``"wgmma"``, the default
+(``csrc/flash_attention_bwd_wgmma.cu``, ``BWD_WGMMA_LIB``: wgmma on
+TMA-fed tiles, variant ``wgmma_bf16``), or ``"mma_sync"``
+(``csrc/flash_attention_bwd.cu``, ``BWD_KERNEL``'s library: the first
+design's mma.sync m16n8k16 kernels, kept as the comparison, variant
+``mma_bf16``). f32 inputs run the CUDA-core kernels of
+``flash_attention_bwd.cu`` (``cuda_core_f32``) whatever the route. Head
+dims ``BWD_HEAD_DIMS``. One call launches three kernels (delta =
 rowsum(dout * out), then dK/dV, then dQ) and counts as one launch in
 ``BWD_KERNEL.launches``, ``variant_launches`` and ``head_dim_launches``.
 It reads every tensor as a contiguous ``(B, S, heads, D)`` array and makes
-its inputs so (autograd's ``dout`` may come with other strides).
+its inputs so (autograd's ``dout`` may come with other strides); the wgmma
+route's TMA maps also need 16-byte aligned bases and raise on any other.
+An unknown route raises, and neither route gives way to the other or to
+the plain version.
 """
 from __future__ import annotations
 
@@ -47,10 +55,22 @@ VARIANTS = {torch.bfloat16: "wgmma_bf16", torch.float32: "cuda_core_f32"}
 TC_BQ, TC_BK = 128, 64
 _BWD_SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention_bwd.cu"
 BWD_HEAD_DIMS = (16, 32, 64, 128)
-BWD_VARIANTS = {torch.bfloat16: "mma_bf16", torch.float32: "cuda_core_f32"}
-# the backward's tiles: keys per dK/dV block and query rows per dQ block,
-# each walking the other side in tiles of the same size
+_BWD_WGMMA_SRC = (Path(__file__).resolve().parent / "csrc"
+                  / "flash_attention_bwd_wgmma.cu")
+BWD_ROUTES = ("wgmma", "mma_sync")
+# the kernels each route runs for each input type
+BWD_VARIANTS = {
+    "wgmma": {torch.bfloat16: "wgmma_bf16", torch.float32: "cuda_core_f32"},
+    "mma_sync": {torch.bfloat16: "mma_bf16", torch.float32: "cuda_core_f32"},
+}
+BWD_VARIANT_NAMES = ("wgmma_bf16", "mma_bf16", "cuda_core_f32")
+# the mma_sync and f32 kernels' tiles: keys per dK/dV block and query rows
+# per dQ block, each walking the other side in tiles of the same size
 BWD_BLOCK = 64
+# the wgmma kernels: streamed tiles of BWD_TILE rows (wgmma's M), blocks of
+# BWD_WGS consumer warpgroups (BWD_WGS x BWD_TILE keys of a dK/dV block,
+# query rows of a dQ block), BWD_STAGES stages of streamed tiles
+BWD_TILE, BWD_WGS, BWD_STAGES = 64, 2, 3
 
 
 def smem_bytes(dtype: torch.dtype, D: int) -> int:
@@ -64,15 +84,32 @@ def smem_bytes(dtype: torch.dtype, D: int) -> int:
     return 4 * (64 * D + D * 65 + 64 * D + 64 * 64)
 
 
-def bwd_smem_bytes(dtype: torch.dtype, D: int, part: str) -> int:
+def check_bwd_route(route: str) -> None:
+    if route not in BWD_ROUTES:
+        raise ValueError(f"unknown backward route {route!r}: one of "
+                         f"{BWD_ROUTES}")
+
+
+def bwd_smem_bytes(dtype: torch.dtype, D: int, part: str, *,
+                   route: str = "wgmma") -> int:
     """Dynamic shared memory of one block of the backward's ``part``
-    (``"dkdv"`` or ``"dq"``) at head dim ``D``, as
-    ``flash_attention_bwd_smem_bytes`` in the source computes it. bf16:
-    rows padded by 8 elements (16 bytes) so that the mma fragments' 32-bit
-    loads meet no bank twice; dK/dV holds K, V, Q, dO and the transposed Q
-    and dO of 64 rows, dQ holds Q, dO, K, V and the transposed K; both the
-    tile's lse and delta in f32. f32: tiles of D + 1 columns; dK/dV holds
-    K, V, Q, dO, P and dS, dQ holds Q, dO, K, V and dS."""
+    (``"dkdv"`` or ``"dq"``) at head dim ``D`` on ``route``, as the sources
+    compute it (``flash_attention_bwd_wgmma_smem_bytes``,
+    ``flash_attention_bwd_smem_bytes``). bf16 ``wgmma``: 1 KB to align the
+    swizzled tiles, two resident tiles of 128 rows (K and V; Q and dO),
+    three stages of two streamed 64-row tiles (Q and dO, with the tile's lse
+    and delta, f32; K and V) and the mbarriers. bf16 ``mma_sync``: rows
+    padded by 8 elements (16 bytes) so that the mma fragments' 32-bit loads
+    meet no bank twice; dK/dV holds K, V, Q, dO and the transposed Q and dO
+    of 64 rows, dQ holds Q, dO, K, V and the transposed K; both the tile's
+    lse and delta in f32. f32 (either route): tiles of D + 1 columns; dK/dV
+    holds K, V, Q, dO, P and dS, dQ holds Q, dO, K, V and dS."""
+    check_bwd_route(route)
+    if dtype == torch.bfloat16 and route == "wgmma":
+        res = BWD_WGS * BWD_TILE * D * 2
+        tile = BWD_TILE * D * 2
+        vecs = 2 * BWD_TILE * 4 if part == "dkdv" else 0
+        return 1024 + 2 * res + BWD_STAGES * (2 * tile + vecs) + 128
     n = BWD_BLOCK
     if dtype == torch.bfloat16:
         rows = (D + 8) * 2 * n  # one (64, D) tile, padded rows
@@ -84,6 +121,36 @@ def bwd_smem_bytes(dtype: torch.dtype, D: int, part: str) -> int:
     if part == "dkdv":
         return 4 * tile + 2 * pt + 2 * n * 4
     return 4 * tile + pt
+
+
+def bwd_live_key_tiles(q0: int, rows: int, Sq: int, Sk: int, *,
+                       causal: bool, window: int | None,
+                       q_offset: int) -> range:
+    """The key tiles (of ``BWD_TILE`` keys) that the wgmma dQ block of the
+    real query rows ``[q0, min(q0 + rows, Sq))`` walks, as ``live_key_tiles``
+    in the source computes them: the keys visible from those rows form one
+    run, from the first row's window edge to the last row's diagonal."""
+    qa, qb = q_offset + q0, q_offset + min(q0 + rows, Sq) - 1
+    kmin = max(0, qa - window + 1) if window else 0
+    kmax = min(Sk - 1, qb) if causal else Sk - 1
+    if kmin > kmax:
+        return range(0)
+    return range(kmin // BWD_TILE, kmax // BWD_TILE + 1)
+
+
+def bwd_live_query_tiles(k0: int, keys: int, Sq: int, Sk: int, *,
+                         causal: bool, window: int | None,
+                         q_offset: int) -> range:
+    """The query tiles (of ``BWD_TILE`` rows) that the wgmma dK/dV block of
+    the real keys ``[k0, min(k0 + keys, Sk))`` walks for each query head, as
+    ``live_query_tiles`` in the source computes them: rows from the first
+    key's diagonal to the last key's window edge."""
+    kb = min(k0 + keys, Sk) - 1
+    rmin = max(0, k0 - q_offset) if causal else 0
+    rmax = min(Sq - 1, kb + window - 1 - q_offset) if window else Sq - 1
+    if rmin > rmax:
+        return range(0)
+    return range(rmin // BWD_TILE, rmax // BWD_TILE + 1)
 
 
 class FlashAttentionKernel(CudaLibrary):
@@ -111,12 +178,12 @@ class FlashAttentionBwdKernel(CudaLibrary):
     def __init__(self):
         super().__init__("flash_attention_bwd", _BWD_SRC)
         self.launches = 0
-        self.variant_launches = dict.fromkeys(BWD_VARIANTS.values(), 0)
+        self.variant_launches = dict.fromkeys(BWD_VARIANT_NAMES, 0)
         self.head_dim_launches = dict.fromkeys(BWD_HEAD_DIMS, 0)
 
     def reset(self) -> None:
         self.launches = 0
-        self.variant_launches = dict.fromkeys(BWD_VARIANTS.values(), 0)
+        self.variant_launches = dict.fromkeys(BWD_VARIANT_NAMES, 0)
         self.head_dim_launches = dict.fromkeys(BWD_HEAD_DIMS, 0)
 
     def bind(self, lib: ctypes.CDLL) -> None:
@@ -129,8 +196,26 @@ class FlashAttentionBwdKernel(CudaLibrary):
         lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_int
 
 
+class FlashAttentionBwdWgmmaLibrary(CudaLibrary):
+    """The wgmma route's library and its build report; its launches count
+    in ``BWD_KERNEL``'s counters beside the other routes'."""
+
+    def __init__(self):
+        super().__init__("flash_attention_bwd_wgmma", _BWD_WGMMA_SRC)
+
+    def bind(self, lib: ctypes.CDLL) -> None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attention_bwd_wgmma_launch.argtypes = (
+            [p] * 11 + [i] * 9 + [ctypes.c_float, p]
+        )
+        lib.flash_attention_bwd_wgmma_launch.restype = ctypes.c_int
+        lib.flash_attention_bwd_wgmma_smem_bytes.argtypes = [i, i]
+        lib.flash_attention_bwd_wgmma_smem_bytes.restype = ctypes.c_int
+
+
 KERNEL = FlashAttentionKernel()
 BWD_KERNEL = FlashAttentionBwdKernel()
+BWD_WGMMA_LIB = FlashAttentionBwdWgmmaLibrary()
 
 
 def _check(q, k, v) -> None:
@@ -234,11 +319,13 @@ def flash_attention_bwd_cuda(
     causal: bool = True,
     window: int | None = None,
     q_offset: int = 0,
+    route: str = "wgmma",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(dq, dk, dv)`` through the CUDA backward kernels on PyTorch's
-    current stream, in the inputs' dtype: the contract of
+    """``(dq, dk, dv)`` through the CUDA backward kernels of ``route`` on
+    PyTorch's current stream, in the inputs' dtype: the contract of
     ``ref.flash_attention_bwd_ref``. Deterministic: no atomics, each
     gradient element summed by one thread in a fixed order."""
+    check_bwd_route(route)
     _check(q, k, v)
     check_backward(q)
     if window is not None and window < 1:
@@ -251,24 +338,42 @@ def flash_attention_bwd_cuda(
                            ("dout", dout, (B, Sq, H, D))):
         check_tensor(name, t, q.dtype, shape, q.device)
     check_tensor("lse", lse, torch.float32, (B, Sq, H), q.device)
-    lib = BWD_KERNEL.build()
+    wgmma = route == "wgmma" and q.dtype == torch.bfloat16
+    if wgmma:
+        for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+            check_tma(name, t)
+    lib = (BWD_WGMMA_LIB if wgmma else BWD_KERNEL).build()
     with torch.cuda.device(q.device):
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
         if q.numel() == 0 or k.numel() == 0:
             return dq.zero_(), dk.zero_(), dv.zero_()
-        delta = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_bwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), int(q.dtype == torch.bfloat16),
-            B, Sq, Sk, H, KH, D, int(causal), window or 0, q_offset,
-            D**-0.5, stream,
-        )
+        if wgmma:
+            # lse x log2 e and delta, (B, H, Sq rounded up to a tile)
+            sq_pad = -(-Sq // BWD_TILE) * BWD_TILE
+            rows = torch.empty((2, B, H, sq_pad), dtype=torch.float32,
+                               device=q.device)
+            err = lib.flash_attention_bwd_wgmma_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), rows[0].data_ptr(),
+                rows[1].data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), B, Sq, Sk, H, KH, D, int(causal), window or 0,
+                q_offset, D**-0.5, stream,
+            )
+        else:
+            delta = torch.empty((B, Sq, H), dtype=torch.float32,
+                                device=q.device)
+            err = lib.flash_attention_bwd_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                int(q.dtype == torch.bfloat16), B, Sq, Sk, H, KH, D,
+                int(causal), window or 0, q_offset, D**-0.5, stream,
+            )
     if err != 0:
-        raise RuntimeError(f"flash_attention backward launch failed: "
-                           f"cudaError {err}")
+        raise RuntimeError(f"flash_attention backward launch failed "
+                           f"(route {route}): cudaError {err}")
     BWD_KERNEL.launches += 1
-    BWD_KERNEL.variant_launches[BWD_VARIANTS[q.dtype]] += 1
+    BWD_KERNEL.variant_launches[BWD_VARIANTS[route][q.dtype]] += 1
     BWD_KERNEL.head_dim_launches[D] += 1
     return dq, dk, dv

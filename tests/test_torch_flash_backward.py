@@ -18,10 +18,19 @@ against the reference's hand-written backward.
   package, within half the per-row bound that ``chip_smoke.py`` holds the
   kernel to (``BWD_ROW_RTOL`` 2e-2, rows floored at a tenth of the mean row
   norm), and a dropped 64-key tile over ten times that bound.
-- Each backward kernel instance's shared memory within a block's 227 KB;
-  on the card, a head dim the backward kernel lacks (MLA's 192) and the SSD
-  kernel refuse a call under grad.
+- Each backward kernel instance's shared memory within a block's 227 KB,
+  on both routes (``wgmma``, the default, and ``mma_sync``); on the card, a
+  head dim the backward kernel lacks (MLA's 192) and the SSD kernel refuse
+  a call under grad; an unknown route raises.
+- The wgmma kernels' tile walks (``bwd_live_key_tiles`` for a dQ block,
+  ``bwd_live_query_tiles`` for a dK/dV block, mirrors of the source's
+  ``live_key_tiles`` / ``live_query_tiles``) against ``attention_mask`` on
+  the cases above (the last is also the card's ``q_offset`` case) and at
+  stablelm's training shape: every visible pair in exactly one visited
+  tile of each pass, no visited tile wholly masked.
 """
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -43,6 +52,11 @@ from repro_torch.kernels.flash_attention import (
 )
 from repro_torch.kernels.flash_attention.flash_attention import (
     BWD_HEAD_DIMS,
+    BWD_ROUTES,
+    BWD_TILE,
+    BWD_WGS,
+    bwd_live_key_tiles,
+    bwd_live_query_tiles,
     bwd_smem_bytes,
 )
 from repro_torch.kernels.ssd import ssd_intra_chunk
@@ -210,3 +224,69 @@ def test_card_refuses_training_what_it_has_no_backward_for(monkeypatch):
     dt, bm = torch.zeros((1, 8, 2)), torch.zeros((1, 8, 1, 16))
     with pytest.raises(NotImplementedError, match="item 6 step 5"):
         ssd_intra_chunk(x, dt, torch.zeros(2), bm, bm, 4, device="cuda")
+
+
+def test_backward_route_shared_memory_fits_a_block():
+    """Every (route, D, dtype, part) instance of both backward routes."""
+    for route, D, dtype, part in itertools.product(
+            BWD_ROUTES, BWD_HEAD_DIMS, (torch.bfloat16, torch.float32),
+            ("dkdv", "dq")):
+        smem = bwd_smem_bytes(dtype, D, part, route=route)
+        assert 0 < smem <= 232_448, (route, D, dtype, part, smem)
+
+
+def test_unknown_backward_route_raises():
+    x = torch.zeros((1, 8, 2, 16))
+    with pytest.raises(ValueError, match="unknown backward route"):
+        flash_attention_bwd_cuda(x, x, x, x, torch.zeros((1, 8, 2)), x,
+                                 route="cutlass")
+    with pytest.raises(ValueError, match="unknown backward route"):
+        bwd_smem_bytes(torch.bfloat16, 64, "dq", route="mma")
+
+
+def _visits(mask, block, walk, **kw):
+    """(Sq, Sk) visit counts of one pass, whose blocks hold ``block`` rows
+    (dQ, ``walk`` its live key tiles) or keys (dK/dV, its live query
+    tiles), and the visited tiles that hold no visible pair."""
+    Sq, Sk = mask.shape
+    count = torch.zeros((Sq, Sk), dtype=torch.int16)
+    empty = []
+    dq_pass = walk is bwd_live_key_tiles
+    for a0 in range(0, Sq if dq_pass else Sk, block):
+        own = slice(a0, a0 + block)
+        for tile in walk(a0, block, Sq, Sk, **kw):
+            other = slice(tile * BWD_TILE, (tile + 1) * BWD_TILE)
+            r, c = (own, other) if dq_pass else (other, own)
+            count[r, c] += 1
+            if not bool(mask[r, c].any()):
+                empty.append((a0, tile))
+    return count, empty
+
+
+# walks of several blocks whose window edges and offsets cross tiles
+# (windows of 65 and 66 put a block's first key, or its last row, on a
+# tile's edge; Sq = 60 < Sk leaves a 128-row block's nominal rows past Sq)
+WALK_CASES = [
+    (1, 333, 333, 1, 1, 64, 70, 0),
+    (1, 400, 400, 1, 1, 64, 65, 0),
+    (1, 400, 400, 1, 1, 64, 66, 0),
+    (1, 60, 300, 1, 1, 64, None, 0),
+    (1, 100, 500, 1, 1, 64, 150, 400),
+    (1, 300, 700, 1, 1, 64, None, 400),
+    (2, 4096, 4096, 32, 32, 64, None, 0),  # stablelm's training shape
+]
+
+
+def test_wgmma_tile_walks_cover_every_visible_pair_once():
+    """The five cases above (the last is also the card's q_offset case)
+    and WALK_CASES, both passes."""
+    big = BWD_WGS * BWD_TILE
+    for B, Sq, Sk, H, KH, D, window, q_offset in CASES + WALK_CASES:
+        kw = dict(causal=True, window=window, q_offset=q_offset)
+        mask = attention_mask(Sq, Sk, **kw)
+        for walk in (bwd_live_key_tiles, bwd_live_query_tiles):
+            where = (Sq, Sk, window, q_offset, walk.__name__)
+            count, empty = _visits(mask, big, walk, **kw)
+            assert bool((count[mask] == 1).all()), where
+            assert int(count.max()) <= 1, where
+            assert not empty, (where, empty[:5])
