@@ -161,6 +161,38 @@ non-zero before the result line:
    at full width
    trained 6 steps with a checkpoint at step 3, a run resumed from it
    beside the continuous run, and a saved state restored bit for bit;
+7f. dist (``[dist]``, a child process, ``--dist``): four
+   ``torch.distributed`` ranks on the machine's cards (``launch.mesh``:
+   NCCL when each rank has a card, gloo when they share one, every payload
+   then staged through host memory; the backend and the staging are
+   printed). ``part=executors``: ``apply_schedule`` on
+   ``dp_broadcast_schedule(4)`` and ``apply_alltoall_schedule`` on
+   ``alltoall_schedule(4)`` (DPM, MU) and the ring schedules, on EP's own
+   bf16 chunk (moonshot, B = 4, S = 2,000: 16 experts x capacity 240 x
+   2,048), bit-equal to the expected permutation, timed beside the
+   group's broadcast / ``all_to_all_single``; ``part=compress``:
+   ``compressed_psum`` of a stablelm-embedding-sized f32 gradient on each
+   rank, identical on the four and within 0.05 of the exact all-reduce
+   relative to its max; ``part=ep``: moonshot at full width (12 of its 48
+   layers, each rank drawing the layers one at a time and keeping its 16
+   of 64 experts), one f32 MoE layer (4 x 2,000 x 2,048, capacity factor
+   64 / 6: nothing drops) through ``moe_apply_ep`` against
+   ``moe_apply_dense`` (within 2e-5 x max |y|, routed ids equal save near
+   ties), then bf16 prefills through ``models.model.prefill`` with
+   ``moe_impl="ep"`` under ``shardctx`` against the dense prefill of the
+   whole cut model on rank 0, at the config's capacity factor 1.25 and at
+   64 / 6 (nothing drops): the logit ratio, a control's ratio (the dense
+   prefill with its router on EP's 2,000-token blocks), each path's
+   dropped pairs and the tokens routed otherwise in each layer printed;
+   layer 0, whose input is the same in both paths, may route otherwise
+   only at near ties, and with nothing dropped the EP logits must equal
+   the control's bit for bit; 12 flash launches a rank a prefill; ``part=pipeline``: stablelm-1.6b's 24 layers in 4 stages of 6
+   through ``pipeline_apply`` (4 microbatches of one 4,096-token sequence,
+   f32 masters, bf16 compute, a loss on the output), the forward equal to
+   the 24 layers applied microbatch by microbatch on rank 0, every stage
+   leaf's gradient within 1e-5 of its max of that sequential autograd's,
+   96 forward and 96 backward flash launches (``wgmma_bf16``) with the
+   counts set to 0 just before;
 8. segmented min: ``segmin`` and ``arbitrate`` on the card over ten cases
    (tests/test_kernels.py's shapes; xsim's fused link + ejection id space
    at the 8x8, 16x16 and 32x32 grids with B = 4, 16 and 132 instances; the
@@ -217,9 +249,9 @@ Phases 4, 5, 7 and 8 read their kernels' profiler times from a child
 process of this script (``python3 chip_smoke.py --noc-cycle-alone``,
 ``--dpm-cost-alone``, ``--serve-kernel-alone`` and
 ``--segmin-kernel-alone``), phase 7 the split of one prefill's time by
-kernel family (``--prefill-profile``), and phases 7b, 7c, 7d and 7e run
-whole in a child each (``--serve-moe``, ``--serve-mla``, ``--serve-frames``,
-``--train``).
+kernel family (``--prefill-profile``), and phases 7b, 7c, 7d, 7e and 7f
+run whole in a child each (``--serve-moe``, ``--serve-mla``,
+``--serve-frames``, ``--train``, ``--dist``).
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -382,6 +414,27 @@ SEGMIN_ARBITRATE_GRIDS = (("scale16x16", 16, 16), ("mesh32x32", 32, 132))
 SEGMIN_ALONE_REPS = 5  # calls per profiled window of the kernel-alone times
 # the host-simulator phase: the paper's configuration
 HOST_SIM_RATE, HOST_SIM_CYCLES = 0.02, 300
+# the dist phase (a child process that spawns DIST_RANKS torch.distributed
+# ranks on the machine's cards; one card: the ranks share it over gloo, the
+# payloads staged through host memory). Executors: EP's own chunk (moonshot
+# at B = 4, S = 2,000, 4 EP ranks: 16 experts x capacity 240 x d 2,048
+# bf16); compress: a gradient the size of stablelm-1.6b's embedding
+# (100,352 x 2,048 f32); EP: moonshot-v1-16b-a3b at full width, 12 of its
+# 48 layers (four ranks' attention, shared experts, embedding and head
+# beside the dense comparison's 15.5 GB on the card); pipeline:
+# stablelm-1.6b's 24 layers, 4 stages of 6, 4 microbatches of one 4,096-
+# token sequence
+DIST_RANKS = 4
+DIST_ALGOS = ("DPM", "MU", "ring")
+DIST_TIMEOUT_S = 480
+DIST_REPS = 3
+DIST_COMPRESS_SHAPE = (100352, 2048)
+DIST_COMPRESS_BOUND = 0.05  # tests/dist_checks.py's bound on the relative error
+DIST_EP_LAYERS = 12
+DIST_EP_B, DIST_EP_S = 4, 2000
+DIST_EP_RTOL = 2e-5  # the f32 layer against the dense path, x max |y|
+DIST_PIPE_M, DIST_PIPE_SEQ = 4, 4096
+DIST_PIPE_GRAD_RTOL = 1e-5  # each stage leaf's gradient, x its max
 
 
 def fail(msg: str) -> None:
@@ -1871,14 +1924,15 @@ def phase_serve() -> list:
 # ---------------------------------------------------------------------------
 # Mixture-of-Experts serving: moonshot-v1-16b-a3b at full width and depth
 # ---------------------------------------------------------------------------
-def moe_route_recorder(routes: list):
-    """A ``models.moe.route`` that also records each call's expert ids and
-    the smallest gap between neighbours of the top k + 1 f32
-    probabilities (the margin a routing decision had)."""
+def moe_route_recorder(routes: list, module=None):
+    """A ``route`` in ``module`` (default ``models.moe``) that also records
+    each call's expert ids and the smallest gap between neighbours of the
+    top k + 1 f32 probabilities (the margin a routing decision had)."""
     import torch
 
     import repro_torch.models.moe as moe
 
+    moe = module or moe
     route_fn = moe.route
 
     def route(p, x, m):
@@ -3211,6 +3265,627 @@ def phase_serve_child(flag: str, case: str, entries: list,
 
 
 # ---------------------------------------------------------------------------
+# dist: executors, compressed all-reduce, expert parallelism, pipeline
+# ---------------------------------------------------------------------------
+def dist_plan() -> dict:
+    """The dist phase's configurations at full width: moonshot cut to
+    ``DIST_EP_LAYERS`` layers, stablelm-1.6b whole."""
+    from repro_torch.configs import ARCHS
+
+    return {"ep_cfg": cut_depth(ARCHS[MOE_ARCH],
+                                (("attn_moe", DIST_EP_LAYERS),)),
+            "pipe_cfg": ARCHS[TRAIN_ARCH], "B": DIST_EP_B, "S": DIST_EP_S,
+            "pipe_m": DIST_PIPE_M, "pipe_seq": DIST_PIPE_SEQ,
+            "compress_shape": DIST_COMPRESS_SHAPE}
+
+
+def dist_time(ax, fn, dev, reps: int = DIST_REPS) -> tuple:
+    """(result, median over ``reps`` of the slowest rank's ms): every rank
+    starts together, the card synchronised."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.comm import all_reduce_sum
+
+    times = []
+    for _ in range(reps):
+        dist.barrier(group=ax.group)
+        t0 = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        ms = torch.tensor([(time.perf_counter() - t0) * 1e3])
+        # the slowest rank: a max as the sum of one-hot contributions
+        every = all_reduce_sum(ax, torch.zeros(ax.n).index_fill_(
+            0, torch.tensor([ax.me]), ms.item()))
+        times.append(float(every.max()))
+    return out, statistics.median(times)
+
+
+def dist_all(ax, ok: bool) -> bool:
+    """True on every rank when ``ok`` holds on every rank."""
+    import torch
+
+    from repro_torch.dist.comm import all_reduce_sum
+
+    return int(all_reduce_sum(ax, torch.tensor([int(ok)]))) == ax.n
+
+
+def dist_executors(mesh, dev, plan) -> None:
+    """``part=executors``: the broadcast and all-to-all schedules on EP's
+    own chunk, bit-equal to the expected permutation, timed beside the
+    collective of the same group."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import (alltoall_schedule, apply_alltoall_schedule,
+                                  apply_schedule, dp_broadcast_schedule,
+                                  ring_alltoall_schedule,
+                                  ring_broadcast_schedule)
+    from repro_torch.dist.comm import Axis, all_to_all
+    from repro_torch.models.moe import capacity
+
+    ax = Axis(mesh, "model")
+    n, me = ax.n, ax.me
+    cfg = plan["ep_cfg"]
+    m = cfg.moe
+    cap = capacity(m, plan["B"] * plan["S"] // n)
+    rows, d = m.n_experts // n * cap, cfg.d_model
+
+    def chunk(src: int, dst: int):
+        g = torch.Generator(device=dev).manual_seed(1000 * src + dst)
+        return torch.randn((rows, d), generator=g,
+                           device=dev).to(torch.bfloat16)
+
+    def bits(t):
+        return t.contiguous().view(torch.int16)
+
+    chunks = torch.stack([chunk(me, j) for j in range(n)])
+    want_a2a = torch.stack([chunk(i, me) for i in range(n)])
+    own, want_b = chunk(me, me), chunk(0, 0)
+
+    def host_broadcast():
+        h = own.cpu() if ax.staged(own) else own.clone()
+        dist.broadcast(h, src=ax.ranks[0], group=ax.group)
+        return h.to(dev)
+
+    base = {"broadcast": dist_time(ax, host_broadcast, dev),
+            "alltoall": dist_time(ax, lambda: all_to_all(ax, chunks), dev)}
+    for kind in ("broadcast", "alltoall"):
+        if not dist_all(ax, torch.equal(
+                bits(base[kind][0]),
+                bits(want_b if kind == "broadcast" else want_a2a))):
+            raise RuntimeError(f"the {kind} collective moved other bytes")
+    for kind in ("broadcast", "alltoall"):
+        for algo in DIST_ALGOS:
+            if kind == "broadcast":
+                sched = (ring_broadcast_schedule(n) if algo == "ring" else
+                         dp_broadcast_schedule(n, algo, device=dev.type))
+                got, ms = dist_time(
+                    ax, lambda: apply_schedule(own, sched, mesh, "model"), dev)
+                want = want_b
+            else:
+                sched = (ring_alltoall_schedule(n) if algo == "ring" else
+                         alltoall_schedule(n, algo, device=dev.type))
+                got, ms = dist_time(ax, lambda: apply_alltoall_schedule(
+                    chunks, sched, mesh, "model"), dev)
+                want = want_a2a
+            equal = dist_all(ax, torch.equal(bits(got), bits(want)))
+            if me == 0:
+                say("dist", part="executors", schedule=kind, algo=algo,
+                    ranks=n, rounds=sched.num_rounds,
+                    transfers=sum(len(r) for r in sched.rounds),
+                    chunk_shape=(rows, d), chunk_bytes=rows * d * 2,
+                    bit_equal=equal, ms=f"{ms:.3f}",
+                    collective=("broadcast" if kind == "broadcast"
+                                else "all_to_all_single"),
+                    collective_ms=f"{base[kind][1]:.3f}",
+                    vs_collective=f"{ms / base[kind][1]:.2f}",
+                    via="gloo_through_host" if ax.staged(own) else
+                    dist.get_backend(ax.group))
+            if not equal:
+                raise RuntimeError(f"{kind} {algo}: a rank's result is not "
+                                   "the expected permutation, bit for bit")
+
+
+def dist_compress(mesh, dev, plan) -> None:
+    """``part=compress``: ``compressed_psum`` of a gradient the size of
+    stablelm-1.6b's embedding on every rank, against the exact sum."""
+    import torch
+
+    from repro_torch.dist import compressed_psum
+    from repro_torch.dist.comm import Axis, all_gather, all_reduce_sum
+
+    ax = Axis(mesh, "data")
+    g = torch.randn(plan["compress_shape"], device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(
+                        100 + ax.me))
+    err = torch.zeros_like(g)
+    (s, e), ms = dist_time(ax, lambda: compressed_psum(g, err, mesh, "data"),
+                           dev, reps=2)
+    exact, exact_ms = dist_time(ax, lambda: all_reduce_sum(ax, g), dev,
+                                reps=2)
+    rel = float((s - exact).abs().max() / exact.abs().max())
+    # the sums' bits, strided: equal on every rank
+    b = s.view(torch.int32)
+    digest = torch.stack([b[k::7].sum(dtype=torch.int64) for k in range(7)])
+    same = bool((all_gather(ax, digest) == digest).all())
+    err_norm, g_norm = float(e.norm()), float(g.norm())
+    del g, err, s, e, exact
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if ax.me == 0:
+        n = math.prod(plan["compress_shape"])
+        say("dist", part="compress", shape=plan["compress_shape"],
+            bytes_f32=4 * n, payload_bytes_int8=n + 4 * ax.n,
+            ranks=ax.n, rel_err=f"{rel:.6f}", bound=DIST_COMPRESS_BOUND,
+            identical_on_ranks=same, residual_norm=f"{err_norm:.4f}",
+            grad_norm=f"{g_norm:.2f}", ms=f"{ms:.2f}",
+            all_reduce_ms=f"{exact_ms:.2f}",
+            via="gloo_through_host" if ax.staged(b) else "device")
+    if not (same and rel < DIST_COMPRESS_BOUND):
+        raise RuntimeError(f"compressed_psum: identical={same}, relative "
+                           f"error {rel} (bound {DIST_COMPRESS_BOUND})")
+
+
+def ep_slice_init(seed: int, cfg, run, dev, me: int, e_loc: int):
+    """``model_init``'s draws, layer after layer, keeping this rank's
+    ``e_loc`` experts of each MoE layer: the same values as the whole
+    tree's, and no rank holds the whole tree."""
+    import repro_torch.models.model as model_mod
+
+    stack = model_mod.stack_init
+
+    def sliced(init_fn, gen, n, cast=None):
+        def draw(g):
+            layer = init_fn(g)
+            f = layer["ffn"]
+            for k in ("wi", "wg", "wo"):
+                f[k] = f[k][me * e_loc:(me + 1) * e_loc].clone()
+            return layer
+
+        return stack(draw, gen, n, cast)
+
+    with patched((model_mod, "stack_init", sliced)):
+        return model_mod.model_init(seed, cfg, run, device=dev)
+
+
+def keep_recorder(module, keeps: list):
+    """``module.dispatch_indices`` that also records each call's kept
+    pairs."""
+    real = module.dispatch_indices
+
+    def rec(ids, m, cap):
+        slot, keep = real(ids, m, cap)
+        keeps.append(keep)
+        return slot, keep
+
+    return patched((module, "dispatch_indices", rec))
+
+
+def dist_ep(mesh, dev, plan, on_card: bool) -> dict:
+    """``part=ep``: one f32 MoE layer of moonshot under EP against the
+    dense path (nothing dropped), then bf16 prefills of the cut model with
+    ``moe_impl="ep"`` under ``shardctx`` against dense prefills, at the
+    config's capacity factor and at one that drops nothing."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch.dist.ep as ep_mod
+    import repro_torch.models.moe as moe_mod
+    from repro_torch.dist import moe_apply_ep
+    from repro_torch.dist.comm import Axis, all_gather, all_reduce_sum
+    from repro_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
+    from repro_torch.models import RunConfig, count_params, model_init, prefill
+    from repro_torch.models.moe import moe_apply_dense, moe_init
+    from repro_torch.shardctx import clear_ctx, set_ctx
+
+    ax = Axis(mesh, "model")
+    me, n = ax.me, ax.n
+    cfg = plan["ep_cfg"]
+    m = cfg.moe
+    e_loc = m.n_experts // n
+    B, S, d = plan["B"], plan["S"], cfg.d_model
+    no_drop = m.n_experts / m.top_k
+
+    def with_cf(cf):
+        return dataclasses.replace(cfg, moe=dataclasses.replace(
+            m, capacity_factor=cf))
+
+    def empty():
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # -- one f32 MoE layer, nothing dropped
+    layer = moe_init(torch.Generator(device=dev).manual_seed(7), cfg, dev)
+    p = {k: v[me * e_loc:(me + 1) * e_loc].clone()
+         if k in ("wi", "wg", "wo") else v for k, v in layer.items()}
+    del layer
+    empty()
+    x = torch.randn((B, S, d), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(8))
+    routes = []
+    with moe_route_recorder(routes, ep_mod):
+        (y_ep, _), ep_ms = dist_time(
+            ax, lambda: moe_apply_ep(p, x, with_cf(no_drop), mesh), dev,
+            reps=1)
+    ids_ep = all_gather(ax, routes[0][0]).reshape(B * S, m.top_k)
+    del p
+    empty()
+    dist.barrier(group=ax.group)
+    out = {}
+    if me == 0:
+        layer = moe_init(torch.Generator(device=dev).manual_seed(7), cfg, dev)
+        routes_d = []
+        with moe_route_recorder(routes_d):
+            t0 = time.perf_counter()
+            y_d, _ = moe_apply_dense(layer, x, with_cf(no_drop))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            dense_ms = (time.perf_counter() - t0) * 1e3
+        ids_d, gap_d = routes_d[0]
+        flipped = (ids_d != ids_ep).any(-1)
+        near = int((flipped & (gap_d < MOE_NEAR_TIE)).sum())
+        err = float((y_ep - y_d).abs().max() / y_d.abs().max())
+        say("dist", part="ep", case="f32_layer", shape=(B, S, d),
+            experts=m.n_experts, experts_per_rank=e_loc, top_k=m.top_k,
+            capacity_factor=f"{no_drop:.4f}", max_err_over_max=f"{err:.3e}",
+            bound=DIST_EP_RTOL, routed_ids_differ=int(flipped.sum()),
+            near_tie_exceptions=near, ep_ms=f"{ep_ms:.2f}",
+            dense_ms=f"{dense_ms:.2f}")
+        if err > DIST_EP_RTOL or int(flipped.sum()) != near:
+            raise RuntimeError(f"EP f32 layer: error {err} (bound "
+                               f"{DIST_EP_RTOL}), {int(flipped.sum())} tokens "
+                               f"routed otherwise, {near} of them near ties")
+        del layer, y_d
+    del x, y_ep
+    empty()
+    dist.barrier(group=ax.group)
+
+    # -- bf16 prefills of the cut model: EP under shardctx, then dense
+    run = RunConfig(moe_impl="ep")
+    params = ep_slice_init(0, cfg, run, dev, me, e_loc)
+    toks = torch.randint(0, cfg.vocab, (B, S), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(9))
+    logits_ep, drops_ep, flash, ids_ep = {}, {}, {}, {}
+    for cf in (m.capacity_factor, no_drop):
+        keeps, routes = [], []
+        reset_flash_counts()
+        set_ctx(mesh)
+        try:
+            with keep_recorder(ep_mod, keeps), \
+                    moe_route_recorder(routes, ep_mod):
+                (lg, _), ms = dist_time(ax, lambda: prefill(
+                    params, {"tokens": toks}, with_cf(cf), run), dev, reps=1)
+        finally:
+            clear_ctx()
+        launches = torch.tensor([FLASH_KERNEL.variant_launches.get(v, 0)
+                                 for v in ("wgmma_bf16", "cuda_core_f32")])
+        flash[cf] = [int(v) for v in all_reduce_sum(ax, launches)]
+        drops_ep[cf] = int(all_reduce_sum(ax, torch.tensor(
+            [sum(int((~k).sum()) for k in keeps)])))
+        ids_ep[cf] = [all_gather(ax, ids).reshape(B * S, m.top_k)
+                      for ids, _ in routes]
+        logits_ep[cf] = (lg, ms)
+    n_rank = count_params(params)
+    del params
+    empty()
+    dist.barrier(group=ax.group)
+    if me == 0:
+        dense_run = dataclasses.replace(run, moe_impl="dense")
+        params = model_init(0, cfg, run, device=dev)
+        route = moe_mod.route
+
+        def blocked_route(p, x, mc):
+            """The router on EP's row blocks, one a rank."""
+            parts = [route(p, xb, mc) for xb in x.chunk(n)]
+            return (torch.cat([a for a, _, _ in parts]),
+                    torch.cat([b for _, b, _ in parts]), parts[0][2])
+
+        for cf in (m.capacity_factor, no_drop):
+            keeps, routes_d = [], []
+            with keep_recorder(moe_mod, keeps), moe_route_recorder(routes_d):
+                t0 = time.perf_counter()
+                want, _ = prefill(params, {"tokens": toks}, with_cf(cf),
+                                  dense_run)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                dense_ms = (time.perf_counter() - t0) * 1e3
+            with patched((moe_mod, "route", blocked_route)):
+                control, _ = prefill(params, {"tokens": toks}, with_cf(cf),
+                                     dense_run)
+            got, ms = logits_ep[cf]
+            finite = bool(torch.isfinite(got).all())
+            scale = want.abs().max()
+            ratio = float((got - want).abs().max() / scale)
+            control_ratio = float((control - want).abs().max() / scale)
+            equal_control = torch.equal(got, control)
+            dropped = sum(int((~k).sum()) for k in keeps)
+            differ = [int((ids_d != ids_e).any(-1).sum()) for (ids_d, _), ids_e
+                      in zip(routes_d, ids_ep[cf])]
+            flip0 = (routes_d[0][0] != ids_ep[cf][0]).any(-1)
+            near0 = int((flip0 & (routes_d[0][1] < MOE_NEAR_TIE)).sum())
+            say("dist", part="ep", case="bf16_prefill", arch=cfg.name,
+                layers=f"{cfg.n_layers}_of_48", batch=B, seq=S,
+                capacity_factor=f"{cf:.4f}", logit_ratio=f"{ratio:.5f}",
+                control_ratio=f"{control_ratio:.5f}",
+                equal_to_control=equal_control, finite=finite,
+                tokens_routed_otherwise_by_layer=",".join(map(str, differ)),
+                layer0_near_tie_exceptions=near0,
+                dropped_pairs_ep=drops_ep[cf], dropped_pairs_dense=dropped,
+                routed_pairs=cfg.n_layers * B * S * m.top_k,
+                flash_launches_ep=f"wgmma_bf16:{flash[cf][0]},"
+                                  f"cuda_core_f32:{flash[cf][1]}",
+                ep_ms=f"{ms:.2f}", dense_ms=f"{dense_ms:.2f}",
+                params_per_rank=n_rank, params_dense=count_params(params))
+            # layer 0's MoE input is the same in both paths: its routing
+            # may differ only where the top-k decision is a near tie
+            # with nothing dropped EP computes the control's function: the
+            # same products on the same rows, the router on the same blocks
+            if (not finite or differ[0] != near0
+                    or (cf == no_drop and not equal_control)):
+                raise RuntimeError(
+                    f"EP prefill at capacity factor {cf}: finite={finite}, "
+                    f"layer 0 routes {differ[0]} tokens otherwise, {near0} "
+                    f"of them near ties, equal to the control: "
+                    f"{equal_control}")
+            if on_card and flash[cf] != [n * cfg.n_layers, 0]:
+                raise RuntimeError(f"EP prefill launched flash {flash[cf]}, "
+                                   f"expected {n * cfg.n_layers} wgmma_bf16 "
+                                   "and no f32 kernel")
+        del params
+        empty()
+    dist.barrier(group=ax.group)
+    out["flash_launches"] = sum(v[0] for v in flash.values())
+    out["head_dim"] = cfg.head_dim
+    return out
+
+
+def dist_pipeline(mesh, dev, plan, on_card: bool) -> dict:
+    """``part=pipeline``: stablelm-1.6b's layers in 4 stages through
+    ``pipeline_apply`` (f32 masters, bf16 compute, a loss on the output),
+    against the same layers applied microbatch by microbatch in one
+    process on the same card."""
+    import torch
+
+    from repro_torch.dist import pipeline_apply
+    from repro_torch.dist.comm import Axis, all_reduce_sum, exchange
+    from repro_torch.kernels.flash_attention import BWD_KERNEL
+    from repro_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
+    from repro_torch.models.blocks import block_apply, block_init
+    from repro_torch.models.layers import (stack_init, tree_flatten,
+                                           tree_map)
+    from repro_torch.train.step import cast_params
+
+    ax = Axis(mesh, "pipe")
+    me, n = ax.me, ax.n
+    cfg = plan["pipe_cfg"]
+    L, M, seq = cfg.n_layers, plan["pipe_m"], plan["pipe_seq"]
+    per = L // n
+    run = train_run_config()
+    def draw():
+        return stack_init(lambda g: block_init("attn_dense", g, cfg, dev),
+                          torch.Generator(device=dev).manual_seed(0), L)
+
+    # this rank's stage, f32 masters; the stage leaves pipeline_apply takes
+    # are views of it (leading dim n, every index this stage: only this
+    # rank's is read), so no rank keeps the other stages
+    own = tree_map(lambda t: t.reshape(n, per, *t.shape[1:])[me].clone()
+                   .requires_grad_(), draw())
+    sp = tree_map(lambda t: t[None].expand(n, *t.shape), own)
+    positions = torch.arange(seq, dtype=torch.int32, device=dev)[None]
+    x = torch.randn((M, 1, seq, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(10)
+                    ).to(torch.bfloat16)
+
+    def layer_fn(lp, h):
+        return block_apply("attn_dense", cast_params(lp, torch.bfloat16), h,
+                           cfg, run, positions)[0]
+
+    def step():
+        y = pipeline_apply(layer_fn, sp, x, mesh, "pipe")
+        (y.float() ** 2).mean(dim=(1, 2, 3)).sum().backward()
+        return y.detach()
+
+    step()  # each rank's first calls of every kernel and library
+    tree_map(lambda t: setattr(t, "grad", None), own)
+    reset_flash_counts()
+    BWD_KERNEL.reset()
+    y_pipe, step_ms = dist_time(ax, step, dev, reps=1)
+    launches = all_reduce_sum(ax, torch.tensor([
+        FLASH_KERNEL.variant_launches["wgmma_bf16"],
+        FLASH_KERNEL.variant_launches["cuda_core_f32"],
+        BWD_KERNEL.variant_launches["wgmma_bf16"],
+        BWD_KERNEL.variant_launches["mma_bf16"],
+        BWD_KERNEL.variant_launches["cuda_core_f32"]]))
+    fwd, bwd = [int(v) for v in launches[:2]], [int(v) for v in launches[2:]]
+    names = [k for k, _ in tree_flatten(own)]
+    mine = {k: t.grad for k, t in tree_flatten(own)}
+    del sp, own
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # the sequential reference on rank 0; each rank gets its stage's slice
+    want = {k: torch.empty_like(t) for k, t in mine.items()}
+    out = {}
+    if me == 0:
+        params = tree_map(lambda t: t.requires_grad_(), draw())
+        leaves = [t for _, t in tree_flatten(params)]
+        grads = [torch.zeros_like(t) for t in leaves]
+        outs = []
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for mb in range(M):
+            parts = tree_map(lambda t: torch.unbind(t, 0), params)
+            h = x[mb]
+            for i in range(L):
+                h = layer_fn(tree_map(lambda t: t[i], parts), h)
+            outs.append(h.detach())
+            for g, d in zip(grads, torch.autograd.grad(
+                    (h.float() ** 2).mean(), leaves)):
+                g += d
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        seq_ms = (time.perf_counter() - t0) * 1e3
+        y_seq = torch.stack(outs)
+        equal = torch.equal(y_pipe, y_seq)
+        bit_diff = int((y_pipe.view(torch.int16)
+                        != y_seq.view(torch.int16)).sum())
+        neg_zero = int(((y_seq == 0) & torch.signbit(y_seq)).sum())
+        full = dict(zip(names, grads))
+        del params, leaves, outs
+    else:
+        full = None
+    for k in names:
+        if me == 0:
+            src = full[k].reshape(n, per, *full[k].shape[1:])
+            want[k] = src[0].clone()
+            exchange(ax, [(r, src[r]) for r in range(1, n)], [])
+        else:
+            exchange(ax, [], [(0, want[k])])
+    worst = max(float((mine[k] - want[k]).abs().max() / want[k].abs().max())
+                for k in names)
+    every = all_reduce_sum(ax, torch.zeros(n).index_fill_(
+        0, torch.tensor([me]), worst))
+    worst_all = float(every.max())
+    if me == 0:
+        say("dist", part="pipeline", arch=cfg.name, layers=L, stages=n,
+            layers_per_stage=per, microbatches=M, seq=seq,
+            master="float32", compute="bfloat16",
+            forward_equal=equal, forward_bits_differing=bit_diff,
+            negative_zeros_in_sequential=neg_zero,
+            worst_leaf_grad_err_over_max=f"{worst_all:.3e}",
+            bound=DIST_PIPE_GRAD_RTOL, leaves=len(names),
+            flash_fwd_launches=f"wgmma_bf16:{fwd[0]},cuda_core_f32:{fwd[1]}",
+            flash_bwd_launches=f"wgmma_bf16:{bwd[0]},mma_bf16:{bwd[1]},"
+                               f"cuda_core_f32:{bwd[2]}",
+            step_ms=f"{step_ms:.2f}", sequential_one_process_ms=f"{seq_ms:.2f}",
+            handoff_bytes=seq * cfg.d_model * 2,
+            all_reduce=f"bfloat16_{'through_host' if ax.staged(x) else 'device'}")
+        if not equal:
+            raise RuntimeError(f"pipeline forward differs from the "
+                               f"sequential layers in {bit_diff} elements")
+        want_l = n * per * M
+        if on_card and (fwd != [want_l, 0] or bwd != [want_l, 0, 0]):
+            raise RuntimeError(f"pipeline launched flash {fwd} and its "
+                               f"backward {bwd}, expected {want_l} of each "
+                               "on wgmma_bf16 alone")
+        out = {"fwd": fwd[0], "bwd": bwd[0], "head_dim": cfg.head_dim}
+    if worst_all > DIST_PIPE_GRAD_RTOL:
+        raise RuntimeError(f"pipeline gradients: worst leaf {worst_all} of "
+                           f"its max (bound {DIST_PIPE_GRAD_RTOL})")
+    return out
+
+
+def dist_rank(rank: int, plan: dict, device_type: str = "cuda") -> dict:
+    """One rank of the ``--dist`` child: the four parts in order; rank 0
+    prints and returns the launches and errors for the kernels line."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.comm import Axis, all_reduce_sum
+    from repro_torch.launch.mesh import make_mesh
+
+    on_card = device_type == "cuda"
+    dev = (torch.device("cuda", torch.cuda.current_device()) if on_card
+           else torch.device("cpu"))
+    meshes = {a: make_mesh((DIST_RANKS,), (a,), device_type)
+              for a in ("model", "data", "pipe")}
+    if rank == 0:
+        ax = Axis(meshes["model"], "model")
+        say("dist", part="route", backend=dist.get_backend(),
+            ranks=DIST_RANKS, cards=torch.cuda.device_count() if on_card
+            else 0, staged_through_host=ax.staged(torch.empty(0,
+                                                              device=dev)))
+    t0 = time.perf_counter()
+    dist_executors(meshes["model"], dev, plan)
+    t1 = time.perf_counter()
+    dist_compress(meshes["data"], dev, plan)
+    t2 = time.perf_counter()
+    ep = dist_ep(meshes["model"], dev, plan, on_card)
+    t3 = time.perf_counter()
+    pipe = dist_pipeline(meshes["pipe"], dev, plan, on_card)
+    t4 = time.perf_counter()
+    ax = Axis(meshes["model"], "model")
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+    peaks = all_reduce_sum(ax, torch.zeros(ax.n).index_fill_(
+        0, torch.tensor([ax.me]), peak))
+    if rank == 0:
+        say("dist", part="walls", executors_s=f"{t1 - t0:.1f}",
+            compress_s=f"{t2 - t1:.1f}", ep_s=f"{t3 - t2:.1f}",
+            pipeline_s=f"{t4 - t3:.1f}",
+            peak_gib_by_rank=",".join(f"{g:.2f}" for g in peaks.tolist()))
+    return {"ep": ep, "pipeline": pipe}
+
+
+def dist_child() -> None:
+    """``--dist``: ``DIST_RANKS`` ranks on this machine's cards (gloo when
+    they share one); prints ``[dist]`` lines and one JSON line."""
+    import shutil
+
+    import torch
+
+    from repro_torch.launch.mesh import choose_backend, spawn_ranks
+    from repro_torch.models import RunConfig, count_params, model_init
+
+    plan = dist_plan()
+    ep_cfg, pipe_cfg = plan["ep_cfg"], plan["pipe_cfg"]
+    run = RunConfig()
+    n_ep = count_params(model_init(0, ep_cfg, run, device="meta"))
+    m = ep_cfg.moe
+    experts = 3 * m.n_experts * ep_cfg.d_model * m.d_expert * ep_cfg.n_layers
+    per_rank = n_ep - experts + experts // DIST_RANKS
+    n_pipe = count_params(model_init(0, pipe_cfg, run, device="meta"))
+    say("dist", part="plan", ranks=DIST_RANKS,
+        backend=choose_backend(DIST_RANKS, "cuda"),
+        cards=torch.cuda.device_count(),
+        ep_arch=ep_cfg.name, ep_layers=f"{ep_cfg.n_layers}_of_48",
+        cut="moonshot_layers_48_to_12",
+        ep_bf16_gib_per_rank=f"{2 * per_rank / 2**30:.2f}",
+        ep_bf16_gib_dense=f"{2 * n_ep / 2**30:.2f}",
+        compress_gib_per_rank=f"{4 * math.prod(DIST_COMPRESS_SHAPE) / 2**30:.2f}",
+        pipe_arch=pipe_cfg.name, pipe_layers=pipe_cfg.n_layers,
+        pipe_f32_gib_per_rank=f"{4 * n_pipe / 2**30:.2f}")
+    # the ranks load the libraries this process builds
+    from repro_torch.kernels.flash_attention import BWD_WGMMA_LIB
+    from repro_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
+
+    FLASH_KERNEL.build()
+    BWD_WGMMA_LIB.build()
+    out = ROOT / "build" / "dist"
+    res = spawn_ranks(dist_rank, DIST_RANKS, (plan,), out_dir=out,
+                      device_type="cuda", timeout_s=DIST_TIMEOUT_S)
+    shutil.rmtree(out, ignore_errors=True)
+    print(json.dumps(res[0]), flush=True)
+
+
+def phase_dist_child(entries: list) -> None:
+    """The ``--dist`` child; its flash launches (the EP prefills' forward at
+    moonshot's head dim, the pipeline's forward and backward at
+    stablelm's) join the kernels line's entries."""
+    import torch
+
+    say("dist", part="parent",
+        allocated_gib=f"{torch.cuda.memory_allocated() / 2**30:.2f}")
+    res = run_child("--dist")
+    flash = next(e for e in entries if e["name"] == "flash_attention")
+    bwd = next(e for e in entries if e["name"] == "flash_attention_bwd")
+    by_dim = flash["launches_by_head_dim"]
+    for part, n in ((res["ep"], res["ep"]["flash_launches"]),
+                    (res["pipeline"], res["pipeline"]["fwd"])):
+        d = str(part["head_dim"])
+        by_dim[d] = by_dim.get(d, 0) + n
+        flash["launches"] += n
+    bwd["launches"] += res["pipeline"]["bwd"]
+    bwd["launches_by_route"]["wgmma_bf16"] += res["pipeline"]["bwd"]
+
+
+# ---------------------------------------------------------------------------
 # the segmented-min arbitration kernel through segmin / arbitrate
 # ---------------------------------------------------------------------------
 def xsim_id_space(n: int, B: int, rng) -> tuple:
@@ -4412,6 +5087,9 @@ def main() -> None:
     if sys.argv[1:] == ["--train"]:
         train_child()
         return
+    if sys.argv[1:] == ["--dist"]:
+        dist_child()
+        return
     if sys.argv[1:] == ["--segmin-kernel-alone"]:
         segmin_kernel_alone()
         return
@@ -4669,6 +5347,9 @@ def main() -> None:
 
     # ---- 7e. training: stablelm-1.6b, the flash backward kernel ----------
     phase_train_child(serve_entries)
+
+    # ---- 7f. dist: four ranks, DPM executors, compress, EP, pipeline ------
+    phase_dist_child(serve_entries)
 
     # ---- 8. the segmented-min kernel through segmin / arbitrate ----------
     segmin_entries = phase_segmin()

@@ -24,9 +24,12 @@ Pipeline:
 ``dp_broadcast_schedule`` specializes to a 1-D rank ring, and
 ``alltoall_schedule`` builds the all-to-all that expert-parallel dispatch
 uses. ``Schedule.cost`` prices a schedule with an alpha-beta-hop model for
-benchmark comparisons. The reference's executors (``apply_schedule``,
-``apply_alltoall_schedule``: ``jax.lax.ppermute`` rounds) are not here;
-they become ``torch.distributed`` rounds with ROADMAP.md queue 1 item 5.
+benchmark comparisons. The executors (``apply_schedule``,
+``apply_alltoall_schedule``) run a schedule on rank-local tensors along
+one axis of a ``DeviceMesh``: each round is one ``batch_isend_irecv`` on
+the axis's group (the reference's one ``jax.lax.ppermute`` per round), and
+both are differentiable (each round's transpose is the reversed pairs, run
+in reverse round order).
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ from ..core.grid import Coord
 from ..core.planner import MulticastPlan, plan
 from ..core.routefn import faulty
 from ..core.topology import Topology, Torus, torus  # Torus re-exported (dist)
+from .comm import Axis, exchange
 
 # Alpha-beta-hop calibration constants for Schedule.cost: per-round software/
 # launch latency, per-hop fall-through, per-link bandwidth. Absolute values
@@ -350,3 +354,123 @@ def ring_alltoall_schedule(num_ranks: int) -> Schedule:
             [a2a_req_id(num_ranks, i, (i + r) % num_ranks) for i in range(num_ranks)]
         )
     return Schedule(num_ranks, rounds, hops, reqs)
+
+
+def _check_ranks(sched: Schedule, ax: Axis) -> None:
+    if sched.num_ranks != ax.n:
+        raise ValueError(f"schedule of {sched.num_ranks} ranks on an axis of "
+                         f"{ax.n}")
+
+
+def _adopt_rounds(x: torch.Tensor, rounds, ax: Axis) -> torch.Tensor:
+    """``apply_schedule``'s forward: per round the receiver adopts the
+    sender's payload."""
+    for rnd in rounds:
+        src = next((s for s, d in rnd if d == ax.me), None)
+        dst = next((d for s, d in rnd if s == ax.me), None)
+        y = torch.empty_like(x) if src is not None else None
+        exchange(ax, [] if dst is None else [(dst, x)],
+                 [] if src is None else [(src, y)])
+        if y is not None:
+            x = y
+    return x
+
+
+def _adopt_rounds_transpose(ct: torch.Tensor, rounds, ax: Axis) -> torch.Tensor:
+    """The transpose of ``_adopt_rounds``: rounds in reverse, each pair
+    reversed; a receiver hands its cotangent back to its sender (and keeps
+    none), a sender adds what its receiver hands back."""
+    for rnd in reversed(rounds):
+        src = next((s for s, d in rnd if d == ax.me), None)
+        dst = next((d for s, d in rnd if s == ax.me), None)
+        back = torch.empty_like(ct) if dst is not None else None
+        exchange(ax, [] if src is None else [(src, ct)],
+                 [] if dst is None else [(dst, back)])
+        if src is not None:
+            ct = torch.zeros_like(ct)
+        if back is not None:
+            ct = ct + back
+    return ct
+
+
+def _alltoall_rounds(chunks: torch.Tensor, rounds, ax: Axis) -> torch.Tensor:
+    """``apply_alltoall_schedule``'s forward."""
+    out = torch.zeros_like(chunks)
+    out[ax.me] = chunks[ax.me]
+    for rnd in rounds:
+        src = next((s for s, d in rnd if d == ax.me), None)
+        dst = next((d for s, d in rnd if s == ax.me), None)
+        exchange(ax, [] if dst is None else [(dst, chunks[dst])],
+                 [] if src is None else [(src, out[src])])
+    return out
+
+
+def _alltoall_rounds_transpose(ct: torch.Tensor, rounds,
+                               ax: Axis) -> torch.Tensor:
+    """The transpose of ``_alltoall_rounds``: a receiver hands slot
+    ``src``'s cotangent back to ``src`` and clears the slot; a sender adds
+    what comes back into the chunk it shipped; the own slot's cotangent
+    goes to the own chunk."""
+    ct = ct.clone()
+    grad = torch.zeros_like(ct)
+    for rnd in reversed(rounds):
+        src = next((s for s, d in rnd if d == ax.me), None)
+        dst = next((d for s, d in rnd if s == ax.me), None)
+        back = torch.empty_like(ct[0]) if dst is not None else None
+        exchange(ax, [] if src is None else [(src, ct[src].clone())],
+                 [] if dst is None else [(dst, back)])
+        if src is not None:
+            ct[src] = 0
+        if back is not None:
+            grad[dst] += back
+    grad[ax.me] += ct[ax.me]
+    return grad
+
+
+class _Rounds(torch.autograd.Function):
+    """A schedule's rounds with their transpose as the backward: every rank
+    posts its rounds in the same order both ways."""
+
+    @staticmethod
+    def forward(ctx, x, rounds, ax: Axis, fwd, bwd):
+        ctx.rounds, ctx.ax, ctx.bwd = rounds, ax, bwd
+        out = fwd(x, rounds, ax)
+        return x.clone() if out is x else out
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ctx.bwd(ct.contiguous(), ctx.rounds, ctx.ax), None, None, None, None
+
+
+def apply_schedule(x: torch.Tensor, sched: Schedule, mesh,
+                   axis: str) -> torch.Tensor:
+    """Execute a Schedule on a rank-local tensor along ``axis`` of
+    ``mesh``: one ``batch_isend_irecv`` per round; receivers adopt the
+    incoming payload, all other ranks keep theirs. Only meaningful for
+    single-request (broadcast-like) schedules, where every transfer carries
+    the same logical payload. Differentiable."""
+    ax = Axis(mesh, axis)
+    _check_ranks(sched, ax)
+    return _Rounds.apply(x, [list(r) for r in sched.rounds], ax,
+                         _adopt_rounds, _adopt_rounds_transpose)
+
+
+def apply_alltoall_schedule(chunks: torch.Tensor, sched: Schedule, mesh,
+                            axis: str) -> torch.Tensor:
+    """Execute an ``alltoall_schedule`` on rank-local chunks along ``axis``
+    of ``mesh``.
+
+    ``chunks[j]`` is this rank's payload for rank ``j``; the result's row
+    ``i`` is the chunk rank ``i`` addressed to this rank, the own row is
+    ``chunks[me]`` and a row that receives nothing is zero. Each round is
+    one ``batch_isend_irecv``: senders ship the chunk for their round
+    receiver, receivers store the incoming chunk under the sender's slot
+    (the schedule's transfers are direct src -> dst, so a sender always
+    holds what it sends). Differentiable."""
+    ax = Axis(mesh, axis)
+    _check_ranks(sched, ax)
+    if chunks.shape[0] != ax.n:
+        raise ValueError(f"chunks leading dim {chunks.shape[0]} != {ax.n} "
+                         "ranks")
+    return _Rounds.apply(chunks.contiguous(), [list(r) for r in sched.rounds],
+                         ax, _alltoall_rounds, _alltoall_rounds_transpose)

@@ -1,2 +1,3 @@
-"""Launch layer of the port: the serving CLI (``python -m
-repro_torch.launch.serve``) and the HLO cost analysis (``launch.hlo``)."""
+"""Launch layer of the port: the serving and training CLIs (``python -m
+repro_torch.launch.serve``, ``launch.train``), the HLO cost analysis
+(``launch.hlo``) and the meshes of ranks (``launch.mesh``)."""

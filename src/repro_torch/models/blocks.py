@@ -50,10 +50,22 @@ def _check_kind(kind: str) -> None:
 
 def _moe_ffn(pf: Params, xn: torch.Tensor, cfg: ArchConfig,
              run: RunConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """The MoE FFN: ``(y, aux)``. The reference runs ``moe_impl="ep"``
-    (expert parallel, shard_map all_to_all) only under a device mesh and
-    the dense path without one; the port has no mesh, so both values
-    compute the dense path."""
+    """The MoE FFN: ``(y, aux)``. ``moe_impl="ep"`` runs expert
+    parallelism (``dist.ep``, DPM-scheduled all-to-all rounds) when
+    ``shardctx`` holds a mesh whose ``model`` axis divides the experts, as
+    the reference does; otherwise, and for ``"dense"``, the dense path."""
+    if run.moe_impl == "ep":
+        from ..dist.comm import axis_size
+        from ..dist.ep import moe_apply_ep
+        from ..shardctx import _CTX
+
+        mesh = _CTX["mesh"]
+        if (mesh is not None
+                and cfg.moe.n_experts % axis_size(mesh, "model") == 0):
+            data_axes = tuple(
+                a for a in ("pod", "data") if a in mesh.mesh_dim_names
+            )
+            return moe_apply_ep(pf, xn, cfg, mesh, data_axes=data_axes)
     return moe_apply_dense(pf, xn, cfg)
 
 

@@ -138,7 +138,7 @@ class RunConfig:
     seq_shard: bool = False  # sequence-parallel residual stream (SP)
     zero1: bool = True  # shard optimizer state over the data axis
     grad_compress: str = "none"  # none | int8
-    moe_impl: str = "dense"  # dense (GSPMD einsum) | ep (shard_map all_to_all)
+    moe_impl: str = "dense"  # dense | ep (dist.ep under a shardctx mesh)
     learning_rate: float = 3e-4
     weight_decay: float = 0.1
     beta1: float = 0.9

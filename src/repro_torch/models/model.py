@@ -18,7 +18,10 @@ whole stack in every layer's backward). ``run.remat == "block"``
 recomputes each layer in the backward (``torch.utils.checkpoint``, the
 reference's ``jax.checkpoint`` of the scan body; the attention forward
 kernel then runs twice a layer); any other value keeps the activations.
-Sharding constraints have no meaning on one card. Caches are
+The model runs on rank-local tensors and sets no sharding
+constraints; under ``moe_impl="ep"`` with a mesh in ``shardctx`` its MoE
+layers run expert-parallel (``dist.ep``). ``cache_axes`` gives the
+reference's logical axes of the caches for ``dist.sharding``. Caches are
 per layer: ``caches["g{i}"]`` is a list with one dict per layer of the
 group (the reference stacks them); decode writes KV caches in place.
 """
@@ -265,6 +268,40 @@ def init_caches(cfg: ArchConfig, run: RunConfig, batch: int, max_len: int,
                    for _ in range(count)]
         for gi, (kind, count) in enumerate(cfg.layout)
     }
+
+
+def _block_cache_axes(kind: str, cfg: ArchConfig, run: RunConfig):
+    kv = {
+        "k": ("batch", "seq", "kv_heads", "head_dim"),
+        "v": ("batch", "seq", "kv_heads", "head_dim"),
+    }
+    if run.kv_cache_dtype == "int8":
+        kv["k_scale"] = ("batch", "seq", "kv_heads", None)
+        kv["v_scale"] = ("batch", "seq", "kv_heads", None)
+    ssd = {
+        "conv": ("batch", "conv", "mlp"),
+        "state": ("batch", "heads", "state", "head_dim"),
+    }
+    if kind in ("attn_dense", "attn_moe"):
+        return kv
+    if kind in ("mla_dense", "mla_moe"):
+        return {"ckv": ("batch", "seq", "kv_lora"),
+                "krope": ("batch", "seq", "qk_rope")}
+    if kind == "ssd":
+        return ssd
+    if kind in ("hymba_g", "hymba_w"):
+        return {"attn": dict(kv), "ssm": dict(ssd)}
+    raise ValueError(kind)
+
+
+def cache_axes(cfg: ArchConfig, run: RunConfig):
+    """Logical-axis tuples of the reference's stacked caches (a leading
+    "layers" dim per group), the spec tree ``dist.sharding`` resolves."""
+    out = {}
+    for gi, (kind, _) in enumerate(cfg.layout):
+        out[f"g{gi}"] = tree_map(lambda ax: ("layers", *ax),
+                                 _block_cache_axes(kind, cfg, run))
+    return out
 
 
 @torch.no_grad()

@@ -105,6 +105,32 @@ def shared_ffn(p: Params, xt: torch.Tensor) -> torch.Tensor:
     return (F.silu(g) * h) @ p["shared_wo"].to(dt)
 
 
+def dispatch_buffer(xt: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
+                    k: int, n: int) -> torch.Tensor:
+    """The ``(n, d)`` expert buffer: slot ``slot[i]`` holds the token of
+    routed pair ``i`` (pairs flattened over (token, choice)), the rest are
+    zero. Kept slots are unique and dropped pairs all write a spare last
+    entry, so the buffer is a gather of 0 + token (``xt + 0.0`` turns -0.0
+    into +0.0), which is what the reference's ``.at[slot].add`` onto zeros
+    holds, with no atomics."""
+    Tk = slot.shape[0]
+    pair = torch.full((n + 1,), Tk, device=xt.device)
+    pair.scatter_(0, torch.where(keep, slot, n),
+                  torch.arange(Tk, device=xt.device))
+    pair = pair[:n]
+    return torch.where((pair < Tk)[:, None],
+                       (xt + 0.0)[pair.clamp(max=Tk - 1) // k], 0)
+
+
+def combine(ye: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
+            w: torch.Tensor, k: int) -> torch.Tensor:
+    """Each token's kept pairs' expert outputs (rows of the ``(n, d)``
+    buffer ``ye``) weighted by their router weights and summed: (T, d)."""
+    gathered = torch.where(keep[:, None], ye[slot], 0)  # (T*k, d)
+    d = ye.shape[-1]
+    return (gathered.reshape(-1, k, d) * w[..., None].to(ye.dtype)).sum(1)
+
+
 def moe_apply_dense(p: Params, x: torch.Tensor, cfg: ArchConfig):
     """Token-major in, (E, cap, d) expert compute, combine.
 
@@ -117,21 +143,9 @@ def moe_apply_dense(p: Params, x: torch.Tensor, cfg: ArchConfig):
     ids, w, aux = route(p, xt, m)
     cap = capacity(m, T)
     slot, keep = dispatch_indices(ids, m, cap)
-    # the routed pair in each buffer slot: kept slots are unique, dropped
-    # pairs all write a spare last entry. The buffer is then a gather of
-    # 0 + token (``xt + 0.0`` turns -0.0 into +0.0), which is what the
-    # reference's ``.at[slot].add`` onto zeros holds, with no atomics
-    Tk, n = T * k, m.n_experts * cap
-    pair = torch.full((n + 1,), Tk, device=x.device)
-    pair.scatter_(0, torch.where(keep, slot, n),
-                  torch.arange(Tk, device=x.device))
-    pair = pair[:n]
-    buf = torch.where((pair < Tk)[:, None],
-                      (xt + 0.0)[pair.clamp(max=Tk - 1) // k], 0)
+    buf = dispatch_buffer(xt, slot, keep, k, m.n_experts * cap)
     ye = expert_ffn(p, buf.reshape(m.n_experts, cap, d))
-    gathered = ye.reshape(m.n_experts * cap, d)[slot]  # (T*k, d)
-    gathered = torch.where(keep[:, None], gathered, 0)
-    y = (gathered.reshape(T, k, d) * w[..., None].to(x.dtype)).sum(1)
+    y = combine(ye.reshape(m.n_experts * cap, d), slot, keep, w, k)
     if m.n_shared:
         y = y + shared_ffn(p, xt)
     return y.reshape(B, S, d), aux

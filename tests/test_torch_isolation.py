@@ -67,7 +67,14 @@ def test_importing_every_port_module_loads_neither_jax_nor_repro():
                  "repro_torch.train.step",
                  "repro_torch.train.loop",
                  "repro_torch.ckpt.checkpoint",
-                 "repro_torch.launch.train"):
+                 "repro_torch.launch.train",
+                 "repro_torch.launch.mesh",
+                 "repro_torch.shardctx",
+                 "repro_torch.dist.comm",
+                 "repro_torch.dist.compress",
+                 "repro_torch.dist.ep",
+                 "repro_torch.dist.pipeline",
+                 "repro_torch.dist.sharding"):
         assert name in mods
     code = (
         "import importlib, sys\n"

@@ -10,9 +10,11 @@ smoke width (8 experts, top-2, one shared expert).
   (``tests/test_torch_models.py``'s bf16 logits tolerance, atol 4e-2), at
   the default capacity factor and at 0.25, where pairs are dropped; the
   routed ids, slots and kept pairs are equal in both dtypes.
-- ``moe_impl="ep"``: the reference runs expert parallelism only under a
-  device mesh and the dense path without one; the port has no mesh, so a
-  block with ``"ep"`` equals the block with ``"dense"`` bit for bit.
+- ``moe_impl="ep"`` without a mesh: the reference runs expert
+  parallelism only under a device mesh and the dense path without one, and
+  so does the port (``shardctx`` holds none here), so a block with
+  ``"ep"`` equals the block with ``"dense"`` bit for bit. Under a mesh,
+  ``tests/test_torch_dist.py`` holds the EP path.
 """
 import dataclasses
 
