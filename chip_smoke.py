@@ -37,7 +37,11 @@ non-zero before the result line:
    kernel alone, both routes must equal the plain cycle on the same
    inputs, and the latencies and energies must equal the ones the port
    gave before batched planning; the two routes timed in turns, and alone
-   in a child process;
+   in a child process; then (``[xsim_sharded]``) the same batch through
+   ``noc.xsim.run._run_sharded`` (the reference's ``pmap`` over its
+   devices) over the card listed four times: four ``cluster_smem``
+   launches of 4 instances, the counts set to 0 just before, every output
+   and final plane bit-equal to the one launch;
 5. cost tables: both routes (``warp``: one warp per packet over its
    destinations, the default; ``block``: one block per packet over all its
    nodes) of ``dpm_cost_table`` and ``dpm_cost_table_weighted`` (hops,
@@ -192,7 +196,27 @@ non-zero before the result line:
    the 24 layers applied microbatch by microbatch on rank 0, every stage
    leaf's gradient within 1e-5 of its max of that sequential autograd's,
    96 forward and 96 backward flash launches (``wgmma_bf16``) with the
-   counts set to 0 just before;
+   counts set to 0 just before; ``part=zero1``: ``repro_torch.train.train``
+   on each rank under a (4,) ``data`` mesh in ``shardctx`` (ZeRO-1:
+   ``train.optim.DataParallel``), stablelm-1.6b at full width cut to 4 of
+   its 24 layers, one 4,096-token sequence a rank, 3 steps of the training
+   CLI's recipe, checkpoints at steps 2 and 3 (the blocks gathered, rank 0
+   writing whole leaves): per rank the state bytes against the whole and
+   against what its ``zero1_shardings`` blocks imply (asserted equal), the
+   peak memory and the step ms; against the one-process run of the same
+   steps (run alone on the card before the ranks, results on the host,
+   ``accum=4``: each microbatch one rank's rows) within the rule of
+   ``tests/test_torch_train.py`` (every step's loss and grad norm within
+   1e-5, every parameter within 2 lr and at most 1e-3 of them beyond 1e-6,
+   after step 1 each rank's blocks against its blocks of the one-process
+   parameters, at the end the gathered checkpoint), the global batch in
+   one pass (``accum=1``, other bf16 roundings) printed beside it; 48
+   forward and 48 backward flash launches (``wgmma_bf16``) with the counts
+   set to 0 just before; ``part=elastic``: the step-2 checkpoint restored
+   onto a (2, 2) ``("data", "model")`` mesh under ``tree_shardings``, each
+   rank's every block equal to its ``np.split`` block of the memory-mapped
+   file, then restored in one process by ``train`` and trained to step 3,
+   within the rule of the four ranks' step 3 (16 + 16 flash launches);
 8. segmented min: ``segmin`` and ``arbitrate`` on the card over ten cases
    (tests/test_kernels.py's shapes; xsim's fused link + ejection id space
    at the 8x8, 16x16 and 32x32 grids with B = 4, 16 and 132 instances; the
@@ -414,6 +438,9 @@ SEGMIN_ARBITRATE_GRIDS = (("scale16x16", 16, 16), ("mesh32x32", 32, 132))
 SEGMIN_ALONE_REPS = 5  # calls per profiled window of the kernel-alone times
 # the host-simulator phase: the paper's configuration
 HOST_SIM_RATE, HOST_SIM_CYCLES = 0.02, 300
+# xsim's batch split: the card listed this many times (the main path's
+# B = 16 splits into 4 launches of 4 instances)
+XSIM_SPLIT_DEVICES = 4
 # the dist phase (a child process that spawns DIST_RANKS torch.distributed
 # ranks on the machine's cards; one card: the ranks share it over gloo, the
 # payloads staged through host memory). Executors: EP's own chunk (moonshot
@@ -435,6 +462,16 @@ DIST_EP_B, DIST_EP_S = 4, 2000
 DIST_EP_RTOL = 2e-5  # the f32 layer against the dense path, x max |y|
 DIST_PIPE_M, DIST_PIPE_SEQ = 4, 4096
 DIST_PIPE_GRAD_RTOL = 1e-5  # each stage leaf's gradient, x its max
+# ZeRO-1 (part=zero1): stablelm-1.6b at full width cut to DIST_ZERO1_LAYERS
+# of its 24 layers (0.61 B parameters; four ranks' f32 state blocks,
+# gradients and bf16 copies of all 24 layers would not share the card),
+# one TRAIN_SEQ-token sequence a rank, DIST_ZERO1_STEPS steps of the
+# training CLI's recipe, a checkpoint at DIST_ZERO1_CKPT_AT and at the end;
+# part=elastic restores that checkpoint on a (2, 2) ("data", "model")
+# mesh and in one process
+DIST_ZERO1_LAYERS = 4
+DIST_ZERO1_STEPS, DIST_ZERO1_CKPT_AT = 3, 2
+DIST_CHILD_TIMEOUT_S = 900
 
 
 def fail(msg: str) -> None:
@@ -1536,7 +1573,7 @@ def prefill_profile() -> None:
     from repro_torch.models import RunConfig, model_init, prefill
 
     cfg, run = ARCHS["hymba-1.5b"], RunConfig()
-    params = model_init(0, cfg, run, device="cuda")
+    params, _ = model_init(0, cfg, run, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     toks = torch.randint(0, cfg.vocab, (SERVE_MAX_BATCH, 1866),
                          generator=gen, device="cuda", dtype=torch.int32)
@@ -1647,7 +1684,7 @@ def phase_serve() -> list:
 
     cfg, run = ARCHS["hymba-1.5b"], RunConfig()
     t0 = time.monotonic()
-    params = model_init(0, cfg, run, device="cuda")
+    params, _ = model_init(0, cfg, run, device="cuda")
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
     n_params = count_params(params)
@@ -1727,7 +1764,7 @@ def phase_serve() -> list:
         r = RunConfig(activations_dtype=act)
         # each run on the tree model_init stores for it (f32: every leaf)
         p = (params if act == run.activations_dtype
-             else model_init(0, cfg, r, device="cuda"))
+             else model_init(0, cfg, r, device="cuda")[0])
         v0 = variant_counts()
         lk, _ = prefill(p, {"tokens": toks}, cfg, r)
         var = variant_delta(v0)
@@ -2270,7 +2307,7 @@ def layers_vs_plain(cfg, layout, prompts: dict) -> None:
 
     cfg2 = cut_depth(cfg, layout)
     run32 = RunConfig(activations_dtype="float32")
-    params = model_init(0, cfg2, run32, device="cuda")
+    params, _ = model_init(0, cfg2, run32, device="cuda")
     batch = {k: torch.from_numpy(a).cuda() for k, a in prompts.items()}
     B, S = next(iter(prompts.values())).shape[:2]
     paths = {}
@@ -2339,7 +2376,7 @@ def init_line(tag: str, cfg, run, **extra):
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    params = model_init(0, cfg, run, device="cuda")
+    params, _ = model_init(0, cfg, run, device="cuda")
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
     weight_bytes = sum(t.numel() * t.element_size()
@@ -2885,7 +2922,7 @@ def train_main(cfg, run) -> tuple[int, int]:
     from repro_torch.models import count_params, model_init
     from repro_torch.train import LoopConfig, train
 
-    n_params = count_params(model_init(0, cfg, run, device="meta"))
+    n_params = count_params(model_init(0, cfg, run, device="meta")[0])
     loop = LoopConfig(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                       log_every=0, seed=0)
     torch.cuda.reset_peak_memory_stats()
@@ -2951,7 +2988,7 @@ def train_split(cfg, run) -> dict:
     )
 
     f32_run = dataclasses.replace(run, activations_dtype="float32")
-    state = init_state(model_init(0, cfg, f32_run, device="cuda"))
+    state = init_state(model_init(0, cfg, f32_run, device="cuda")[0])
     batch = synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 0, 0, device="cuda")
     layers, captured, spans = (0, cfg.n_layers - 1), {}, {"fwd": [], "bwd": []}
     attn_fn = attention.flash_attention
@@ -3031,7 +3068,7 @@ def train_vs_plain(cfg, run) -> None:
     cfg2 = cut_depth(cfg, ((cfg.layout[0][0], TRAIN_PLAIN_LAYERS),))
     run32 = dataclasses.replace(run, params_dtype="float32",
                                 activations_dtype="float32")
-    params = model_init(0, cfg2, run32, device="cuda")
+    params, _ = model_init(0, cfg2, run32, device="cuda")
     batch = synthetic_batch(cfg2, 1, TRAIN_SEQ, 0, 0, device="cuda")
     paths = {}
     for name in ("kernel", "plain"):
@@ -3107,7 +3144,7 @@ def train_checkpoints() -> None:
                 equal=a == b, abs_diff=f"{abs(a - b):.3g}")
         # a state saved and restored, bit for bit
         f32_run = dataclasses.replace(run, activations_dtype="float32")
-        state = init_state(model_init(0, cfg, f32_run, device="cuda"))
+        state = init_state(model_init(0, cfg, f32_run, device="cuda")[0])
         step_fn = build_train_step(cfg, run, lr_fn=cosine_lr(
             run, warmup=max(2, CKPT_STEPS // 20), total=CKPT_STEPS))
         for s in range(CKPT_AT):
@@ -3131,13 +3168,20 @@ def train_checkpoints() -> None:
     torch.cuda.empty_cache()
 
 
+def named_state_leaves(state) -> list:
+    """``(name, tensor)`` of a ``TrainState``, named as ``ckpt`` names its
+    leaves (``.step``, ``.params/g0/...``)."""
+    from repro_torch.models.layers import tree_flatten
+
+    return [(".step", state.step)] + [
+        (f".{field}/{k}", t) for field in ("params", "m", "v")
+        for k, t in tree_flatten(getattr(state, field))]
+
+
 def tree_leaves_state(state) -> list:
     """Every tensor of a ``TrainState``: the step, then the parameters and
     moments in the checkpoint's leaf order."""
-    from repro_torch.models.layers import tree_flatten
-
-    return [state.step] + [t for part in state[1:]
-                           for _, t in tree_flatten(part)]
+    return [t for _, t in named_state_leaves(state)]
 
 
 def train_child() -> None:
@@ -3203,7 +3247,7 @@ def phase_train_child(entries: list) -> None:
     })
 
 
-def run_child(flag: str) -> dict:
+def run_child(flag: str, timeout_s: float = SERVE_CHILD_TIMEOUT_S) -> dict:
     """Run this script with ``flag`` in a child process, print its lines
     and return its last line's JSON."""
     import torch
@@ -3211,7 +3255,7 @@ def run_child(flag: str) -> dict:
     torch.cuda.empty_cache()
     proc = subprocess.run(
         [sys.executable, str(Path(__file__).resolve()), flag],
-        capture_output=True, text=True, timeout=SERVE_CHILD_TIMEOUT_S,
+        capture_output=True, text=True, timeout=timeout_s,
     )
     lines = proc.stdout.strip().splitlines()
     for line in lines[:-1] if proc.returncode == 0 else lines:
@@ -3276,7 +3320,10 @@ def dist_plan() -> dict:
                                 (("attn_moe", DIST_EP_LAYERS),)),
             "pipe_cfg": ARCHS[TRAIN_ARCH], "B": DIST_EP_B, "S": DIST_EP_S,
             "pipe_m": DIST_PIPE_M, "pipe_seq": DIST_PIPE_SEQ,
-            "compress_shape": DIST_COMPRESS_SHAPE}
+            "compress_shape": DIST_COMPRESS_SHAPE,
+            "zero1_cfg": cut_depth(ARCHS[TRAIN_ARCH],
+                                   (("attn_dense", DIST_ZERO1_LAYERS),)),
+            "zero1_dir": str(ROOT / "build" / "dist_zero1")}
 
 
 def dist_time(ax, fn, dev, reps: int = DIST_REPS) -> tuple:
@@ -3440,16 +3487,16 @@ def ep_slice_init(seed: int, cfg, run, dev, me: int, e_loc: int):
 
     def sliced(init_fn, gen, n, cast=None):
         def draw(g):
-            layer = init_fn(g)
+            layer, specs = init_fn(g)
             f = layer["ffn"]
             for k in ("wi", "wg", "wo"):
                 f[k] = f[k][me * e_loc:(me + 1) * e_loc].clone()
-            return layer
+            return layer, specs
 
         return stack(draw, gen, n, cast)
 
     with patched((model_mod, "stack_init", sliced)):
-        return model_mod.model_init(seed, cfg, run, device=dev)
+        return model_mod.model_init(seed, cfg, run, device=dev)[0]
 
 
 def keep_recorder(module, keeps: list):
@@ -3501,7 +3548,8 @@ def dist_ep(mesh, dev, plan, on_card: bool) -> dict:
             torch.cuda.empty_cache()
 
     # -- one f32 MoE layer, nothing dropped
-    layer = moe_init(torch.Generator(device=dev).manual_seed(7), cfg, dev)
+    layer, _ = moe_init(torch.Generator(device=dev).manual_seed(7), cfg,
+                        dev)
     p = {k: v[me * e_loc:(me + 1) * e_loc].clone()
          if k in ("wi", "wg", "wo") else v for k, v in layer.items()}
     del layer
@@ -3519,7 +3567,8 @@ def dist_ep(mesh, dev, plan, on_card: bool) -> dict:
     dist.barrier(group=ax.group)
     out = {}
     if me == 0:
-        layer = moe_init(torch.Generator(device=dev).manual_seed(7), cfg, dev)
+        layer, _ = moe_init(torch.Generator(device=dev).manual_seed(7),
+                            cfg, dev)
         routes_d = []
         with moe_route_recorder(routes_d):
             t0 = time.perf_counter()
@@ -3577,7 +3626,7 @@ def dist_ep(mesh, dev, plan, on_card: bool) -> dict:
     dist.barrier(group=ax.group)
     if me == 0:
         dense_run = dataclasses.replace(run, moe_impl="dense")
-        params = model_init(0, cfg, run, device=dev)
+        params, _ = model_init(0, cfg, run, device=dev)
         route = moe_mod.route
 
         def blocked_route(p, x, mc):
@@ -3669,7 +3718,7 @@ def dist_pipeline(mesh, dev, plan, on_card: bool) -> dict:
     run = train_run_config()
     def draw():
         return stack_init(lambda g: block_init("attn_dense", g, cfg, dev),
-                          torch.Generator(device=dev).manual_seed(0), L)
+                          torch.Generator(device=dev).manual_seed(0), L)[0]
 
     # this rank's stage, f32 masters; the stage leaves pipeline_apply takes
     # are views of it (leading dim n, every index this stage: only this
@@ -3782,6 +3831,144 @@ def dist_pipeline(mesh, dev, plan, on_card: bool) -> dict:
     return out
 
 
+def spec_block(full, spec: tuple, sizes: dict, coords: dict):
+    """The block of the array ``full`` that the ranks at mesh ``coords``
+    hold under the spec tuple ``spec``, by ``np.split``: a sharded dim split
+    over each of its axes in turn, the major one first."""
+    import numpy as np
+
+    out = full
+    for d, entry in enumerate(spec):
+        axes = (() if entry is None else (entry,) if isinstance(entry, str)
+                else entry)
+        for a in axes:
+            out = np.split(out, sizes[a], axis=d)[coords[a]]
+    return np.asarray(out)
+
+
+def dist_zero1(mesh, dev, plan, on_card: bool) -> dict:
+    """``part=zero1`` on each rank: ``train`` under the (4,) ``data`` mesh in
+    ``shardctx`` (ZeRO-1: this rank's rows and state blocks), a checkpoint
+    at ``DIST_ZERO1_CKPT_AT`` and at the end (gathered, rank 0 writes); the
+    flash counts set to 0 just before. Returns this rank's losses, step
+    times, state bytes, peak memory and the ranks' launches."""
+    import torch
+
+    import repro_torch.train.loop as loop_mod
+    from repro_torch.dist.comm import Axis, all_reduce_sum
+    from repro_torch.kernels.flash_attention import BWD_KERNEL
+    from repro_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
+    from repro_torch.models import count_params, model_init
+    from repro_torch.models.layers import tree_flatten
+    from repro_torch.shardctx import clear_ctx, set_ctx
+    from repro_torch.train import LoopConfig
+
+    cfg, run = plan["zero1_cfg"], train_run_config()
+    kept, first = {}, {}
+    real_save, real_build = loop_mod.save, loop_mod.build_train_step
+
+    def keep_bytes(ckpt_dir, step, tree, *args, **kw):
+        kept["bytes"] = sum(t.numel() * t.element_size()
+                            for _, t in named_state_leaves(tree))
+        return real_save(ckpt_dir, step, tree, *args, **kw)
+
+    def keep_first(*args, **kw):
+        step_fn = real_build(*args, **kw)
+
+        def step(state, batch):
+            state, metrics = step_fn(state, batch)
+            if not first:  # this rank's blocks after step 1, on the card
+                first.update((k, t.clone()) for k, t in
+                             tree_flatten(state.params))
+            return state, metrics
+
+        return step
+
+    loop = LoopConfig(steps=DIST_ZERO1_STEPS, batch=DIST_RANKS, seq=TRAIN_SEQ,
+                      ckpt_every=DIST_ZERO1_CKPT_AT,
+                      ckpt_dir=plan["zero1_dir"], log_every=0, seed=0)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    reset_flash_counts()
+    BWD_KERNEL.reset()
+    set_ctx(mesh)
+    try:
+        with patched((loop_mod, "save", keep_bytes),
+                     (loop_mod, "build_train_step", keep_first)):
+            res = loop_mod.train(cfg, run, loop, device=dev)
+    finally:
+        clear_ctx()
+    if on_card:
+        torch.cuda.synchronize()
+    launches = all_reduce_sum(Axis(mesh, "data"), torch.tensor([
+        FLASH_KERNEL.variant_launches["wgmma_bf16"],
+        FLASH_KERNEL.variant_launches["cuda_core_f32"],
+        BWD_KERNEL.variant_launches["wgmma_bf16"],
+        BWD_KERNEL.variant_launches["mma_bf16"],
+        BWD_KERNEL.variant_launches["cuda_core_f32"]]))
+    n_params = count_params(model_init(0, cfg, run, device="meta")[0])
+    return {"losses": res.losses, "grad_norms": res.grad_norms,
+            "step_ms": res.step_ms, "wall_s": res.wall_s,
+            "params1": {k: t.cpu().numpy() for k, t in first.items()},
+            "state_bytes": kept["bytes"], "whole_bytes": 4 + 12 * n_params,
+            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                         if on_card else 0.0),
+            "fwd": [int(v) for v in launches[:2]],
+            "bwd": [int(v) for v in launches[2:]]}
+
+
+def dist_elastic(mesh, plan) -> dict:
+    """``part=elastic`` on each rank: the step-``DIST_ZERO1_CKPT_AT``
+    checkpoint of ``part=zero1`` restored onto the (2, 2) ``("data",
+    "model")`` ``mesh`` under ``tree_shardings`` (the parameters' model-axis
+    layout), each block held against ``spec_block`` of the memory-mapped
+    file."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.ckpt import restore
+    from repro_torch.dist.comm import Axis, all_reduce_sum
+    from repro_torch.dist.sharding import mesh_coords, tree_shardings
+    from repro_torch.models import abstract_init
+    from repro_torch.train import TrainState
+
+    dist.barrier()
+    cfg, run = plan["zero1_cfg"], train_run_config()
+    shapes, specs = abstract_init(cfg, dataclasses.replace(
+        run, activations_dtype="float32"))
+    like = TrainState(torch.empty((), dtype=torch.int32, device="meta"),
+                      shapes, shapes, shapes)
+    sh = tree_shardings(specs, shapes, mesh)
+    sh_state = TrainState((), sh, sh, sh)
+    t0 = time.perf_counter()
+    state = restore(plan["zero1_dir"], DIST_ZERO1_CKPT_AT, like, sh_state,
+                    mesh=mesh)
+    restore_s = time.perf_counter() - t0
+    arrays = (Path(plan["zero1_dir"]) / f"step_{DIST_ZERO1_CKPT_AT:08d}"
+              / "arrays")
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    coords = mesh_coords(mesh)
+    spec_of = dict(named_state_leaves(sh_state))
+    exact, nbytes, whole, split = True, 0, 0, 0
+    for name, block in named_state_leaves(state):
+        full = np.load(arrays / (name.replace("/", "__") + ".npy"),
+                       mmap_mode="r")
+        want = spec_block(full, spec_of[name], sizes, coords)
+        exact = exact and block.shape == want.shape and np.array_equal(
+            block.numpy(), want)
+        nbytes += block.numel() * block.element_size()
+        whole += full.nbytes
+        split += block.numel() < full.size
+    agree = int(all_reduce_sum(Axis(mesh, "model"), all_reduce_sum(
+        Axis(mesh, "data"), torch.tensor([int(exact)]))))
+    return {"exact": exact, "all_exact": agree == mesh.size(),
+            "coords": coords, "bytes": nbytes, "whole_bytes": whole,
+            "split_leaves": split, "leaves": len(spec_of),
+            "restore_s": restore_s}
+
+
 def dist_rank(rank: int, plan: dict, device_type: str = "cuda") -> dict:
     """One rank of the ``--dist`` child: the four parts in order; rank 0
     prints and returns the launches and errors for the kernels line."""
@@ -3796,6 +3983,8 @@ def dist_rank(rank: int, plan: dict, device_type: str = "cuda") -> dict:
            else torch.device("cpu"))
     meshes = {a: make_mesh((DIST_RANKS,), (a,), device_type)
               for a in ("model", "data", "pipe")}
+    meshes["data_model"] = make_mesh((2, DIST_RANKS // 2), ("data", "model"),
+                                     device_type)
     if rank == 0:
         ax = Axis(meshes["model"], "model")
         say("dist", part="route", backend=dist.get_backend(),
@@ -3815,17 +4004,257 @@ def dist_rank(rank: int, plan: dict, device_type: str = "cuda") -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
     peaks = all_reduce_sum(ax, torch.zeros(ax.n).index_fill_(
         0, torch.tensor([ax.me]), peak))
+    zero1 = dist_zero1(meshes["data"], dev, plan, on_card)
+    t5 = time.perf_counter()
+    elastic = dist_elastic(meshes["data_model"], plan)
+    t6 = time.perf_counter()
     if rank == 0:
         say("dist", part="walls", executors_s=f"{t1 - t0:.1f}",
             compress_s=f"{t2 - t1:.1f}", ep_s=f"{t3 - t2:.1f}",
-            pipeline_s=f"{t4 - t3:.1f}",
-            peak_gib_by_rank=",".join(f"{g:.2f}" for g in peaks.tolist()))
-    return {"ep": ep, "pipeline": pipe}
+            pipeline_s=f"{t4 - t3:.1f}", zero1_s=f"{t5 - t4:.1f}",
+            elastic_s=f"{t6 - t5:.1f}",
+            peak_gib_by_rank_before_zero1=",".join(
+                f"{g:.2f}" for g in peaks.tolist()))
+    return {"ep": ep, "pipeline": pipe, "zero1": zero1, "elastic": elastic}
+
+
+def zero1_one_process(cfg, accum: int) -> dict:
+    """``part=zero1``'s one-process run: ``DIST_ZERO1_STEPS`` steps of
+    ``build_train_step`` on the global batch in ``accum`` microbatches, as
+    ``train`` runs them (the same seed, data and schedule); the losses,
+    grad norms and the f32 parameters after the first and the last step
+    kept on the host."""
+    import torch
+
+    from repro_torch.models import model_init
+    from repro_torch.models.layers import tree_flatten
+    from repro_torch.train import (build_train_step, cosine_lr, init_state,
+                                   synthetic_batch)
+
+    run = train_run_config()
+    f32_run = dataclasses.replace(run, activations_dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(model_init(0, cfg, f32_run, device="cuda")[0])
+    step_fn = build_train_step(cfg, run, accum=accum, lr_fn=cosine_lr(
+        run, warmup=max(2, DIST_ZERO1_STEPS // 20), total=DIST_ZERO1_STEPS))
+    out = {"losses": [], "grad_norms": [], "step_ms": []}
+    for s in range(DIST_ZERO1_STEPS):
+        batch = synthetic_batch(cfg, DIST_RANKS, TRAIN_SEQ, 0, s,
+                                device="cuda")
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        out["losses"].append(float(m["loss"]))
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["grad_norms"].append(float(m["grad_norm"]))
+        if s == 0:
+            out["params1"] = {k: t.cpu().numpy().copy() for k, t in
+                              tree_flatten(state.params)}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["params"] = {k: t.cpu().numpy() for k, t in
+                     tree_flatten(state.params)}
+    del state, step_fn
+    torch.cuda.empty_cache()
+    return out
+
+
+def checkpoint_params(base: Path, step: int) -> dict:
+    """The whole ``.params`` leaves of checkpoint ``step`` under ``base``,
+    keyed as ``tree_flatten`` keys them."""
+    import numpy as np
+
+    arrays = base / f"step_{step:08d}" / "arrays"
+    return {f.stem[len(".params__"):].replace("__", "/"): np.load(f)
+            for f in arrays.glob(".params__*.npy")}
+
+
+def param_rule(got: dict, want: dict) -> tuple[float, float]:
+    """The largest |got - want| over every parameter and the share of
+    elements beyond 1e-6 (``tests/test_torch_train.py``'s rule: at most
+    2 lr and 1e-3)."""
+    import numpy as np
+
+    worst, beyond, n = 0.0, 0, 0
+    for k, w in want.items():
+        d = np.abs(got[k] - w)
+        worst = max(worst, float(d.max()))
+        beyond += int((d > 1e-6).sum())
+        n += d.size
+    return worst, beyond / n
+
+
+def zero1_report(plan, ranks: list, one: dict) -> tuple[dict, dict]:
+    """``part=zero1`` in the parent: each rank's state bytes against the
+    whole and against what its ``zero1_shardings`` blocks imply, peak
+    memory and step times; then the ranks against the one-process runs.
+    The ``accum=DIST_RANKS`` run is the ranks' twin (each microbatch one
+    rank's rows, the same bf16 arithmetic; only the f32 sums over the
+    ranks come in gloo's order) and must agree under the rule: every
+    step's loss and grad norm within 1e-5, the parameters within 2 lr and
+    at most 1e-3 of them beyond 1e-6, after step 1 (each rank's blocks
+    against ``spec_block`` of the twin's) and at the end (the ranks'
+    gathered checkpoint). The global batch in one pass (``accum=1``: other
+    matrix shapes, so other bf16 roundings) is printed beside it, not
+    bounded. Returns the ranks' launches and their final parameters."""
+    from repro_torch.dist.sharding import abstract_mesh, zero1_shardings
+    from repro_torch.models import abstract_init
+    from repro_torch.models.layers import tree_flatten
+
+    cfg, run = plan["zero1_cfg"], train_run_config()
+    shapes, specs = abstract_init(cfg, dataclasses.replace(
+        run, activations_dtype="float32"))
+    mesh = abstract_mesh(("data", DIST_RANKS))
+    zspecs = dict(tree_flatten(zero1_shardings(specs, shapes, mesh)))
+    implied = 4 + 12 * sum(
+        t.numel() // (DIST_RANKS if any(e is not None for e in zspecs[k])
+                      else 1)
+        for k, t in tree_flatten(shapes))
+    twin = one[DIST_RANKS]
+    worst1, beyond1 = 0.0, 0.0
+    for r, z in enumerate(ranks):
+        blocks = {k: spec_block(w, zspecs[k], {"data": DIST_RANKS},
+                                {"data": r})
+                  for k, w in twin["params1"].items()}
+        w1, b1 = param_rule(z["params1"], blocks)
+        worst1, beyond1 = max(worst1, w1), max(beyond1, b1)
+        say("dist", part="zero1", rank=r, arch=cfg.name,
+            layers=f"{cfg.n_layers}_of_24", seq=TRAIN_SEQ, rows=1,
+            state_bytes=z["state_bytes"], implied_by_specs=implied,
+            whole_state_bytes=z["whole_bytes"],
+            share_of_whole=f"{z['state_bytes'] / z['whole_bytes']:.4f}",
+            peak_gib=f"{z['peak_gib']:.2f}",
+            step_ms=",".join(f"{t:.2f}" for t in z["step_ms"]),
+            wall_s=f"{z['wall_s']:.1f}",
+            losses=",".join(repr(x) for x in z["losses"]),
+            step1_param_max_abs_diff=f"{w1:.3e}",
+            step1_param_share_beyond_1e6=f"{b1:.3e}")
+        if z["state_bytes"] != implied:
+            fail(f"rank {r} holds {z['state_bytes']} state bytes, its "
+                 f"blocks imply {implied}")
+        if z["losses"] != ranks[0]["losses"]:
+            fail(f"rank {r}'s losses differ from rank 0's")
+    loss1 = abs(ranks[0]["losses"][0] - twin["losses"][0])
+    norm1 = abs(ranks[0]["grad_norms"][0] - twin["grad_norms"][0])
+    step1_met = (loss1 <= 1e-5 and norm1 <= 1e-5
+                 and worst1 <= 2 * TRAIN_LR and beyond1 <= 1e-3)
+    got = checkpoint_params(Path(plan["zero1_dir"]), DIST_ZERO1_STEPS)
+    for accum, o in one.items():
+        worst, beyond = param_rule(got, o["params"])
+        loss_d = max(abs(a - b) for a, b in zip(ranks[0]["losses"],
+                                                o["losses"]))
+        norm_d = max(abs(a - b) for a, b in zip(ranks[0]["grad_norms"],
+                                                o["grad_norms"]))
+        met = (loss_d <= 1e-5 and norm_d <= 1e-5 and worst <= 2 * TRAIN_LR
+               and beyond <= 1e-3)
+        say("dist", part="zero1", against=f"one_process_accum{accum}",
+            losses=",".join(repr(x) for x in o["losses"]),
+            loss_abs_diff_by_step=",".join(
+                f"{abs(a - b):.3e}" for a, b in zip(ranks[0]["losses"],
+                                                    o["losses"])),
+            grad_norm_abs_diff_by_step=",".join(
+                f"{abs(a - b):.3e}" for a, b in zip(ranks[0]["grad_norms"],
+                                                    o["grad_norms"])),
+            final_param_max_abs_diff=f"{worst:.3e}", bound=2 * TRAIN_LR,
+            final_param_share_beyond_1e6=f"{beyond:.3e}", share_bound=1e-3,
+            within_rule=met, peak_gib=f"{o['peak_gib']:.2f}",
+            step_ms=",".join(f"{t:.2f}" for t in o["step_ms"]))
+        if accum == DIST_RANKS and not met:
+            fail("ZeRO-1 on the ranks differs from its one-process twin "
+                 "beyond the rule")
+    say("dist", part="zero1", step1_against="one_process_accum"
+        f"{DIST_RANKS}", loss_abs_diff=f"{loss1:.3e}",
+        grad_norm_abs_diff=f"{norm1:.3e}",
+        param_max_abs_diff=f"{worst1:.3e}",
+        param_share_beyond_1e6=f"{beyond1:.3e}", within_rule=step1_met)
+    if not step1_met:
+        fail("ZeRO-1's first step on the ranks differs from its one-process "
+             "twin beyond the rule")
+    fwd, bwd = ranks[0]["fwd"], ranks[0]["bwd"]
+    want = DIST_RANKS * DIST_ZERO1_STEPS * cfg.n_layers
+    say("dist", part="zero1", launches_all_ranks=True,
+        flash_fwd_launches=f"wgmma_bf16:{fwd[0]},cuda_core_f32:{fwd[1]}",
+        flash_bwd_launches=f"wgmma_bf16:{bwd[0]},mma_bf16:{bwd[1]},"
+                           f"cuda_core_f32:{bwd[2]}")
+    if fwd != [want, 0] or bwd != [want, 0, 0]:
+        fail(f"ZeRO-1 launched flash {fwd} and its backward {bwd}, "
+             f"expected {want} of each on wgmma_bf16 alone")
+    return {"fwd": fwd[0], "bwd": bwd[0], "head_dim": cfg.head_dim}, got
+
+
+def elastic_report(plan, ranks: list, ranks_final: dict) -> dict:
+    """``part=elastic`` in the parent: each rank's restore onto the (2, 2)
+    mesh, then the step-``DIST_ZERO1_CKPT_AT`` checkpoint restored in one
+    process by ``train`` and trained on to step ``DIST_ZERO1_STEPS`` (its
+    microbatches one rank's rows each), against the four ranks' step
+    ``DIST_ZERO1_STEPS`` under the rule; the flash counts set to 0 just
+    before. Returns the launches."""
+    import os
+    import shutil
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import BWD_KERNEL
+    from repro_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
+    from repro_torch.train import LoopConfig, train
+
+    for r, e in enumerate(ranks):
+        say("dist", part="elastic", rank=r, mesh="data2_model2",
+            coords=",".join(f"{a}:{c}" for a, c in e["coords"].items()),
+            restored_bytes=e["bytes"], whole_bytes=e["whole_bytes"],
+            split_leaves=f"{e['split_leaves']}_of_{e['leaves']}",
+            each_block_exact=e["exact"], restore_s=f"{e['restore_s']:.2f}")
+    if not all(e["all_exact"] for e in ranks):
+        fail("a block restored onto the (2, 2) mesh differs from its spec's "
+             "block of the checkpoint")
+    cfg, run = plan["zero1_cfg"], train_run_config()
+    base = Path(plan["zero1_dir"])
+    step_dir = f"step_{DIST_ZERO1_CKPT_AT:08d}"
+    one_dir = base.parent / "dist_elastic"
+    shutil.rmtree(one_dir, ignore_errors=True)
+    shutil.copytree(base / step_dir, one_dir / step_dir,
+                    copy_function=os.link)
+    # the ranks' last checkpoint is read already: room for this run's
+    shutil.rmtree(base / f"step_{DIST_ZERO1_STEPS:08d}")
+    reset_flash_counts()
+    BWD_KERNEL.reset()
+    res = train(cfg, run, LoopConfig(
+        steps=DIST_ZERO1_STEPS, batch=DIST_RANKS, seq=TRAIN_SEQ,
+        accum=DIST_RANKS, ckpt_dir=str(one_dir), log_every=0, seed=0),
+        device="cuda")
+    torch.cuda.synchronize()
+    fwd = dict(FLASH_KERNEL.variant_launches)
+    bwd = dict(BWD_KERNEL.variant_launches)
+    worst, beyond = param_rule(checkpoint_params(one_dir, DIST_ZERO1_STEPS),
+                               ranks_final)
+    shutil.rmtree(one_dir, ignore_errors=True)
+    loss_d = max(abs(a - b) for a, b in zip(
+        res.losses, plan["ranks_losses"][DIST_ZERO1_CKPT_AT:]))
+    met = worst <= 2 * TRAIN_LR and beyond <= 1e-3 and loss_d <= 1e-5
+    want = (DIST_ZERO1_STEPS - DIST_ZERO1_CKPT_AT) * DIST_RANKS * cfg.n_layers
+    say("dist", part="elastic", one_process=True,
+        resumed_from=res.resumed_from, steps=len(res.losses),
+        losses=",".join(repr(x) for x in res.losses),
+        loss_max_abs_diff=f"{loss_d:.3e}",
+        param_max_abs_diff=f"{worst:.3e}", bound=2 * TRAIN_LR,
+        param_share_beyond_1e6=f"{beyond:.3e}", share_bound=1e-3,
+        within_rule=met,
+        flash_fwd_launches=",".join(f"{k}:{n}" for k, n in fwd.items()),
+        flash_bwd_launches=",".join(f"{k}:{n}" for k, n in bwd.items()))
+    if res.resumed_from != DIST_ZERO1_CKPT_AT or not met:
+        fail("the one-process run resumed from the ranks' checkpoint differs "
+             "from the ranks' last step beyond the rule")
+    if (fwd != {"wgmma_bf16": want, "cuda_core_f32": 0}
+            or bwd != {"wgmma_bf16": want, "mma_bf16": 0,
+                       "cuda_core_f32": 0}):
+        fail(f"the resumed run launched flash {fwd} and its backward {bwd}, "
+             f"expected {want} of each on wgmma_bf16 alone")
+    return {"fwd": fwd["wgmma_bf16"], "bwd": bwd["wgmma_bf16"],
+            "head_dim": cfg.head_dim}
 
 
 def dist_child() -> None:
     """``--dist``: ``DIST_RANKS`` ranks on this machine's cards (gloo when
-    they share one); prints ``[dist]`` lines and one JSON line."""
+    they share one); ``part=zero1``'s one-process runs before them and the
+    comparisons after; prints ``[dist]`` lines and one JSON line."""
     import shutil
 
     import torch
@@ -3836,11 +4265,13 @@ def dist_child() -> None:
     plan = dist_plan()
     ep_cfg, pipe_cfg = plan["ep_cfg"], plan["pipe_cfg"]
     run = RunConfig()
-    n_ep = count_params(model_init(0, ep_cfg, run, device="meta"))
+    n_ep = count_params(model_init(0, ep_cfg, run, device="meta")[0])
     m = ep_cfg.moe
     experts = 3 * m.n_experts * ep_cfg.d_model * m.d_expert * ep_cfg.n_layers
     per_rank = n_ep - experts + experts // DIST_RANKS
-    n_pipe = count_params(model_init(0, pipe_cfg, run, device="meta"))
+    n_pipe = count_params(model_init(0, pipe_cfg, run, device="meta")[0])
+    n_zero1 = count_params(model_init(0, plan["zero1_cfg"], run,
+                                      device="meta")[0])
     say("dist", part="plan", ranks=DIST_RANKS,
         backend=choose_backend(DIST_RANKS, "cuda"),
         cards=torch.cuda.device_count(),
@@ -3850,18 +4281,34 @@ def dist_child() -> None:
         ep_bf16_gib_dense=f"{2 * n_ep / 2**30:.2f}",
         compress_gib_per_rank=f"{4 * math.prod(DIST_COMPRESS_SHAPE) / 2**30:.2f}",
         pipe_arch=pipe_cfg.name, pipe_layers=pipe_cfg.n_layers,
-        pipe_f32_gib_per_rank=f"{4 * n_pipe / 2**30:.2f}")
+        pipe_f32_gib_per_rank=f"{4 * n_pipe / 2**30:.2f}",
+        zero1_layers=f"{DIST_ZERO1_LAYERS}_of_24", zero1_params=n_zero1,
+        zero1_f32_state_gib_whole=f"{12 * n_zero1 / 2**30:.2f}")
     # the ranks load the libraries this process builds
     from repro_torch.kernels.flash_attention import BWD_WGMMA_LIB
     from repro_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
 
     FLASH_KERNEL.build()
     BWD_WGMMA_LIB.build()
+    # part=zero1's one-process runs, alone on the card before the ranks
+    one = {accum: zero1_one_process(plan["zero1_cfg"], accum)
+           for accum in (DIST_RANKS, 1)}
     out = ROOT / "build" / "dist"
-    res = spawn_ranks(dist_rank, DIST_RANKS, (plan,), out_dir=out,
-                      device_type="cuda", timeout_s=DIST_TIMEOUT_S)
-    shutil.rmtree(out, ignore_errors=True)
-    print(json.dumps(res[0]), flush=True)
+    shutil.rmtree(plan["zero1_dir"], ignore_errors=True)
+    try:
+        res = spawn_ranks(dist_rank, DIST_RANKS, (plan,), out_dir=out,
+                          device_type="cuda", timeout_s=DIST_TIMEOUT_S)
+        result = {k: res[0][k] for k in ("ep", "pipeline")}
+        result["zero1"], final = zero1_report(
+            plan, [r["zero1"] for r in res], one)
+        del one
+        plan["ranks_losses"] = res[0]["zero1"]["losses"]
+        result["elastic"] = elastic_report(
+            plan, [r["elastic"] for r in res], final)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+        shutil.rmtree(plan["zero1_dir"], ignore_errors=True)
+    print(json.dumps(result), flush=True)
 
 
 def phase_dist_child(entries: list) -> None:
@@ -3872,17 +4319,54 @@ def phase_dist_child(entries: list) -> None:
 
     say("dist", part="parent",
         allocated_gib=f"{torch.cuda.memory_allocated() / 2**30:.2f}")
-    res = run_child("--dist")
+    res = run_child("--dist", DIST_CHILD_TIMEOUT_S)
     flash = next(e for e in entries if e["name"] == "flash_attention")
     bwd = next(e for e in entries if e["name"] == "flash_attention_bwd")
     by_dim = flash["launches_by_head_dim"]
     for part, n in ((res["ep"], res["ep"]["flash_launches"]),
-                    (res["pipeline"], res["pipeline"]["fwd"])):
+                    (res["pipeline"], res["pipeline"]["fwd"]),
+                    (res["zero1"], res["zero1"]["fwd"]),
+                    (res["elastic"], res["elastic"]["fwd"])):
         d = str(part["head_dim"])
         by_dim[d] = by_dim.get(d, 0) + n
         flash["launches"] += n
-    bwd["launches"] += res["pipeline"]["bwd"]
-    bwd["launches_by_route"]["wgmma_bf16"] += res["pipeline"]["bwd"]
+    for part in ("pipeline", "zero1", "elastic"):
+        bwd["launches"] += res[part]["bwd"]
+        bwd["launches_by_route"]["wgmma_bf16"] += res[part]["bwd"]
+
+
+# ---------------------------------------------------------------------------
+# xsim's batch split over cards: the main path's batch, the card listed 4 times
+# ---------------------------------------------------------------------------
+def phase_xsim_sharded(tr, geom, kw, one_launch: dict) -> int:
+    """``[xsim_sharded]``: ``noc.xsim.run._run_sharded`` (the reference's
+    ``pmap`` over its devices) on the 16x16 sweep's inputs over the card
+    listed ``XSIM_SPLIT_DEVICES`` times: one ``cluster_smem`` launch a
+    part, the launch counts set to 0 just before and read just after, the
+    outputs and final planes bit-equal to the main path's one launch.
+    Returns the launches."""
+    import torch
+
+    from repro_torch.kernels.noc_cycle import KERNEL
+    from repro_torch.noc.xsim.run import _run_sharded, _shard_count
+
+    B = tr["link"].shape[0]
+    devices = [torch.device("cuda", torch.cuda.current_device())
+               ] * XSIM_SPLIT_DEVICES
+    D = _shard_count(B, len(devices))
+    KERNEL.reset()
+    split, ms = timed(lambda: _run_sharded(tr, geom, devices, **kw))
+    launches, routes = KERNEL.launches, dict(KERNEL.variants)
+    bad, err = compare(split, one_launch)
+    say("xsim_sharded", grid="mesh16x16", instances=B, devices=len(devices),
+        shards=D, instances_per_launch=B // D, launches=launches,
+        variants=",".join(f"{k}:{n}" for k, n in routes.items()),
+        equal_to_one_launch=not bad, max_abs_err=err, ms=f"{ms:.3f}")
+    if bad:
+        fail(f"the split batch differs from one launch: {', '.join(bad)}")
+    if routes != {"cluster_smem": D, "block": 0}:
+        fail(f"the split batch launched {routes}, expected {D} cluster_smem")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -5326,6 +5810,10 @@ def main() -> None:
         plain_ms=f"{p_ms:.1f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by,
         bytes=nbytes, ops=ops, state_bytes_per_cycle=state,
         state_stream_bound_ms=f"{stream_ms:.4f}")
+
+    # ---- 4b. the main path's batch split over the card listed 4 times ----
+    split_launches = phase_xsim_sharded(tr, geom, kw, kern)
+    launches += split_launches
 
     # ---- 5. cost-table kernels and the planning path ---------------------
     dpm_entries = phase_cost_tables(cfg)

@@ -17,9 +17,11 @@ run a schedule's rounds as ``batch_isend_irecv`` on one axis of a
 
 The functions take rank-local tensors, a ``DeviceMesh`` and an axis name
 where the reference runs inside ``shard_map`` over a named axis; rank
-``i`` of a schedule is coordinate ``i`` along that axis. ZeRO-1 in the
-optimizer and the model's own logical-axis spec tree wait for ROADMAP.md
-queue 1 item 5.
+``i`` of a schedule is coordinate ``i`` along that axis. The spec trees
+come from the models' ``*_init`` (``models.model.abstract_init``); their
+consumers are ``launch.specs``, ZeRO-1 training
+(``train.optim.DataParallel``) and the elastic re-shard of
+``ckpt.restore``.
 """
 from .compress import compressed_psum
 from .ep import moe_apply_ep

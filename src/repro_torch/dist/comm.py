@@ -122,6 +122,72 @@ def all_reduce_sum(ax: Axis, t: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def gather_shards(mesh, t: torch.Tensor, spec: tuple) -> torch.Tensor:
+    """The whole tensor whose block under ``spec`` (a spec tuple,
+    ``sharding.shard_slices``) this rank holds as ``t``: each sharded dim's
+    blocks gathered over its axes, the minor axis first. Every rank of the
+    axes involved calls it; an unsharded ``t`` comes back as it is."""
+    from .sharding import _flat_axes
+
+    for d, entry in enumerate(spec):
+        for a in reversed(_flat_axes(entry)):
+            parts = all_gather(Axis(mesh, a), t)
+            t = torch.cat(parts.unbind(0), dim=d)
+    return t
+
+
+def gather_to(mesh, t: torch.Tensor, spec: tuple, dst: int):
+    """The whole tensor whose block under ``spec`` this rank holds as
+    ``t``, assembled on the host of global rank ``dst`` (returned there,
+    ``None`` on the other ranks). Each distinct block crosses once, as one
+    point-to-point message from the rank that holds it at coordinate 0 of
+    the axes ``spec`` does not split over (staged through the host where
+    the group is gloo). Every rank of ``mesh`` calls it."""
+    import itertools
+    import math
+
+    from .sharding import _flat_axes, shard_slices
+
+    names = mesh.mesh_dim_names
+    grid = mesh.mesh  # the global ranks, in the mesh's shape
+    sizes = dict(zip(names, grid.shape))
+    used = {a for e in spec for a in _flat_axes(e)}
+    full = tuple(n * math.prod(sizes[a] for a in _flat_axes(
+        spec[d] if d < len(spec) else None)) for d, n in enumerate(t.shape))
+    owners = []
+    for idx in itertools.product(*(range(n) for n in grid.shape)):
+        coords = dict(zip(names, idx))
+        if all(coords[a] == 0 for a in names if a not in used):
+            owners.append((int(grid[idx]), coords))
+    me = dist.get_rank()
+    staged = dist.get_backend() == "gloo" and t.is_cuda
+    if me != dst:
+        if any(r == me for r, _ in owners):
+            b = _bytes(t.contiguous())
+            dist.send(b.cpu() if staged else b, dst=dst)
+        return None
+    out = torch.empty(full, dtype=t.dtype)
+    for r, coords in owners:
+        if r == me:
+            block = t
+        else:
+            block = torch.empty(t.shape, dtype=t.dtype,
+                                device="cpu" if staged else t.device)
+            dist.recv(_bytes(block), src=r)
+        out[shard_slices(spec, full, mesh, coords)] = block.cpu()
+    return out
+
+
+def all_reduce_axes(mesh, axes: tuple[str, ...], t: torch.Tensor
+                    ) -> torch.Tensor:
+    """The sum of ``t`` over the ranks of ``axes`` (one axis after the
+    other), as a new tensor."""
+    out = t
+    for a in axes:
+        out = all_reduce_sum(Axis(mesh, a), out)
+    return out if axes else t.detach().clone()
+
+
 class AllReduceSum(torch.autograd.Function):
     """``psum`` of a rank-local tensor whose sum every rank then holds.
     Backward: the reference's shard_map divides a replicated output's

@@ -21,9 +21,11 @@ A spec is the reference's ``PartitionSpec`` read as a tuple: one entry per
 tensor dim, ``None``, a mesh axis name or a tuple of names. The builders
 read only the mesh's axis names and sizes, from a ``DeviceMesh`` or from
 ``abstract_mesh`` (no process group); ``to_placements`` turns a spec into
-the DTensor placements of a ``DeviceMesh``. Spec trees are nested dicts
-whose leaves are logical-axis tuples; a shapes tree holds tensors (meta
-tensors will do) or shape tuples at the same keys.
+the DTensor placements of a ``DeviceMesh``, and ``shard_slices`` into the
+block of a tensor that the ranks at given mesh coordinates hold (the
+reference's ``devices_indices_map``; ``mesh_coords`` reads a rank's own).
+Spec trees are nested dicts whose leaves are logical-axis tuples; a shapes
+tree holds tensors (meta tensors will do) or shape tuples at the same keys.
 """
 from __future__ import annotations
 
@@ -222,3 +224,31 @@ def to_placements(spec: tuple, mesh) -> list:
         for m in dims:
             out[m] = Shard(d)
     return out
+
+
+def mesh_coords(mesh) -> dict[str, int]:
+    """This rank's coordinate on every axis of a ``DeviceMesh``."""
+    return {a: mesh.get_local_rank(a) for a in mesh.mesh_dim_names}
+
+
+def shard_slices(spec: tuple, shape, mesh, coords: dict[str, int]) -> tuple:
+    """The block of a tensor of ``shape`` under ``spec`` that the ranks at
+    mesh ``coords`` hold, one ``slice`` a dim: a dim sharded over axes
+    ``(a, b)`` is cut into ``size(a) * size(b)`` equal blocks, and block
+    ``coord(a) * size(b) + coord(b)`` is theirs (the major axis first, as
+    the reference's ``NamedSharding`` lays them out). A dim that the
+    shards do not divide raises: the spec builders never shard one."""
+    sizes = _axis_sizes(mesh)
+    out = []
+    for d, dim in enumerate(shape):
+        axes = _flat_axes(spec[d] if d < len(spec) else None)
+        n, idx = 1, 0
+        for a in axes:
+            n *= sizes[a]
+            idx = idx * sizes[a] + coords[a]
+        if dim % n:
+            raise ValueError(f"spec {spec!r}: dim {d} of {tuple(shape)} does "
+                             f"not split into {n} shards")
+        block = dim // n
+        out.append(slice(idx * block, (idx + 1) * block))
+    return tuple(out)

@@ -124,7 +124,7 @@ def spawn_ranks(fn, world_size: int, args: tuple = (), *, out_dir,
     killed and ``TimeoutError`` raised, so a hang fails one call."""
     import multiprocessing as mp
 
-    out = Path(out_dir)
+    out = Path(out_dir).resolve()  # a file:// URL needs an absolute path
     out.mkdir(parents=True, exist_ok=True)
     init = out / "pg_init"
     if init.exists():

@@ -38,7 +38,7 @@ def main():
     cfg = get_arch(args.arch, smoke=True)
     run = RunConfig(remat="none", attn_chunk_q=64, attn_chunk_k=64,
                     vocab_round=64)
-    params = model_init(0, cfg, run, device=args.device)
+    params, _ = model_init(0, cfg, run, device=args.device)
     server = BatchServer(params, cfg, run, max_batch=args.max_batch,
                          device=args.device)
     rng = np.random.default_rng(0)

@@ -6,11 +6,15 @@
         --smoke --steps 100 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt \
         --device cpu                                  # plain PyTorch, CPU
 
-On one card the model trains with its master weights, moments and
-gradients whole (no mesh; ``RunConfig.zero1`` has nothing to shard over).
-Attention runs in the hand-written forward and backward kernels; an SSD
-layer or MLA (D = 192) refuses to train on the card (their backward
-kernels are still to come), and trains on the CPU.
+The CLI trains in one process, its master weights, moments and gradients
+whole. ``train`` called on each rank of a process group under a
+``shardctx`` mesh of data axes trains over those ranks with ZeRO-1
+(``RunConfig.zero1``: each rank keeps its blocks of the state;
+``train.optim.DataParallel``), and resumes from a checkpoint of any mesh
+(README: "ZeRO-1 and elastic restore"). Attention runs in the
+hand-written forward and backward kernels; an SSD layer or MLA (D = 192)
+refuses to train on the card (their backward kernels are still to come),
+and trains on the CPU.
 """
 from __future__ import annotations
 

@@ -29,7 +29,9 @@ import torch.nn.functional as F
 
 from ..kernels.flash_attention.ops import flash_attention
 from .config import ArchConfig, MLAConfig, RunConfig
-from .layers import Params, dense_apply, dense_init, norm_apply, norm_init
+from .layers import (
+    Params, Specs, dense_apply, dense_init, norm_apply, norm_init, split,
+)
 from .rope import apply_mrope, apply_rope
 
 NEG_INF = -1e30
@@ -83,15 +85,18 @@ def latent_cache_dtype(run: RunConfig) -> torch.dtype:
 # ---------------------------------------------------------------------------
 # GQA attention block
 # ---------------------------------------------------------------------------
-def gqa_init(gen, cfg: ArchConfig, device: torch.device) -> Params:
+def gqa_init(gen, cfg: ArchConfig,
+             device: torch.device) -> tuple[Params, Specs]:
     d, H, KH, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     b = cfg.qkv_bias
-    return {
-        "wq": dense_init(gen, d, H * Dh, device, bias=b),
-        "wk": dense_init(gen, d, KH * Dh, device, bias=b),
-        "wv": dense_init(gen, d, KH * Dh, device, bias=b),
-        "wo": dense_init(gen, H * Dh, d, device),
-    }
+    return split({
+        "wq": dense_init(gen, d, H * Dh, "embed", "heads", device, bias=b),
+        "wk": dense_init(gen, d, KH * Dh, "embed", "kv_heads", device,
+                         bias=b),
+        "wv": dense_init(gen, d, KH * Dh, "embed", "kv_heads", device,
+                         bias=b),
+        "wo": dense_init(gen, H * Dh, d, "heads", "embed", device),
+    })
 
 
 def _positions_3d(positions: torch.Tensor) -> torch.Tensor:
@@ -197,22 +202,27 @@ def gqa_decode(
 # ---------------------------------------------------------------------------
 # MLA (DeepSeek-V2 multi-head latent attention)
 # ---------------------------------------------------------------------------
-def mla_init(gen, cfg: ArchConfig, device: torch.device) -> Params:
+def mla_init(gen, cfg: ArchConfig,
+             device: torch.device) -> tuple[Params, Specs]:
     m: MLAConfig = cfg.mla
     d, H = cfg.d_model, cfg.n_heads
-    return {
-        "wdq": dense_init(gen, d, m.q_lora_rank, device),
+    return split({
+        "wdq": dense_init(gen, d, m.q_lora_rank, "embed", "q_lora", device),
         "wuq": dense_init(gen, m.q_lora_rank,
                           H * (m.qk_nope_head_dim + m.qk_rope_head_dim),
-                          device),
-        "wdkv": dense_init(gen, d, m.kv_lora_rank, device),
+                          "q_lora", "heads", device),
+        "wdkv": dense_init(gen, d, m.kv_lora_rank, "embed", "kv_lora",
+                           device),
         "wukv": dense_init(gen, m.kv_lora_rank,
-                           H * (m.qk_nope_head_dim + m.v_head_dim), device),
-        "wkr": dense_init(gen, d, m.qk_rope_head_dim, device),
-        "wo": dense_init(gen, H * m.v_head_dim, d, device),
+                           H * (m.qk_nope_head_dim + m.v_head_dim),
+                           "kv_lora", "heads", device),
+        "wkr": dense_init(gen, d, m.qk_rope_head_dim, "embed", "qk_rope",
+                          device),
+        "wo": dense_init(gen, H * m.v_head_dim, d, "heads", "embed", device),
+        # the reference names a norm's one dim "embed" whatever its width
         "qnorm": norm_init(m.q_lora_rank, device),
         "kvnorm": norm_init(m.kv_lora_rank, device),
-    }
+    })
 
 
 def _mla_qkv(p: Params, x: torch.Tensor, cfg: ArchConfig,

@@ -5,7 +5,8 @@ Kinds: ``attn_dense`` (GQA + dense MLP), ``attn_moe`` (GQA + MoE FFN),
 (Mamba-2, no FFN), ``hymba_g`` and ``hymba_w`` (global or sliding-window
 GQA in parallel with SSD heads, then an MLP).
 
-Each kind has init (one layer; ``models.model`` stacks a group) / apply
+Each kind has init (one layer's ``(params, specs)``; ``models.model``
+stacks a group) / apply
 (training: ``(x, aux)``, the MoE load-balance loss or 0, no cache) /
 prefill (``(x, cache)``) / init_cache / decode. The reference's
 ``block_apply`` returns ``(x, aux, cache)`` and builds the cache under
@@ -29,7 +30,9 @@ from .attention import (
     quantize_kv,
 )
 from .config import ArchConfig, RunConfig
-from .layers import Params, mlp_apply, mlp_init, norm_apply, norm_init
+from .layers import (
+    Params, Specs, mlp_apply, mlp_init, norm_apply, norm_init, split,
+)
 from .moe import moe_apply_dense, moe_init
 from .ssm import ssd_block_apply, ssd_block_decode, ssd_init, ssd_init_cache
 
@@ -81,29 +84,29 @@ def _ffn(kind: str, pf: Params, xn: torch.Tensor, cfg: ArchConfig,
 
 # ---------------------------------------------------------------- init
 def block_init(kind: str, gen, cfg: ArchConfig,
-               device: torch.device) -> Params:
-    """Parameters of one layer of ``kind``."""
+               device: torch.device) -> tuple[Params, Specs]:
+    """``(params, specs)`` of one layer of ``kind``."""
     _check_kind(kind)
-    p: Params = {"norm1": norm_init(cfg.d_model, device, cfg.norm)}
+    parts = {"norm1": norm_init(cfg.d_model, device, cfg.norm)}
     if kind in _ATTN:
-        p["attn"] = gqa_init(gen, cfg, device)
+        parts["attn"] = gqa_init(gen, cfg, device)
     elif kind in _MLA:
-        p["attn"] = mla_init(gen, cfg, device)
+        parts["attn"] = mla_init(gen, cfg, device)
     elif kind == "ssd":
-        p["ssd"] = ssd_init(gen, cfg, device)
-        return p  # mamba2 block has no FFN sublayer
+        parts["ssd"] = ssd_init(gen, cfg, device)
+        return split(parts)  # mamba2 block has no FFN sublayer
     else:  # hymba
-        p["attn"] = gqa_init(gen, cfg, device)
-        p["ssd"] = ssd_init(gen, cfg, device)
-        p["bnorm_a"] = norm_init(cfg.d_model, device)
-        p["bnorm_s"] = norm_init(cfg.d_model, device)
-    p["norm2"] = norm_init(cfg.d_model, device, cfg.norm)
+        parts["attn"] = gqa_init(gen, cfg, device)
+        parts["ssd"] = ssd_init(gen, cfg, device)
+        parts["bnorm_a"] = norm_init(cfg.d_model, device)
+        parts["bnorm_s"] = norm_init(cfg.d_model, device)
+    parts["norm2"] = norm_init(cfg.d_model, device, cfg.norm)
     if kind.endswith("_moe"):
-        p["ffn"] = moe_init(gen, cfg, device)
+        parts["ffn"] = moe_init(gen, cfg, device)
     else:
         d_ff = cfg.dense_d_ff if (cfg.moe and cfg.dense_d_ff) else cfg.d_ff
-        p["ffn"] = mlp_init(gen, cfg, device, d_ff)
-    return p
+        parts["ffn"] = mlp_init(gen, cfg, device, d_ff)
+    return split(parts)
 
 
 # ---------------------------------------------------------------- prefill

@@ -38,5 +38,5 @@ def params_from_jax(np_params: dict, cfg: ArchConfig, run: RunConfig,
                     device: torch.device | str = "cuda") -> Params:
     """The port's parameters, equal to ``np_params`` leaf by leaf."""
     dev = resolve_device(device)
-    like = model_init(0, cfg, run, device="meta")
+    like, _ = model_init(0, cfg, run, device="meta")
     return _convert(np_params, like, dev, "")

@@ -2,12 +2,20 @@
 
 Parameters keep the reference's tree and layout: a dense weight is
 ``(in, out)`` and is applied as ``x @ w.to(x.dtype)``, norms hold
-``scale`` (and ``bias`` for layernorm), tables are ``(vocab, d)``. The
-reference's logical-axis specs drive sharding and have no counterpart on one
-card, so ``*_init`` return parameters only, of one layer (``stack_init``
-stacks a group's layers on a leading dim). ``tree_map`` and
-``tree_flatten`` walk the nested dicts. Random draws come from an
-explicit ``torch.Generator``; on the ``meta`` device nothing is drawn.
+``scale`` (and ``bias`` for layernorm), tables are ``(vocab, d)``. As in
+the reference, every ``*_init`` returns two parallel trees, ``(params,
+specs)``: the tensors, and one logical-axis tuple per tensor (one logical
+name per dim, the vocabulary below), which ``dist.sharding`` maps onto the
+axes of a mesh. Each init writes a leaf's axes beside its draw, as a
+``(tensor, axes)`` pair that ``split`` takes apart, so the two trees cannot
+drift. ``stack_init`` stacks a group's layers on a leading "layers" dim.
+``tree_map`` and ``tree_flatten`` walk the nested dicts (a spec tree's
+tuples are leaves). Random draws come from an explicit
+``torch.Generator``; on the ``meta`` device nothing is drawn.
+
+Logical axis vocabulary:
+    batch seq embed heads kv_heads head_dim mlp vocab experts expert_mlp
+    layers state conv qk_rope kv_lora q_lora
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 Params = dict[str, Any]
+Specs = dict[str, Any]
 
 
 def normal(gen: torch.Generator | None, shape: tuple, std: float,
@@ -28,13 +37,24 @@ def normal(gen: torch.Generator | None, shape: tuple, std: float,
     return torch.randn(shape, generator=gen, device=device).mul_(std)
 
 
-def dense_init(gen, in_dim: int, out_dim: int, device: torch.device, *,
-               bias: bool = False) -> Params:
-    p: Params = {"w": normal(gen, (in_dim, out_dim), 1.0 / math.sqrt(in_dim),
-                             device)}
+def split(pairs: dict) -> tuple[Params, Specs]:
+    """``(params, specs)`` from a dict whose values are ``(tensor, axes)``
+    pairs of a leaf or ``(params, specs)`` pairs of a sub-init."""
+    params: Params = {}
+    specs: Specs = {}
+    for k, (p, sp) in pairs.items():
+        params[k], specs[k] = p, sp
+    return params, specs
+
+
+def dense_init(gen, in_dim: int, out_dim: int, in_axis: str | None,
+               out_axis: str | None, device: torch.device, *,
+               bias: bool = False) -> tuple[Params, Specs]:
+    leaves = {"w": (normal(gen, (in_dim, out_dim), 1.0 / math.sqrt(in_dim),
+                           device), (in_axis, out_axis))}
     if bias:
-        p["b"] = torch.zeros((out_dim,), device=device)
-    return p
+        leaves["b"] = (torch.zeros((out_dim,), device=device), (out_axis,))
+    return split(leaves)
 
 
 def dense_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -44,11 +64,12 @@ def dense_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def norm_init(d: int, device: torch.device, kind: str = "rmsnorm") -> Params:
-    p: Params = {"scale": torch.ones((d,), device=device)}
+def norm_init(d: int, device: torch.device,
+              kind: str = "rmsnorm") -> tuple[Params, Specs]:
+    leaves = {"scale": (torch.ones((d,), device=device), ("embed",))}
     if kind == "layernorm":
-        p["bias"] = torch.zeros((d,), device=device)
-    return p
+        leaves["bias"] = (torch.zeros((d,), device=device), ("embed",))
+    return split(leaves)
 
 
 def norm_apply(p: Params, x: torch.Tensor, eps: float = 1e-6,
@@ -74,8 +95,10 @@ def norm_apply(p: Params, x: torch.Tensor, eps: float = 1e-6,
     return y.to(x.dtype)
 
 
-def embed_init(gen, vocab: int, d: int, device: torch.device) -> Params:
-    return {"table": normal(gen, (vocab, d), 0.02, device)}
+def embed_init(gen, vocab: int, d: int,
+               device: torch.device) -> tuple[Params, Specs]:
+    return split({"table": (normal(gen, (vocab, d), 0.02, device),
+                            ("vocab", "embed"))})
 
 
 def embed_apply(p: Params, ids: torch.Tensor, dtype) -> torch.Tensor:
@@ -88,18 +111,18 @@ def lm_head_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_init(gen, cfg, device: torch.device,
-             d_ff: int | None = None) -> Params:
+             d_ff: int | None = None) -> tuple[Params, Specs]:
     d, ff = cfg.d_model, d_ff or cfg.d_ff
     if cfg.mlp == "swiglu":
-        return {
-            "wi": dense_init(gen, d, ff, device),
-            "wg": dense_init(gen, d, ff, device),
-            "wo": dense_init(gen, ff, d, device),
-        }
-    return {
-        "wi": dense_init(gen, d, ff, device, bias=True),
-        "wo": dense_init(gen, ff, d, device, bias=True),
-    }
+        return split({
+            "wi": dense_init(gen, d, ff, "embed", "mlp", device),
+            "wg": dense_init(gen, d, ff, "embed", "mlp", device),
+            "wo": dense_init(gen, ff, d, "mlp", "embed", device),
+        })
+    return split({
+        "wi": dense_init(gen, d, ff, "embed", "mlp", device, bias=True),
+        "wo": dense_init(gen, ff, d, "mlp", "embed", device, bias=True),
+    })
 
 
 def mlp_apply(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -111,21 +134,23 @@ def mlp_apply(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
     return dense_apply(p["wo"], h)
 
 
-def stack_init(init_fn, gen, n: int, cast=None) -> Params:
-    """``n`` layers of ``init_fn(gen)`` stacked on a leading "layers" dim
-    (the reference's ``stack_init``, which vmaps over split keys; one
-    generator here, drawn layer after layer). The layers are drawn one at a
-    time and copied into the stack, so the peak is the stack plus one
-    layer's draws; ``cast`` maps each drawn layer's tree to the one stored
-    (the stack takes the first layer's dtypes)."""
+def stack_init(init_fn, gen, n: int, cast=None) -> tuple[Params, Specs]:
+    """``n`` layers of ``init_fn(gen) -> (params, specs)`` stacked on a
+    leading "layers" dim, each spec gaining ``"layers"`` in front (the
+    reference's ``stack_init``, which vmaps over split keys; one generator
+    here, drawn layer after layer). The layers are drawn one at a time and
+    copied into the stack, so the peak is the stack plus one layer's draws;
+    ``cast`` maps each drawn layer's tree to the one stored (the stack takes
+    the first layer's dtypes)."""
     cast = cast or (lambda t: t)
-    layer = cast(init_fn(gen))
+    layer, specs = init_fn(gen)
+    layer = cast(layer)
     stack = tree_map(lambda t: t.new_empty((n, *t.shape)), layer)
     _copy_into(stack, layer, 0)
     del layer
     for i in range(1, n):
-        _copy_into(stack, init_fn(gen), i)
-    return stack
+        _copy_into(stack, init_fn(gen)[0], i)
+    return stack, tree_map(lambda ax: ("layers", *ax), specs)
 
 
 def _copy_into(stack: Params, layer: Params, i: int) -> None:

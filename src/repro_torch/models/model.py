@@ -18,12 +18,15 @@ whole stack in every layer's backward). ``run.remat == "block"``
 recomputes each layer in the backward (``torch.utils.checkpoint``, the
 reference's ``jax.checkpoint`` of the scan body; the attention forward
 kernel then runs twice a layer); any other value keeps the activations.
-The model runs on rank-local tensors and sets no sharding
-constraints; under ``moe_impl="ep"`` with a mesh in ``shardctx`` its MoE
-layers run expert-parallel (``dist.ep``). ``cache_axes`` gives the
-reference's logical axes of the caches for ``dist.sharding``. Caches are
-per layer: ``caches["g{i}"]`` is a list with one dict per layer of the
-group (the reference stacks them); decode writes KV caches in place.
+``model_init`` returns the reference's logical-axis spec tree beside the
+parameters, which ``launch.specs`` and ZeRO-1 training (``train``)
+resolve on a mesh. The model runs on rank-local tensors and sets no
+sharding constraints; under ``moe_impl="ep"`` with a mesh in
+``shardctx`` its MoE layers run expert-parallel (``dist.ep``).
+``cache_axes`` gives the reference's logical axes of the caches for
+``dist.sharding``. Caches are per layer: ``caches["g{i}"]`` is a list with
+one dict per layer of the group (the reference stacks them); decode writes
+KV caches in place.
 """
 from __future__ import annotations
 
@@ -39,8 +42,8 @@ from .blocks import (
 )
 from .config import ArchConfig, RunConfig
 from .layers import (
-    Params, embed_apply, embed_init, lm_head_apply, norm_apply, norm_init,
-    stack_init, tree_leaves, tree_map,
+    Params, Specs, embed_apply, embed_init, lm_head_apply, norm_apply,
+    norm_init, stack_init, tree_leaves, tree_map,
 )
 from .rope import sinusoidal
 
@@ -81,10 +84,12 @@ def _cast_tree(tree: Params, dtype: torch.dtype, path=()) -> Params:
 
 
 def model_init(seed: int, cfg: ArchConfig, run: RunConfig, *,
-               device: torch.device | str = "cuda") -> Params:
-    """Random parameters drawn from a ``torch.Generator`` seeded with
-    ``seed`` on ``device`` (default the card; a missing card raises), one
-    layer at a time in f32. The leaves only ever read as ``.to(x.dtype)``
+               device: torch.device | str = "cuda") -> tuple[Params, Specs]:
+    """``(params, specs)``: random parameters drawn from a
+    ``torch.Generator`` seeded with ``seed`` on ``device`` (default the
+    card; a missing card raises), one layer at a time in f32, and the
+    reference's logical-axis spec tree beside them (one tuple a leaf, a
+    group's led by "layers"). The leaves only ever read as ``.to(x.dtype)``
     are stored in ``run.activations_dtype`` (an f32 run keeps every leaf
     f32); the rest stay f32. This changes storage, not the function: with
     bf16 activations the logits are bit-identical to those of the f32 run's
@@ -100,24 +105,26 @@ def model_init(seed: int, cfg: ArchConfig, run: RunConfig, *,
     vp = padded_vocab(cfg, run)
     tokens = cfg.embed_input == "tokens"
     params: Params = {}
+    specs: Specs = {}
     if tokens:
-        params.update(_cast_tree(
-            {"embed": embed_init(gen, vp, cfg.d_model, dev)}, dtype))
+        p, specs["embed"] = embed_init(gen, vp, cfg.d_model, dev)
+        params["embed"] = _cast_tree(p, dtype, ("embed",))
     for gi, (kind, count) in enumerate(cfg.layout):
-        params[f"g{gi}"] = stack_init(
+        params[f"g{gi}"], specs[f"g{gi}"] = stack_init(
             lambda g: block_init(kind, g, cfg, dev), gen, count,
             lambda t: _cast_tree(t, dtype))
-    params["final_norm"] = norm_init(cfg.d_model, dev, cfg.norm)
+    params["final_norm"], specs["final_norm"] = norm_init(cfg.d_model, dev,
+                                                          cfg.norm)
     if not (cfg.tie_embeddings and tokens):
-        params.update(_cast_tree(
-            {"lm_head": embed_init(gen, vp, cfg.d_model, dev)}, dtype))
-    return params
+        p, specs["lm_head"] = embed_init(gen, vp, cfg.d_model, dev)
+        params["lm_head"] = _cast_tree(p, dtype, ("lm_head",))
+    return params, specs
 
 
-def abstract_init(cfg: ArchConfig, run: RunConfig) -> Params:
-    """The parameter tree's shapes and dtypes on ``torch.device("meta")``,
-    allocating nothing (the reference's ``abstract_init`` without its
-    sharding specs, which one card does not use)."""
+def abstract_init(cfg: ArchConfig, run: RunConfig) -> tuple[Params, Specs]:
+    """``(params, specs)``: the parameter tree's shapes and dtypes on
+    ``torch.device("meta")``, allocating nothing, and its spec tree (the
+    reference's ``abstract_init``)."""
     return model_init(0, cfg, run, device="meta")
 
 

@@ -20,25 +20,32 @@ import torch
 import torch.nn.functional as F
 
 from .config import ArchConfig, MoEConfig
-from .layers import Params, dense_init, normal
+from .layers import Params, Specs, dense_init, normal, split
 
 
-def moe_init(gen, cfg: ArchConfig, device: torch.device) -> Params:
+def moe_init(gen, cfg: ArchConfig,
+             device: torch.device) -> tuple[Params, Specs]:
     m: MoEConfig = cfg.moe
     d, E, f = cfg.d_model, m.n_experts, m.d_expert
-    p: Params = {
-        "router": dense_init(gen, d, E, device),
+    leaves = {
+        "router": dense_init(gen, d, E, "embed", "experts", device),
         # stacked expert weights: (E, d, ff) / (E, ff, d)
-        "wi": normal(gen, (E, d, f), d**-0.5, device),
-        "wg": normal(gen, (E, d, f), d**-0.5, device),
-        "wo": normal(gen, (E, f, d), f**-0.5, device),
+        "wi": (normal(gen, (E, d, f), d**-0.5, device),
+               ("experts", "embed", "expert_mlp")),
+        "wg": (normal(gen, (E, d, f), d**-0.5, device),
+               ("experts", "embed", "expert_mlp")),
+        "wo": (normal(gen, (E, f, d), f**-0.5, device),
+               ("experts", "expert_mlp", "embed")),
     }
     if m.n_shared:
         fs = m.n_shared * f
-        p["shared_wi"] = normal(gen, (d, fs), d**-0.5, device)
-        p["shared_wg"] = normal(gen, (d, fs), d**-0.5, device)
-        p["shared_wo"] = normal(gen, (fs, d), f**-0.5, device)
-    return p
+        leaves["shared_wi"] = (normal(gen, (d, fs), d**-0.5, device),
+                               ("embed", "mlp"))
+        leaves["shared_wg"] = (normal(gen, (d, fs), d**-0.5, device),
+                               ("embed", "mlp"))
+        leaves["shared_wo"] = (normal(gen, (fs, d), f**-0.5, device),
+                               ("mlp", "embed"))
+    return split(leaves)
 
 
 def route(p: Params, x: torch.Tensor, m: MoEConfig):

@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from ..kernels.ssd.ops import ssd_scan_kernel
 from .config import ArchConfig, SSMConfig
-from .layers import Params, dense_apply, dense_init, normal
+from .layers import Params, Specs, dense_apply, dense_init, normal, split
 
 MIN_LOG = -30.0
 
@@ -123,24 +123,27 @@ def ssd_reference(x, dt, A, Bm, Cm, h0=None):
 # ---------------------------------------------------------------------------
 # full Mamba-2 block
 # ---------------------------------------------------------------------------
-def ssd_init(gen, cfg: ArchConfig, device: torch.device) -> Params:
+def ssd_init(gen, cfg: ArchConfig,
+             device: torch.device) -> tuple[Params, Specs]:
     s: SSMConfig = cfg.ssm
     d = cfg.d_model
     di = s.d_inner(d)
     H = s.n_heads(d)
     conv_dim = di + 2 * s.n_groups * s.d_state
     d_in = 2 * di + 2 * s.n_groups * s.d_state + H
-    return {
-        "in_proj": dense_init(gen, d, d_in, device),
-        "out_proj": dense_init(gen, di, d, device),
-        "conv_w": normal(gen, (s.d_conv, conv_dim), 0.2, device),
-        "conv_b": torch.zeros((conv_dim,), device=device),
-        "A_log": torch.log(torch.linspace(1.0, 16.0, H, device=device)),
-        "D": torch.ones((H,), device=device),
-        "dt_bias": torch.full((H,), math.log(math.expm1(1e-2)),
-                              device=device),
-        "norm_scale": torch.ones((di,), device=device),
-    }
+    return split({
+        "in_proj": dense_init(gen, d, d_in, "embed", "mlp", device),
+        "out_proj": dense_init(gen, di, d, "mlp", "embed", device),
+        "conv_w": (normal(gen, (s.d_conv, conv_dim), 0.2, device),
+                   ("conv", "mlp")),
+        "conv_b": (torch.zeros((conv_dim,), device=device), ("mlp",)),
+        "A_log": (torch.log(torch.linspace(1.0, 16.0, H, device=device)),
+                  ("heads",)),
+        "D": (torch.ones((H,), device=device), ("heads",)),
+        "dt_bias": (torch.full((H,), math.log(math.expm1(1e-2)),
+                               device=device), ("heads",)),
+        "norm_scale": (torch.ones((di,), device=device), ("mlp",)),
+    })
 
 
 def _split_zxbcdt(z_x_b_c_dt, di, gn, H):

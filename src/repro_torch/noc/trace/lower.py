@@ -308,7 +308,7 @@ def model_collective_mix(
 
     cfg = get_arch(arch_name)
     total = count_params(
-        model_init(0, cfg, RunConfig(), device=torch.device("meta"))
+        model_init(0, cfg, RunConfig(), device=torch.device("meta"))[0]
     )
     coll = {
         "all-reduce": 2.0 * total,  # bf16 grads over data axis

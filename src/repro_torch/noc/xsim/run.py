@@ -5,9 +5,11 @@ every (workload, algorithm) pair with the compiler, pads the batch to one
 common (P, S) shape, and runs the whole grid through one call of the fused
 cycle engine (``kernels.noc_cycle``): seeds, injection rates and routing
 algorithms all ride the batch axis, which on the card is the kernel's grid
-(one thread block per instance) where the reference ``vmap``s. The
-reference's ``pmap`` sharding over several devices has no counterpart on a
-single card.
+(one cluster or thread block per instance) where the reference ``vmap``s.
+As the reference ``pmap``s the batch over its local devices,
+``_run_sharded`` splits it over the visible cards: D, the largest count up
+to their number that divides B, takes B / D instances each, one kernel
+launch a card, and the results are concatenated.
 
 The cycle count is fixed (``max horizon + drain_grace``): the engine does
 not exit early, so unlike the host sim there is no drain-and-stop —
@@ -42,6 +44,50 @@ from .compile import (
     traffic_from_numpy,
 )
 from .step import CTR, run_cycles
+
+
+def _shard_count(B: int, n_devices: int) -> int:
+    """The reference's D: the largest count up to ``n_devices`` that
+    divides ``B``."""
+    D = n_devices
+    while D > 1 and B % D:
+        D -= 1
+    return max(D, 1)
+
+
+def _run_sharded(tr: dict, geom: dict, devices: list, **kw) -> dict:
+    """``run_cycles`` over the batch split into ``_shard_count(B,
+    len(devices))`` equal parts, part ``i`` on ``devices[i]`` (one launch
+    each; a device may be listed more than once), the outputs concatenated
+    in batch order on ``devices[0]``."""
+    B = tr["link"].shape[0]
+    D = _shard_count(B, len(devices))
+    if D == 1:
+        dev = torch.device(devices[0])
+        return run_cycles({k: v.to(dev) for k, v in tr.items()}, geom, **kw)
+    per = B // D
+    outs = [run_cycles({k: v[i * per:(i + 1) * per].to(devices[i])
+                        for k, v in tr.items()}, geom, **kw)
+            for i in range(D)]
+    first = torch.device(devices[0])
+    cat = lambda parts: torch.cat([p.to(first) for p in parts])
+    out = {k: cat([o[k] for o in outs])
+           for k in ("dtime", "ctr", "crel", "lutil", "rconf")}
+    out["planes"] = type(outs[0]["planes"])(*(
+        cat(parts) for parts in zip(*(o["planes"] for o in outs))))
+    return out
+
+
+def _devices(dev: torch.device) -> list:
+    """The devices ``xsimulate`` splits its batch over: every visible card
+    for ``"cuda"`` (the current one first), the one named by ``"cuda:i"``
+    or ``"cpu"``."""
+    if dev.type == "cuda" and dev.index is None:
+        cur = torch.cuda.current_device()
+        return [torch.device("cuda", i) for i in
+                [cur] + [i for i in range(torch.cuda.device_count())
+                         if i != cur]]
+    return [dev]
 
 
 @dataclass
@@ -203,9 +249,11 @@ def xsimulate(
     whole grid still runs as one batch (the engine itself is
     fault-agnostic; trace replay uses this for mid-run link failures).
     ``device`` selects where DPM plans in batches (``core.batch_planner``)
-    and the cycle engine: the CUDA kernel on the card (the default), the
-    plain PyTorch cycle for ``device="cpu"``; a missing card raises. The
-    reference's ``backend=`` has no twin: the device picks the engine.
+    and the cycle engine: the CUDA kernel on the card (the default;
+    ``"cuda"`` splits the batch over every visible card, ``"cuda:i"`` runs
+    it on card ``i``), the plain PyTorch cycle for ``device="cpu"``; a
+    missing card raises. The reference's ``backend=`` has no twin: the
+    device picks the engine.
     """
     topo = make_topology(
         cfg.topology, cfg.n, cfg.m, cfg.broken_links, cfg.topology_params
@@ -251,17 +299,24 @@ def xsimulate(
     kw = dict(T=T, F=F, V=cfg.vcs_per_class, BD=cfg.buffer_depth,
               L=ref.num_links, NN=ref.num_nodes, ND=ND,
               epoch_len=epoch_len)
+    devices = _devices(dev)
     if dev.type == "cuda":
         KERNEL.build()  # at first use; kept out of the device timing
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = run_cycles(tr, geom, **kw)
-        stop.record()
-        stop.synchronize()
-        device_s = start.elapsed_time(stop) / 1e3
+        cards = sorted({d.index for d in devices})
+        marks = {}
+        for c in cards:
+            marks[c] = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+            marks[c][0].record(torch.cuda.current_stream(c))
+        out = _run_sharded(tr, geom, devices, **kw)
+        for c in cards:
+            marks[c][1].record(torch.cuda.current_stream(c))
+        for c in cards:
+            marks[c][1].synchronize()
+        # the cards run side by side: the slowest one's span
+        device_s = max(a.elapsed_time(b) for a, b in marks.values()) / 1e3
     else:
-        out = run_cycles(tr, geom, **kw)
+        out = _run_sharded(tr, geom, devices, **kw)
         device_s = time.monotonic() - t1
     out = {
         k: out[k].cpu().numpy()

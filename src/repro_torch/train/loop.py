@@ -13,6 +13,14 @@ Twin of ``repro.train.loop``.
 run with f32 activations: the master weights are drawn and stored in f32)
 and casts the compute copy to ``run.params_dtype`` each step
 (``train.step.cast_params``), as the reference does.
+
+* **data ranks** — under a ``shardctx`` mesh (as ``models.blocks`` reads
+  it for expert parallelism) ``train`` runs on each rank of the mesh's
+  data axes (``optim.DataParallel``): each rank takes its rows of the
+  global batch and, with ``RunConfig.zero1``, keeps its blocks of the
+  state; checkpoints hold whole leaves (``ckpt.save`` gathers them, rank 0
+  writes) and a resume re-shards onto the mesh it runs on
+  (``ckpt.restore``'s ``shardings``). Without a mesh nothing changes.
 """
 from __future__ import annotations
 
@@ -20,12 +28,15 @@ import dataclasses
 import time
 from dataclasses import dataclass, field
 
+import torch
+
 from ..ckpt.checkpoint import latest_step, restore, save
 from ..device import resolve_device
 from ..models.config import ArchConfig, RunConfig
+from ..models.layers import tree_map
 from ..models.model import model_init
 from .data import synthetic_batch
-from .optim import cosine_lr, init_state
+from .optim import DataParallel, cosine_lr, init_state
 from .step import build_train_step
 
 
@@ -59,23 +70,43 @@ class LoopResult:
 def train(cfg: ArchConfig, run: RunConfig, loop: LoopConfig, *,
           device="cuda") -> LoopResult:
     """Train ``loop.steps`` steps on ``synthetic_batch`` on ``device``
-    (default the card; a missing card raises)."""
+    (default the card; a missing card raises), over the data ranks of the
+    ``shardctx`` mesh when one is set (module docstring)."""
+    from ..shardctx import _CTX
+
     dev = resolve_device(device)
     res = LoopResult()
     f32_run = dataclasses.replace(run, activations_dtype="float32")
-    state = init_state(model_init(loop.seed, cfg, f32_run, device=dev))
+    params, specs = model_init(loop.seed, cfg, f32_run, device=dev)
+    data = None
+    ckpt_kw = {}
+    if _CTX["mesh"] is not None:
+        data = DataParallel.for_training(_CTX["mesh"], cfg, run, specs,
+                                         params)
+        params = data.shard(params)
+        ckpt_kw = dict(shardings=data.state_specs, mesh=data.mesh)
+    state = init_state(params)
+    del params
 
     start = 0
     if loop.ckpt_dir:
         last = latest_step(loop.ckpt_dir)
         if last is not None:
-            state = restore(loop.ckpt_dir, last, state)
+            like = state
+            if data is not None:  # the whole leaves' shapes
+                like = type(state)(state.step, *(
+                    tree_map(lambda s: torch.empty(s, device="meta"),
+                             data.shapes) for _ in range(3)))
+            state = restore(loop.ckpt_dir, last, like, **ckpt_kw)
+            state = type(state)(*(tree_map(lambda t: t.to(dev), part)
+                                  for part in state))
             start = int(state.step)
             res.resumed_from = last
 
     warmup = loop.warmup if loop.warmup is not None else max(2, loop.steps // 20)
     lr_fn = cosine_lr(run, warmup=warmup, total=loop.steps)
-    step_fn = build_train_step(cfg, run, accum=loop.accum, lr_fn=lr_fn)
+    step_fn = build_train_step(cfg, run, accum=loop.accum, lr_fn=lr_fn,
+                               data=data)
 
     ewma = None
     t_loop = time.monotonic()
@@ -83,6 +114,8 @@ def train(cfg: ArchConfig, run: RunConfig, loop: LoopConfig, *,
     for step in range(start, loop.steps):
         batch = synthetic_batch(cfg, loop.batch, loop.seq, loop.seed, step,
                                 device=dev)
+        if data is not None:
+            batch = data.rows(batch)
         t0 = time.monotonic()
         state, metrics = step_fn(state, batch)
         loss = float(metrics["loss"])
@@ -100,10 +133,11 @@ def train(cfg: ArchConfig, run: RunConfig, loop: LoopConfig, *,
             )
         if loop.ckpt_dir and (step + 1) % loop.ckpt_every == 0:
             pending_join()  # never more than one async save in flight
-            pending_join = save(loop.ckpt_dir, step + 1, state, async_=True)
+            pending_join = save(loop.ckpt_dir, step + 1, state, async_=True,
+                                **ckpt_kw)
     pending_join()
     if loop.ckpt_dir:
-        save(loop.ckpt_dir, loop.steps, state)
+        save(loop.ckpt_dir, loop.steps, state, **ckpt_kw)
     res.final_step = loop.steps
     res.wall_s = time.monotonic() - t_loop
     return res

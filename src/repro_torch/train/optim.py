@@ -1,5 +1,5 @@
-"""AdamW + cosine schedule + global-norm clipping. Twin of
-``repro.train.optim``.
+"""AdamW + cosine schedule + global-norm clipping + ZeRO-1 state
+sharding. Twin of ``repro.train.optim``.
 
 ``TrainState`` holds f32 master parameters and moments; the forward runs on
 a cast (``train.step.cast_params``). The update keeps the reference's
@@ -12,9 +12,19 @@ to its jitted step for the same reason: at 1.6 B parameters the master
 weights and moments are 19.7 GB) and returns a new ``TrainState`` around
 them.
 
-The reference's ``RunConfig.zero1`` shards the master weights and moments
-over the data axes of a device mesh; on one card there is nothing to shard
-over, so the port keeps them whole and ignores it.
+``DataParallel`` trains over the data ranks of a mesh (``pod`` and
+``data`` axes): the reference's jitted step under the shardings of
+``launch.specs.train_cell``. With ``RunConfig.zero1`` each rank keeps
+only its block of every master, ``m`` and ``v`` leaf, as
+``dist.sharding.zero1_shardings`` gives it (a leaf with no dim that the
+data ranks divide stays whole on every rank); without it the state stays
+whole on every rank. The forward runs on the gathered master, cast; the
+gradients are summed over the data ranks (``all_reduce``: gloo has no
+reduce-scatter), divided by their number, and each rank keeps its block;
+the clipping norm sums the squares of every rank's blocks, a whole leaf
+counted once; ``adamw_update`` then runs unchanged on the blocks. A mesh
+whose ``model`` axis has more than one rank (tensor parallelism) and a
+MoE model over more than one data rank raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,7 +33,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from ..models.config import RunConfig
+from ..models.config import ArchConfig, RunConfig
 from ..models.layers import tree_flatten, tree_leaves, tree_map
 
 
@@ -95,8 +105,136 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float = 1.0):
-    """``(grads * min(1, max_norm / max(norm, 1e-9)), norm)``."""
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float = 1.0,
+                        norm: torch.Tensor | None = None):
+    """``(grads * min(1, max_norm / max(norm, 1e-9)), norm)``; ``norm``
+    defaults to ``global_norm(grads)`` (``DataParallel.global_norm`` for a
+    rank's blocks)."""
+    norm = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: g * scale, grads), norm
+
+
+class DataParallel:
+    """Training over the data ranks of ``mesh`` (module docstring):
+    ``specs`` is the state's per-leaf spec tree, ``shapes`` the whole
+    leaves' shapes."""
+
+    def __init__(self, mesh, specs, shapes):
+        from ..dist.sharding import _axis_sizes, mesh_coords
+
+        sizes = _axis_sizes(mesh)
+        self.mesh = mesh
+        self.axes = tuple(a for a in ("pod", "data") if sizes.get(a, 1) > 1)
+        self.n = math.prod(sizes[a] for a in self.axes)
+        self.coords = mesh_coords(mesh)
+        self.specs = specs
+        self.shapes = tree_map(lambda t: tuple(t.shape), shapes)
+
+    @classmethod
+    def for_training(cls, mesh, cfg: ArchConfig, run: RunConfig, specs,
+                     shapes) -> "DataParallel":
+        """The layout ``train`` uses on ``mesh`` for parameters of logical
+        axes ``specs`` and whole shapes ``shapes``: ``zero1_shardings``
+        under ``run.zero1``, else ``tree_shardings``."""
+        from ..dist.sharding import (_axis_sizes, tree_shardings,
+                                     zero1_shardings)
+
+        sizes = _axis_sizes(mesh)
+        if sizes.get("model", 1) > 1:
+            raise NotImplementedError(
+                f"training on a mesh whose 'model' axis has {sizes['model']} "
+                "ranks (tensor parallelism) is not ported; train on a mesh "
+                "of data axes ('pod', 'data')")
+        other = {a: n for a, n in sizes.items()
+                 if a not in ("pod", "data", "model") and n > 1}
+        if other:
+            raise NotImplementedError(
+                f"training over mesh axes {other}: only the data axes "
+                "('pod', 'data') are ported")
+        if cfg.moe and math.prod(sizes.get(a, 1)
+                                 for a in ("pod", "data")) > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: MoE training over more than one data rank is "
+                "not ported; the router's load-balance loss and the expert "
+                "capacity couple the rows of the batch, so a step on each "
+                "rank's rows computes another function than the global "
+                "batch's")
+        build = zero1_shardings if run.zero1 else tree_shardings
+        return cls(mesh, build(specs, shapes, mesh), shapes)
+
+    def shard(self, tree):
+        """This rank's blocks of a tree of whole leaves."""
+        return tree_map(self.shard_leaf, tree, self.specs)
+
+    def shard_leaf(self, t: torch.Tensor, spec: tuple) -> torch.Tensor:
+        """This rank's block of a whole leaf under ``spec`` (a copy; a leaf
+        it keeps whole comes back as it is)."""
+        from ..dist.sharding import shard_slices
+
+        sl = shard_slices(spec, t.shape, self.mesh, self.coords)
+        if all(s.stop - s.start == n for s, n in zip(sl, t.shape)):
+            return t
+        return t[sl].clone()
+
+    def gather(self, tree, dtype: torch.dtype):
+        """The whole leaves of a tree of this rank's blocks, each cast to
+        ``dtype`` before it is gathered (the same bits as the cast of the
+        gathered leaf, in fewer bytes)."""
+        from ..dist.comm import gather_shards
+
+        return tree_map(lambda t, spec: gather_shards(self.mesh, t.to(dtype),
+                                                      spec),
+                        tree, self.specs)
+
+    def average(self, grads):
+        """Whole gradients, one a rank's rows, to this rank's blocks of
+        their f32 mean over the data ranks, leaf by leaf."""
+        from ..dist.comm import all_reduce_axes
+
+        def one(g, spec):
+            total = all_reduce_axes(self.mesh, self.axes, g.float())
+            return self.shard_leaf(total.div_(self.n), spec)
+
+        return tree_map(one, grads, self.specs)
+
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of a rank's scalar over the data ranks."""
+        from ..dist.comm import all_reduce_axes
+
+        return all_reduce_axes(self.mesh, self.axes, x.float()) / self.n
+
+    def global_norm(self, grads) -> torch.Tensor:
+        """``global_norm`` of the whole gradients from this rank's blocks:
+        each rank's sum of squares over the blocks it owns (a block held by
+        several ranks counts on the one at coordinate 0 of the data axes
+        its leaf is not split over), summed over the data ranks."""
+        from ..dist.comm import all_reduce_axes
+        from ..dist.sharding import _flat_axes
+
+        total = torch.zeros((), dtype=torch.float32,
+                            device=tree_leaves(grads)[0].device)
+        for (_, g), (_, spec) in zip(tree_flatten(grads),
+                                     tree_flatten(self.specs)):
+            split = {a for e in spec for a in _flat_axes(e)}
+            if all(self.coords[a] == 0 for a in self.axes if a not in split):
+                total = total + torch.sum(torch.square(g.float()))
+        return torch.sqrt(all_reduce_axes(self.mesh, self.axes, total))
+
+    def rows(self, batch: dict) -> dict:
+        """This rank's rows of a global batch, as the reference shards its
+        ``("batch", "seq", ...)`` inputs."""
+        from ..dist.sharding import shard_slices, spec_for_shape
+
+        out = {}
+        for k, t in batch.items():
+            spec = spec_for_shape(("batch", "seq", "embed")[:t.dim()],
+                                  tuple(t.shape), self.mesh)
+            out[k] = t[shard_slices(spec, t.shape, self.mesh, self.coords)]
+        return out
+
+    @property
+    def state_specs(self) -> TrainState:
+        """The spec tree of a ``TrainState`` in this layout (the step
+        whole), for ``ckpt.save``/``restore``."""
+        return TrainState((), self.specs, self.specs, self.specs)

@@ -1,5 +1,6 @@
 """The train step: loss -> grads -> clip -> AdamW, with microbatch
-gradient accumulation and a cast compute copy over f32 master parameters.
+gradient accumulation and a cast compute copy over f32 master parameters,
+on one device or over the data ranks of a mesh (``optim.DataParallel``).
 Twin of ``repro.train.step``."""
 from __future__ import annotations
 
@@ -10,7 +11,9 @@ import torch
 from ..models.config import ArchConfig, RunConfig
 from ..models.layers import tree_map
 from ..models.model import loss_fn, value_and_grad
-from .optim import TrainState, adamw_update, clip_by_global_norm, cosine_lr
+from .optim import (
+    DataParallel, TrainState, adamw_update, clip_by_global_norm, cosine_lr,
+)
 
 
 def cast_params(params, dtype: torch.dtype):
@@ -25,12 +28,16 @@ def build_train_step(
     *,
     accum: int = 1,
     lr_fn: Callable | None = None,
+    data: DataParallel | None = None,
 ):
     """Returns ``train_step(state, batch) -> (state, metrics)``; the state's
     tensors are updated in place (``optim.adamw_update``).
 
     ``accum`` > 1 splits the batch into microbatches whose gradients sum in
-    an f32 accumulator, then divides by ``accum``."""
+    an f32 accumulator, then divides by ``accum``. Under ``data`` the state
+    holds this rank's blocks and ``batch`` this rank's rows: the forward
+    runs on the gathered cast masters, and the loss, metrics and gradients
+    are averaged over the data ranks (``optim.DataParallel``)."""
     compute_dtype = getattr(torch, run.params_dtype)
     lr_fn = lr_fn or cosine_lr(run)
 
@@ -39,24 +46,34 @@ def build_train_step(
 
     def train_step(state: TrainState, batch: dict):
         metrics = {}
+        params = (state.params if data is None
+                  else data.gather(state.params, compute_dtype))
         if accum == 1:
-            (loss, metrics), grads = value_and_grad(loss_of, state.params,
-                                                    batch)
+            (loss, metrics), grads = value_and_grad(loss_of, params, batch)
         else:
             mbs = {k: x.reshape(accum, x.shape[0] // accum, *x.shape[1:])
                    for k, x in batch.items()}
-            grads = tree_map(torch.zeros_like, state.params)
+            grads = tree_map(lambda t: torch.zeros_like(t,
+                                                        dtype=torch.float32),
+                             params)
             loss = 0.0
             for i in range(accum):
                 (l, _), g = value_and_grad(
-                    loss_of, state.params, {k: x[i] for k, x in mbs.items()})
+                    loss_of, params, {k: x[i] for k, x in mbs.items()})
                 tree_map(lambda a, b: a.add_(b), grads, g)
                 loss = loss + l
                 del g
             grads = tree_map(lambda g: g / accum, grads)
             loss = loss / accum
+        del params
+        norm = None
+        if data is not None:
+            grads = data.average(grads)
+            loss = data.mean(loss)
+            metrics = {k: data.mean(v) for k, v in metrics.items()}
+            norm = data.global_norm(grads)
         lr = lr_fn(state.step)
-        grads, gnorm = clip_by_global_norm(grads)
+        grads, gnorm = clip_by_global_norm(grads, norm=norm)
         new_state = adamw_update(state, grads, run, lr_fn)
         out = {"loss": loss, "grad_norm": gnorm, "lr": lr}
         out.update(metrics)

@@ -54,7 +54,7 @@ def _leaves(state) -> list:
 
 def _state(name="mamba2-1.3b"):
     cfg, run = SMOKES[name], RunConfig(**RUN_KW)
-    state = init_state(model_init(0, cfg, run, device="cpu"))
+    state = init_state(model_init(0, cfg, run, device="cpu")[0])
     g = torch.Generator().manual_seed(1)
     for _, t in _leaves(state)[1:]:
         t.add_(torch.randn(t.shape, generator=g))

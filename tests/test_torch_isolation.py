@@ -74,7 +74,8 @@ def test_importing_every_port_module_loads_neither_jax_nor_repro():
                  "repro_torch.dist.compress",
                  "repro_torch.dist.ep",
                  "repro_torch.dist.pipeline",
-                 "repro_torch.dist.sharding"):
+                 "repro_torch.dist.sharding",
+                 "repro_torch.launch.specs"):
         assert name in mods
     code = (
         "import importlib, sys\n"
@@ -136,7 +137,7 @@ def test_batched_planning_refuses_a_missing_card(monkeypatch):
 def test_serving_refuses_a_missing_card(monkeypatch):
     cfg = SMOKES["smollm-135m"]
     run = RunConfig()
-    params = model_init(0, cfg, run, device="cpu")
+    params, _ = model_init(0, cfg, run, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         model_init(0, cfg, run)
@@ -161,7 +162,7 @@ def test_moe_serving_refuses_a_missing_card(monkeypatch):
 
     cfg = SMOKES["moonshot-v1-16b-a3b"]
     run = RunConfig()
-    params = model_init(0, cfg, run, device="cpu")
+    params, _ = model_init(0, cfg, run, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for act in ("float32", "bfloat16"):
         with pytest.raises(RuntimeError, match="device='cpu'"):

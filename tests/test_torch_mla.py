@@ -176,7 +176,7 @@ def test_mrope_matches_reference_with_distinct_ids(name, smoke):
                                   "deepseek-v2-236b"])
 def test_full_width_trees_have_the_reference_keys(name):
     shapes, _ = abstract_init(JAX_ARCHS[name], JaxRun())
-    meta = model_init(0, ARCHS[name], RunConfig(), device="meta")
+    meta, _ = model_init(0, ARCHS[name], RunConfig(), device="meta")
 
     def keys(tree, path=""):
         if isinstance(tree, dict):

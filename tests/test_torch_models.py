@@ -237,7 +237,7 @@ def test_init_caches_and_decode_from_zero_state(models, name):
 def test_full_width_param_count_equals_reference(name):
     run = RunConfig()
     shapes, _ = abstract_init(JAX_ARCHS[name], JaxRun())
-    meta = model_init(0, ARCHS[name], run, device="meta")
+    meta, _ = model_init(0, ARCHS[name], run, device="meta")
     assert count_params(meta) == jax_count_params(shapes)
     assert all(t.device.type == "meta" for _, t in _leaves(meta))
     if name in FULL_PARAMS:
@@ -251,10 +251,9 @@ def test_bf16_stored_params_give_bit_identical_logits(name):
     from the same seed give the same bits."""
     cfg = SMOKES[name]
     run = RunConfig(**dict(RUN_KW, activations_dtype="bfloat16"))
-    f32 = model_init(0, cfg, RunConfig(**dict(RUN_KW,
-                                              activations_dtype="float32")),
-                     device="cpu")
-    bf16 = model_init(0, cfg, run, device="cpu")
+    f32, _ = model_init(0, cfg, RunConfig(**dict(
+        RUN_KW, activations_dtype="float32")), device="cpu")
+    bf16, _ = model_init(0, cfg, run, device="cpu")
     trees = [f32, bf16]
     for (k, a), (k2, b) in zip(_leaves(f32), _leaves(bf16)):
         assert k == k2 and a.dtype == torch.float32, k
@@ -286,9 +285,9 @@ def test_bf16_stored_params_give_bit_identical_logits(name):
 
 def test_model_init_is_seeded():
     cfg = SMOKES["hymba-1.5b"]
-    a = model_init(3, cfg, RunConfig(), device="cpu")
-    b = model_init(3, cfg, RunConfig(), device="cpu")
-    c = model_init(4, cfg, RunConfig(), device="cpu")
+    a, _ = model_init(3, cfg, RunConfig(), device="cpu")
+    b, _ = model_init(3, cfg, RunConfig(), device="cpu")
+    c, _ = model_init(4, cfg, RunConfig(), device="cpu")
     for (k, x), (_, y), (_, z) in zip(_leaves(a), _leaves(b), _leaves(c)):
         assert torch.equal(x, y), k
     assert not torch.equal(a["g0"]["attn"]["wq"]["w"], c["g0"]["attn"]["wq"]["w"])
@@ -307,7 +306,7 @@ def test_unported_configs_and_options_raise():
         get_arch("llama-7b")
     cfg = SMOKES["deepseek-v2-236b"]
     for kind in ("mla_dense", "mla_moe"):
-        p = block_init(kind, None, cfg, torch.device("meta"))
+        p, _ = block_init(kind, None, cfg, torch.device("meta"))
         assert sorted(p["attn"]) == ["kvnorm", "qnorm", "wdkv", "wdq", "wkr",
                                      "wo", "wukv", "wuq"]
         assert ("router" in p["ffn"]) == (kind == "mla_moe")
@@ -316,7 +315,7 @@ def test_unported_configs_and_options_raise():
     toks = torch.zeros((1, 4), dtype=torch.int32)
     for name in ("smollm-135m", "mamba2-1.3b"):  # attention only, SSD only
         cfg = SMOKES[name]
-        params = model_init(0, cfg, RunConfig(), device="cpu")
+        params, _ = model_init(0, cfg, RunConfig(), device="cpu")
         for bad in (dict(attn_stream_bf16=True), dict(ssd_stream_bf16=True)):
             with pytest.raises(NotImplementedError):
                 prefill(params, {"tokens": toks}, cfg, RunConfig(**bad))

@@ -173,7 +173,7 @@ def test_moe_apply_dense_matches_reference(params, dtype, cf):
 def test_moe_impl_ep_computes_the_dense_path(dtype):
     cfg = SMOKES[NAME]
     gen = torch.Generator().manual_seed(5)
-    p = block_init("attn_moe", gen, cfg, torch.device("cpu"))
+    p, _ = block_init("attn_moe", gen, cfg, torch.device("cpu"))
     x = torch.randn((2, 24, cfg.d_model), generator=gen).to(TDT[dtype])
     pos = torch.arange(24, dtype=torch.int32).expand(2, 24)
     outs = [block_prefill("attn_moe", p, x, cfg,

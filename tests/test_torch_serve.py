@@ -45,7 +45,7 @@ def _one_torch_thread():
 @pytest.fixture(scope="module")
 def tiny():
     cfg = SMOKES["smollm-135m"]
-    return model_init(0, cfg, RUN, device="cpu"), cfg
+    return model_init(0, cfg, RUN, device="cpu")[0], cfg
 
 
 def _prompts(cfg, B, S, seed):

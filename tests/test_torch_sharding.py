@@ -81,7 +81,7 @@ def test_spec_for_shape_matches_reference():
 def test_tree_param_zero1_shardings_match_reference():
     for name in ("smollm-135m", "moonshot-v1-16b-a3b"):
         jshapes, jspecs = jax_abstract_init(JAX_SMOKES[name], JaxRunConfig())
-        tshapes = abstract_init(SMOKES[name], RunConfig())
+        tshapes, _ = abstract_init(SMOKES[name], RunConfig())
         for axes_sizes in MESHES[:3]:
             jm = jsh.abstract_mesh(*axes_sizes)
             tm = tsh.abstract_mesh(*axes_sizes)

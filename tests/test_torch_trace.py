@@ -163,8 +163,8 @@ def test_model_collective_mix_counts_the_reference_parameters():
     assert sorted(ARCHS) == sorted(jconfigs.ARCHS)
     for arch in sorted(jconfigs.ARCHS):
         total = param_counts(jconfigs.get_arch(arch), JRunConfig())["total"]
-        params = model_init(0, get_arch(arch), RunConfig(),
-                            device=torch.device("meta"))
+        params, _ = model_init(0, get_arch(arch), RunConfig(),
+                               device=torch.device("meta"))
         assert count_params(params) == total, arch
         got = ttrace.model_collective_mix(arch, 16, device="cpu")
         ref = jtrace.model_collective_mix(arch, 16)

@@ -221,7 +221,8 @@ def test_three_step_train_matches_reference_loss_and_grad_norm(
     jnorms = [float(m) for m in re.findall(r"gnorm (\S+)",
                                            capsys.readouterr().out)]
     monkeypatch.setattr(loop_mod, "model_init", lambda seed, cfg, run, device:
-                        params_from_jax(_np_tree(jp), cfg, run, device))
+                        (params_from_jax(_np_tree(jp), cfg, run, device),
+                         abstract_init(cfg, run)[1]))
     tres = train(configs.SMOKES[name], RunConfig(**RUN_KW), LoopConfig(**loop),
                  device="cpu")
     assert len(tres.losses) == len(jres.losses) == 3 == len(jnorms)
@@ -239,7 +240,7 @@ def test_grad_accumulation_matches_full_batch():
     cfg, run = configs.SMOKES["smollm-135m"], RunConfig(**RUN_KW)
     from repro_torch.models import model_init
 
-    state = init_state(model_init(0, cfg, run, device="cpu"))
+    state = init_state(model_init(0, cfg, run, device="cpu")[0])
     batch = synthetic_batch(cfg, 8, 32, seed=0, step=0)
     s1, m1 = build_train_step(cfg, run, accum=1)(clone_state(state), batch)
     s2, m2 = build_train_step(cfg, run, accum=4)(clone_state(state), batch)
@@ -280,8 +281,8 @@ def test_make_train_step_runs_the_optimizer_on_the_loss_gradients():
 def test_abstract_init_shapes_and_shape_registry_match_reference():
     name = "deepseek-v2-236b"
     jshapes, _ = jax_abstract_init(jconfigs.ARCHS[name], JaxRun())
-    got = tree_flatten(abstract_init(configs.ARCHS[name],
-                                     RunConfig(activations_dtype="float32")))
+    got = tree_flatten(abstract_init(
+        configs.ARCHS[name], RunConfig(activations_dtype="float32"))[0])
     want = {p: tuple(s.shape) for p, s in
             ((k, v) for k, v in _jax_shapes(jshapes).items())}
     assert {p: tuple(t.shape) for p, t in got} == want

@@ -268,7 +268,7 @@ def _ep_prefill(mesh) -> dict:
 
     cfg = ep_cfg(EP_CFS[0])  # no drops: EP equals dense up to f32 order
     run = RunConfig(moe_impl="ep", activations_dtype="float32")
-    params = model_init(0, cfg, run, device="cpu")
+    params, _ = model_init(0, cfg, run, device="cpu")
     toks = torch.from_numpy(
         np.random.default_rng(5).integers(0, cfg.vocab, EP_SHAPE))
     dense, _ = prefill(params, {"tokens": toks}, cfg, run)
