@@ -217,6 +217,36 @@ non-zero before the result line:
    rank's every block equal to its ``np.split`` block of the memory-mapped
    file, then restored in one process by ``train`` and trained to step 3,
    within the rule of the four ranks' step 3 (16 + 16 flash launches);
+   ``part=tp``: ``train`` on each rank under the (2, 2) ``("data",
+   "model")`` mesh (tensor parallelism: 16 of stablelm's 32 heads a rank,
+   ZeRO-1 over ``data`` on each rank's ``model`` blocks), that 4-layer
+   stablelm, one 4,096-token sequence a data rank: per rank the state
+   bytes and the forward's parameter bytes against what its blocks imply
+   (asserted equal), peak memory, step ms, flash launches; 3 bf16 steps
+   against the one-process twin (``accum=2``: each microbatch one data
+   rank's row) under a rule derived from where the roundings differ (the
+   row-parallel partial products rounded to bf16 by each rank's GEMM,
+   summed in f32 over ``model`` and rounded once): step 1's loss within
+   6 standard deviations (``rounding_sigma``: the roundings' first-order
+   effect, measured by gradient hooks in the twin) plus 1e-5, and step
+   1's f32 gradient (averaged over the data ranks), on every rank's block
+   of every leaf, within 1.7 times the bf16 twin's distance from the f32
+   twin's (both twins start from the same masters: the tensor-parallel
+   step moves some of the roundings that the bf16 step adds to the f32
+   one and rounds its own gradient, so rounding stays within sqrt(2) of
+   that distance and a wrong gradient does not; ``DIST_TP_GRAD_RATIO``),
+   later losses, grad norms and parameters printed; then two f32 steps:
+   step 1 within 1e-5 of the f32 twin's loss and grad norm, step 2 of the
+   one process restarted from the masters the ranks started it from,
+   parameters within 2 lr with at most 1e-3 beyond 1e-6; 48 + 48
+   ``wgmma_bf16`` and 32 + 32 ``cuda_core_f32`` launches with the counts
+   set to 0 just before; ``part=moe_dp``:
+   moonshot at full width cut to 1 layer (32 of 64 experts a rank,
+   2,048 tokens a data rank, the capacity and slots of the global 4,096)
+   for 2 f32 steps against the global batch in one process: step 1 and
+   step 2 (the one process from the masters the ranks started it from)
+   within 1e-5, the dropped pairs over the data ranks equal to the one
+   process's, 8 + 8 ``cuda_core_f32`` launches at D = 128;
 8. segmented min: ``segmin`` and ``arbitrate`` on the card over ten cases
    (tests/test_kernels.py's shapes; xsim's fused link + ejection id space
    at the 8x8, 16x16 and 32x32 grids with B = 4, 16 and 132 instances; the
@@ -453,7 +483,7 @@ XSIM_SPLIT_DEVICES = 4
 # token sequence
 DIST_RANKS = 4
 DIST_ALGOS = ("DPM", "MU", "ring")
-DIST_TIMEOUT_S = 480
+DIST_TIMEOUT_S = 600
 DIST_REPS = 3
 DIST_COMPRESS_SHAPE = (100352, 2048)
 DIST_COMPRESS_BOUND = 0.05  # tests/dist_checks.py's bound on the relative error
@@ -471,6 +501,28 @@ DIST_PIPE_GRAD_RTOL = 1e-5  # each stage leaf's gradient, x its max
 # mesh and in one process
 DIST_ZERO1_LAYERS = 4
 DIST_ZERO1_STEPS, DIST_ZERO1_CKPT_AT = 3, 2
+# tensor parallelism (part=tp): that 4-layer stablelm on a (2, 2) ("data",
+# "model") mesh (16 of its 32 heads a rank), one TRAIN_SEQ-token sequence
+# a data rank, DIST_TP_STEPS steps in bf16 and DIST_TP_F32_STEPS in f32;
+# MoE over data ranks (part=moe_dp): moonshot at full width cut to
+# DIST_MOE_DP_LAYERS layer (four ranks' f32 state, gradients and
+# activations share the card), DIST_MOE_DP_SEQ tokens a data rank,
+# DIST_MOE_DP_STEPS f32 steps. The bf16 rule's step-1 loss bound is
+# DIST_TP_SIGMAS standard deviations of the extra roundings' first-order
+# effect plus DIST_TP_F32_SLACK for the f32 sums' order. Its step-1
+# gradient bound: each leaf block's distance to the one-process bf16
+# gradient at most DIST_TP_GRAD_RATIO times that gradient's distance to
+# the one-process f32 gradient. Each bf16 gradient is g_f32 + U + R: U the
+# effect of the step's roundings before the last, R the last rounding of
+# the gradient's own GEMM. Tensor parallelism moves a subset of the
+# roundings behind U (at most sqrt(2) |U| apart) and rounds its own R, so
+# |g - g_bf16| <= sqrt(2) |g_bf16 - g_f32| to first order; times
+# 1 + 4 x 0.044, four standard deviations of the ratio of two norms over
+# the smallest block's 512 elements
+DIST_TP_MESH = (2, 2)
+DIST_TP_STEPS, DIST_TP_F32_STEPS = 3, 2
+DIST_MOE_DP_LAYERS, DIST_MOE_DP_SEQ, DIST_MOE_DP_STEPS = 1, 2048, 2
+DIST_TP_SIGMAS, DIST_TP_F32_SLACK, DIST_TP_GRAD_RATIO = 6.0, 1e-5, 1.7
 DIST_CHILD_TIMEOUT_S = 900
 
 
@@ -1972,8 +2024,8 @@ def moe_route_recorder(routes: list, module=None):
     moe = module or moe
     route_fn = moe.route
 
-    def route(p, x, m):
-        ids, w, aux = route_fn(p, x, m)
+    def route(p, x, m, tp=None):
+        ids, w, aux = route_fn(p, x, m, tp)
         probs = torch.softmax(x.float() @ p["router"]["w"].float(), dim=-1)
         top = probs.topk(m.top_k + 1, dim=-1).values
         routes.append((ids, (top[:, :-1] - top[:, 1:]).min(-1).values))
@@ -2183,8 +2235,8 @@ def routing_lines(tag: str, params, cfg, run, results, reqs) -> None:
     routed, dispatch_fn = [], moe.dispatch_indices
     moe_layers = sum(c for k, c in cfg.layout if k.endswith("_moe"))
 
-    def counted_dispatch(ids, m_, cap):
-        slot, keep = dispatch_fn(ids, m_, cap)
+    def counted_dispatch(ids, m_, cap, before=None):
+        slot, keep = dispatch_fn(ids, m_, cap, before)
         routed.append((torch.bincount(ids.reshape(-1),
                                       minlength=m_.n_experts),
                        (~keep).sum(), cap))
@@ -3323,7 +3375,11 @@ def dist_plan() -> dict:
             "compress_shape": DIST_COMPRESS_SHAPE,
             "zero1_cfg": cut_depth(ARCHS[TRAIN_ARCH],
                                    (("attn_dense", DIST_ZERO1_LAYERS),)),
-            "zero1_dir": str(ROOT / "build" / "dist_zero1")}
+            "zero1_dir": str(ROOT / "build" / "dist_zero1"),
+            "moe_dp_cfg": cut_depth(ARCHS[MOE_ARCH],
+                                    (("attn_moe", DIST_MOE_DP_LAYERS),)),
+            "tp_dir": str(ROOT / "build" / "dist_tp"),
+            "tp_seq": TRAIN_SEQ, "moe_dp_seq": DIST_MOE_DP_SEQ}
 
 
 def dist_time(ax, fn, dev, reps: int = DIST_REPS) -> tuple:
@@ -3504,8 +3560,8 @@ def keep_recorder(module, keeps: list):
     pairs."""
     real = module.dispatch_indices
 
-    def rec(ids, m, cap):
-        slot, keep = real(ids, m, cap)
+    def rec(ids, m, cap, before=None):
+        slot, keep = real(ids, m, cap, before)
         keeps.append(keep)
         return slot, keep
 
@@ -3629,9 +3685,9 @@ def dist_ep(mesh, dev, plan, on_card: bool) -> dict:
         params, _ = model_init(0, cfg, run, device=dev)
         route = moe_mod.route
 
-        def blocked_route(p, x, mc):
+        def blocked_route(p, x, mc, tp=None):
             """The router on EP's row blocks, one a rank."""
-            parts = [route(p, xb, mc) for xb in x.chunk(n)]
+            parts = [route(p, xb, mc, tp) for xb in x.chunk(n)]
             return (torch.cat([a for a, _, _ in parts]),
                     torch.cat([b for _, b, _ in parts]), parts[0][2])
 
@@ -3969,6 +4025,241 @@ def dist_elastic(mesh, plan) -> dict:
             "restore_s": restore_s}
 
 
+def tp_run_configs() -> dict:
+    """``part=tp``'s bf16 run (the training CLI's recipe) and its f32 twin,
+    and ``part=moe_dp``'s f32 run."""
+    run = train_run_config()
+    f32 = dict(params_dtype="float32", activations_dtype="float32")
+    return {"bf16": run, "f32": dataclasses.replace(run, **f32),
+            "moe_dp": dataclasses.replace(
+                run, attn_chunk_q=min(512, DIST_MOE_DP_SEQ),
+                attn_chunk_k=min(1024, DIST_MOE_DP_SEQ), **f32)}
+
+
+def tp_cases(plan) -> list:
+    """``(tag, cfg, run, steps, seq, twin accum)`` of ``part=tp`` and
+    ``part=moe_dp``: the dense twins take one data rank's row a microbatch
+    (the ranks' arithmetic), the MoE twin the global batch in one pass
+    (its capacity and ranks are the global batch's)."""
+    runs = tp_run_configs()
+    n_data = DIST_TP_MESH[0]
+    return [("bf16", plan["zero1_cfg"], runs["bf16"], DIST_TP_STEPS,
+             plan["tp_seq"], n_data),
+            ("f32", plan["zero1_cfg"], runs["f32"], DIST_TP_F32_STEPS,
+             plan["tp_seq"], n_data),
+            ("moe_dp", plan["moe_dp_cfg"], runs["moe_dp"], DIST_MOE_DP_STEPS,
+             plan["moe_dp_seq"], 1)]
+
+
+@contextlib.contextmanager
+def train_spies(kept: dict, masters_to: Path | None = None,
+                grads1: bool = False):
+    """Inside the block, ``train`` keeps its last state (``kept["state"]``),
+    the bytes of the first forward's parameters (``kept["fwd_bytes"]``) and
+    the routed pairs each MoE layer dropped (``kept["dropped"]``); with
+    ``masters_to``, the masters each step after the first starts from are
+    saved there (``step{i}/rank{r}.pt``, this rank's blocks); with
+    ``grads1``, step 1's f32 gradients as the clip receives them (averaged
+    over the data ranks, this rank's blocks) go to the host
+    (``kept["grads1"]``, by leaf name)."""
+    import repro_torch.models.moe as moe_mod
+    import repro_torch.train.loop as loop_mod
+    import repro_torch.train.step as step_mod
+
+    real_build, real_loss = loop_mod.build_train_step, step_mod.loss_fn
+    real_dispatch, real_clip = (moe_mod.dispatch_indices,
+                                step_mod.clip_by_global_norm)
+    kept.setdefault("dropped", [])
+
+    def build(*args, **kw):
+        step_fn = real_build(*args, **kw)
+
+        def step(state, batch):
+            i = kept["steps"] = kept.get("steps", 0) + 1
+            if masters_to is not None and i > 1:
+                import torch
+                import torch.distributed as dist
+
+                from repro_torch.models.layers import tree_flatten
+
+                d = masters_to / f"step{i}"
+                d.mkdir(parents=True, exist_ok=True)
+                torch.save({k: t.detach().cpu() for k, t in
+                            tree_flatten(state.params)},
+                           d / f"rank{dist.get_rank()}.pt")
+            state, metrics = step_fn(state, batch)
+            kept["state"] = state
+            return state, metrics
+
+        return step
+
+    def loss(params, *args, **kw):
+        if "fwd_bytes" not in kept:
+            from repro_torch.models.layers import tree_leaves
+
+            kept["fwd_bytes"] = sum(t.numel() * t.element_size()
+                                    for t in tree_leaves(params))
+        return real_loss(params, *args, **kw)
+
+    def dispatch(ids, m, cap, before=None):
+        slot, keep = real_dispatch(ids, m, cap, before)
+        kept["dropped"].append(int(keep.numel() - keep.sum()))
+        return slot, keep
+
+    def clip(grads, *args, **kw):
+        if grads1 and "grads1" not in kept:
+            from repro_torch.models.layers import tree_flatten
+
+            kept["grads1"] = {k: t.detach().float().cpu()
+                              for k, t in tree_flatten(grads)}
+        return real_clip(grads, *args, **kw)
+
+    with patched((loop_mod, "build_train_step", build),
+                 (step_mod, "loss_fn", loss),
+                 (moe_mod, "dispatch_indices", dispatch),
+                 (step_mod, "clip_by_global_norm", clip)):
+        yield kept
+
+
+def twin_dir(plan, tag: str) -> Path:
+    return Path(plan["tp_dir"]) / f"twin_{tag}"
+
+
+def masters_dir(plan, tag: str) -> Path:
+    return Path(plan["tp_dir"]) / f"masters_{tag}"
+
+
+def grads_dir(plan, tag: str) -> Path:
+    return Path(plan["tp_dir"]) / f"grads1_{tag}"
+
+
+def save_leaves(d: Path, flat: dict) -> None:
+    """One ``.npy`` a leaf of a flat dict of host tensors."""
+    import numpy as np
+
+    d.mkdir(parents=True, exist_ok=True)
+    for k, t in flat.items():
+        np.save(d / (k.replace("/", "__") + ".npy"), t.numpy())
+
+
+def load_leaf(d: Path, k: str):
+    import numpy as np
+
+    return np.load(d / (k.replace("/", "__") + ".npy"), mmap_mode="r")
+
+
+def grads_against_twins(plan, grads: dict, specs: dict, sizes: dict,
+                        coords: dict) -> list:
+    """Step 1's gradient blocks of this rank (bf16 run) against the same
+    blocks of the one-process bf16 twin's and f32 twin's, which start from
+    the same masters: ``(leaf, |g - g_bf16|, |g_bf16 - g_f32|)`` a leaf,
+    Euclidean norms over the block."""
+    import numpy as np
+
+    out = []
+    for k, g in grads.items():
+        b = spec_block(load_leaf(grads_dir(plan, "bf16"), k), specs[k],
+                       sizes, coords)
+        f = spec_block(load_leaf(grads_dir(plan, "f32"), k), specs[k],
+                       sizes, coords)
+        out.append((k, float(np.linalg.norm(g.numpy() - b)),
+                    float(np.linalg.norm(b - f))))
+    return out
+
+
+def blocks_against_twin(plan, tag: str, state, specs: dict, sizes: dict,
+                        coords: dict) -> tuple[float, int, int]:
+    """This rank's master blocks against ``spec_block`` of the one-process
+    twin's final parameters (one ``.npy`` a leaf, memory-mapped): the
+    largest |difference|, the elements beyond 1e-6 and the elements."""
+    import numpy as np
+
+    from repro_torch.models.layers import tree_flatten
+
+    worst, beyond, n = 0.0, 0, 0
+    for k, t in tree_flatten(state.params):
+        full = load_leaf(twin_dir(plan, tag), k)
+        d = np.abs(t.detach().float().cpu().numpy()
+                   - spec_block(full, specs[k], sizes, coords))
+        worst = max(worst, float(d.max()))
+        beyond += int((d > 1e-6).sum())
+        n += d.size
+    return worst, beyond, n
+
+
+def dist_tp(mesh, dev, plan, on_card: bool) -> dict:
+    """``part=tp`` (stablelm in bf16, then in f32) and ``part=moe_dp``
+    (moonshot in f32) on each rank: ``train`` under the (2, 2) ``("data",
+    "model")`` mesh in ``shardctx``, the flash counts set to 0 just before
+    each run. Returns each run's losses, grad norms, step ms, state and
+    forward-parameter bytes, peak memory, launches, dropped pairs and its
+    blocks against the one-process twin's parameters."""
+    import torch
+
+    from repro_torch.dist.comm import Axis, all_reduce_sum
+    from repro_torch.dist.sharding import mesh_coords
+    from repro_torch.kernels.flash_attention import BWD_KERNEL
+    from repro_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
+    from repro_torch.models.layers import tree_flatten
+    from repro_torch.shardctx import clear_ctx, set_ctx
+    from repro_torch.train import LoopConfig, train
+
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    coords = mesh_coords(mesh)
+    out = {"coords": coords}
+    for tag, cfg, run, steps, seq, _ in tp_cases(plan):
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        reset_flash_counts()
+        BWD_KERNEL.reset()
+        kept: dict = {}
+        loop = LoopConfig(steps=steps, batch=DIST_TP_MESH[0], seq=seq,
+                          log_every=0, seed=0)
+        bf16 = run.params_dtype == "bfloat16"
+        masters = None if bf16 else masters_dir(plan, tag)
+        set_ctx(mesh)
+        try:
+            with train_spies(kept, masters, grads1=bf16):
+                res = train(cfg, run, loop, device=dev)
+        finally:
+            clear_ctx()
+        if on_card:
+            torch.cuda.synchronize()
+        state = kept.pop("state")
+        fwd = dict(FLASH_KERNEL.variant_launches)
+        bwd = dict(BWD_KERNEL.variant_launches)
+        launches = torch.tensor([fwd["wgmma_bf16"], fwd["cuda_core_f32"],
+                                 bwd["wgmma_bf16"], bwd["mma_bf16"],
+                                 bwd["cuda_core_f32"]])
+        for a in mesh.mesh_dim_names:
+            launches = all_reduce_sum(Axis(mesh, a), launches)
+        from repro_torch.dist.sharding import zero1_shardings
+        from repro_torch.models import abstract_init
+
+        shapes, specs = abstract_init(cfg, dataclasses.replace(
+            run, activations_dtype="float32"))
+        zspecs = dict(tree_flatten(zero1_shardings(specs, shapes, mesh)))
+        worst, beyond, n = blocks_against_twin(plan, tag, state, zspecs,
+                                               sizes, coords)
+        grads = (grads_against_twins(plan, kept.pop("grads1"), zspecs, sizes,
+                                     coords) if bf16 else [])
+        out[tag] = {
+            "losses": res.losses, "grad_norms": res.grad_norms,
+            "step_ms": res.step_ms, "wall_s": res.wall_s,
+            "state_bytes": sum(t.numel() * t.element_size()
+                               for _, t in named_state_leaves(state)),
+            "fwd_bytes": kept["fwd_bytes"], "dropped": kept["dropped"],
+            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                         if on_card else 0.0),
+            "fwd": fwd, "bwd": bwd,
+            "launches_all_ranks": [int(v) for v in launches],
+            "param_worst": worst, "param_beyond": beyond, "param_n": n,
+            "grads1": grads}
+        del state
+    return out
+
+
 def dist_rank(rank: int, plan: dict, device_type: str = "cuda") -> dict:
     """One rank of the ``--dist`` child: the four parts in order; rank 0
     prints and returns the launches and errors for the kernels line."""
@@ -4008,14 +4299,17 @@ def dist_rank(rank: int, plan: dict, device_type: str = "cuda") -> dict:
     t5 = time.perf_counter()
     elastic = dist_elastic(meshes["data_model"], plan)
     t6 = time.perf_counter()
+    tp = dist_tp(meshes["data_model"], dev, plan, on_card)
+    t7 = time.perf_counter()
     if rank == 0:
         say("dist", part="walls", executors_s=f"{t1 - t0:.1f}",
             compress_s=f"{t2 - t1:.1f}", ep_s=f"{t3 - t2:.1f}",
             pipeline_s=f"{t4 - t3:.1f}", zero1_s=f"{t5 - t4:.1f}",
-            elastic_s=f"{t6 - t5:.1f}",
+            elastic_s=f"{t6 - t5:.1f}", tp_and_moe_dp_s=f"{t7 - t6:.1f}",
             peak_gib_by_rank_before_zero1=",".join(
                 f"{g:.2f}" for g in peaks.tolist()))
-    return {"ep": ep, "pipeline": pipe, "zero1": zero1, "elastic": elastic}
+    return {"ep": ep, "pipeline": pipe, "zero1": zero1, "elastic": elastic,
+            "tp": tp}
 
 
 def zero1_one_process(cfg, accum: int) -> dict:
@@ -4251,6 +4545,340 @@ def elastic_report(plan, ranks: list, ranks_final: dict) -> dict:
             "head_dim": cfg.head_dim}
 
 
+@contextlib.contextmanager
+def rounding_sigma(acc: list):
+    """Inside the block, each differentiable bf16 product of the layers
+    (``dense_apply``, ``row_parallel``) and the LM head registers, for its
+    output ``y``, a
+    hook that adds ``sum(g**2 * v)`` to ``acc[0]`` (``g`` the loss's
+    gradient at ``y``): ``v = p0**2 + p1**2 + 2 y**2`` bounds, in units of
+    ``2**-14 / 12``, the variance of the difference between the tensor-
+    parallel output ``bf16(bf16(p0) + bf16(p1))`` of the two half-K partial
+    products and the one-process ``bf16(p0 + p1)``: four independent
+    roundings, each uniform within half an ulp of at most ``|a| 2**-7``.
+    A column-parallel output (the same dot products, perhaps summed in
+    another f32 order) takes the same bound; the LM head's ``2 y**2``."""
+    import torch
+
+    import repro_torch.models.attention as attn_mod
+    import repro_torch.models.layers as layers_mod
+    import repro_torch.models.model as model_mod
+
+    real_dense, real_head = layers_mod.dense_apply, model_mod.lm_head_apply
+    real_row = layers_mod.row_parallel
+
+    def site(y, v):
+        def hook(g):
+            acc[0] = acc[0] + (g.float().square() * v).sum().double()
+
+        y.register_hook(hook)
+
+    def watch(y, p, x):
+        if y.requires_grad:
+            w = p["w"].to(x.dtype)
+            k = w.shape[0] // 2
+            with torch.no_grad():
+                v = ((x[..., :k] @ w[:k]).float().square()
+                     + (x[..., k:] @ w[k:]).float().square()
+                     + 2 * y.float().square())
+            site(y, v)
+        return y
+
+    def dense(p, x):
+        return watch(real_dense(p, x), p, x)
+
+    def row(tp, p, h):
+        return watch(real_row(tp, p, h), p, h)
+
+    def head(p, x):
+        y = real_head(p, x)
+        if y.requires_grad:
+            site(y, 2 * y.detach().float().square())
+        return y
+
+    with patched((layers_mod, "dense_apply", dense),
+                 (attn_mod, "dense_apply", dense),
+                 (layers_mod, "row_parallel", row),
+                 (attn_mod, "row_parallel", row),
+                 (model_mod, "lm_head_apply", head)):
+        yield acc
+
+
+def tp_twin(plan, tag: str, cfg, run, steps: int, seq: int,
+            accum: int, device: str = "cuda") -> dict:
+    """A ``part=tp``/``part=moe_dp`` run's one-process twin, alone on the
+    card: ``steps`` steps of ``build_train_step`` on the global batch (one
+    row a data rank) in ``accum`` microbatches, as ``train`` runs them (the
+    same seed, data and schedule). The bf16 run's first step runs under
+    ``rounding_sigma``. Writes the final f32 parameters to ``twin_dir``
+    and, for ``part=tp``, step 1's gradients to ``grads_dir``, one
+    ``.npy`` a leaf, and returns the losses, grad norms, step ms, peak
+    memory, forward bytes, dropped pairs and the rounding sigma."""
+    import torch
+
+    from repro_torch.models import model_init
+    from repro_torch.models.layers import tree_flatten
+    from repro_torch.train import (build_train_step, cosine_lr, init_state,
+                                   synthetic_batch)
+
+    on_card = device == "cuda"
+    f32_run = dataclasses.replace(run, activations_dtype="float32")
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    state = init_state(model_init(0, cfg, f32_run, device=device)[0])
+    step_fn = build_train_step(cfg, run, accum=accum, lr_fn=cosine_lr(
+        run, warmup=max(2, steps // 20), total=steps))
+    out = {"losses": [], "grad_norms": [], "step_ms": []}
+    acc = [torch.zeros((), dtype=torch.float64, device=device)]
+    kept: dict = {}
+    with train_spies(kept, grads1=tag in ("bf16", "f32")):
+        for s in range(steps):
+            batch = synthetic_batch(cfg, DIST_TP_MESH[0], seq, 0, s,
+                                    device=device)
+            t0 = time.perf_counter()
+            with (rounding_sigma(acc) if s == 0 and tag == "bf16"
+                  else contextlib.nullcontext()):
+                state, m = step_fn(state, batch)
+            out["losses"].append(float(m["loss"]))
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["grad_norms"].append(float(m["grad_norm"]))
+    out["sigma"] = math.sqrt(float(acc[0]) * 2.0**-14 / 12) / accum
+    out["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30 if on_card
+                       else 0.0)
+    out["fwd_bytes"], out["dropped"] = kept["fwd_bytes"], kept["dropped"]
+    if "grads1" in kept:
+        save_leaves(grads_dir(plan, tag), kept.pop("grads1"))
+    save_leaves(twin_dir(plan, tag), {k: t.cpu() for k, t in
+                                      tree_flatten(state.params)})
+    del state, step_fn
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def twin_at_rank_masters(plan, tag: str, cfg, run, steps: int, seq: int,
+                         accum: int, coords: list,
+                         device: str = "cuda") -> list:
+    """The one-process step's loss and grad norm at each later step of an
+    f32 run, from the masters the ranks started that step from (their
+    blocks assembled whole): each step's function at one state, whatever
+    the first steps' AdamW did to the two trajectories."""
+    import numpy as np
+    import torch
+
+    from repro_torch.dist.sharding import (abstract_mesh, shard_slices,
+                                           zero1_shardings)
+    from repro_torch.models import abstract_init
+    from repro_torch.models.layers import tree_flatten
+    from repro_torch.train import build_train_step, init_state
+    from repro_torch.train import synthetic_batch
+
+    mesh = abstract_mesh(("data", DIST_TP_MESH[0]),
+                         ("model", DIST_TP_MESH[1]))
+    shapes, specs = abstract_init(cfg, run)
+    z = dict(tree_flatten(zero1_shardings(specs, shapes, mesh)))
+    step_fn = build_train_step(cfg, run, accum=accum)
+    out = []
+    for i in range(2, steps + 1):
+        blocks = [torch.load(masters_dir(plan, tag) / f"step{i}" /
+                             f"rank{r}.pt") for r in range(len(coords))]
+        flat = {}
+        for k, t in tree_flatten(shapes):
+            full = np.empty(t.shape, dtype=np.float32)
+            for co, b in zip(coords, blocks):
+                full[shard_slices(z[k], t.shape, mesh, co)] = b[k].numpy()
+            flat[k] = torch.from_numpy(full).to(device)
+        del blocks
+        params = {}
+        for k, t in flat.items():
+            node = params
+            *head, last = k.split("/")
+            for h in head:
+                node = node.setdefault(h, {})
+            node[last] = t
+        batch = synthetic_batch(cfg, DIST_TP_MESH[0], seq, 0, i - 1,
+                                device=device)
+        _, m = step_fn(init_state(params), batch)
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+        del params, flat
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def tp_report(plan, ranks: list, twins: dict) -> dict:
+    """``part=tp`` and ``part=moe_dp`` in the parent: each rank's state and
+    forward-parameter bytes against what its blocks imply, peak memory,
+    step ms and flash launches; then each run against its one-process twin
+    under its rule (module docstring, 7f). Returns the launches for the
+    kernels line."""
+    from repro_torch.dist.sharding import (abstract_mesh, shard_slices,
+                                           tree_shardings, zero1_shardings)
+    from repro_torch.models import abstract_init
+    from repro_torch.models.layers import tree_flatten
+
+    mesh = abstract_mesh(("data", DIST_TP_MESH[0]),
+                         ("model", DIST_TP_MESH[1]))
+    launches, failed = {}, []
+    for tag, cfg, run, steps, seq, accum in tp_cases(plan):
+        part = "moe_dp" if tag == "moe_dp" else "tp"
+        twin = twins[tag]
+        shapes, specs = abstract_init(cfg, dataclasses.replace(
+            run, activations_dtype="float32"))
+        z = dict(tree_flatten(zero1_shardings(specs, shapes, mesh)))
+        mb = dict(tree_flatten(tree_shardings(specs, shapes, mesh)))
+        elem = 2 if run.params_dtype == "bfloat16" else 4
+
+        def numel(spec, shape, coords):
+            return math.prod(s.stop - s.start for s in shard_slices(
+                spec, shape, mesh, coords))
+
+        for r, got in enumerate(ranks):
+            g, co = got[tag], got["coords"]
+            leaves = tree_flatten(shapes)
+            state_implied = 4 + 12 * sum(numel(z[k], t.shape, co)
+                                         for k, t in leaves)
+            fwd_implied = elem * sum(numel(mb[k], t.shape, co)
+                                     for k, t in leaves)
+            say("dist", part=part, dtype=run.params_dtype, rank=r,
+                arch=cfg.name, layers=cfg.n_layers, seq=seq, rows=1,
+                coords=",".join(f"{a}:{c}" for a, c in co.items()),
+                state_bytes=g["state_bytes"], implied_by_specs=state_implied,
+                fwd_param_bytes=g["fwd_bytes"],
+                fwd_implied_by_model_blocks=fwd_implied,
+                twin_fwd_param_bytes=twin["fwd_bytes"],
+                peak_gib=f"{g['peak_gib']:.2f}",
+                step_ms=",".join(f"{t:.2f}" for t in g["step_ms"]),
+                wall_s=f"{g['wall_s']:.1f}",
+                losses=",".join(repr(x) for x in g["losses"]),
+                grad_norms=",".join(repr(x) for x in g["grad_norms"]),
+                flash_fwd=",".join(f"{k}:{n}" for k, n in g["fwd"].items()),
+                flash_bwd=",".join(f"{k}:{n}" for k, n in g["bwd"].items()))
+            if g["state_bytes"] != state_implied:
+                failed.append(f"{part} {tag}: rank {r} holds {g['state_bytes']} state "
+                     f"bytes, its blocks imply {state_implied}")
+            if g["fwd_bytes"] != fwd_implied:
+                failed.append(f"{part} {tag}: rank {r}'s forward holds "
+                     f"{g['fwd_bytes']} parameter bytes, its model blocks "
+                     f"imply {fwd_implied}")
+            if g["losses"] != ranks[0][tag]["losses"]:
+                failed.append(f"{part} {tag}: rank {r}'s losses differ from rank 0's")
+        g0 = ranks[0][tag]
+        dl = [abs(a - b) for a, b in zip(g0["losses"], twin["losses"])]
+        dn = [abs(a - b) for a, b in zip(g0["grad_norms"],
+                                         twin["grad_norms"])]
+        worst = max(got[tag]["param_worst"] for got in ranks)
+        share = (sum(got[tag]["param_beyond"] for got in ranks)
+                 / sum(got[tag]["param_n"] for got in ranks))
+        fields = dict(
+            part=part, dtype=run.params_dtype, against=f"one_process_accum"
+            f"{accum}", twin_losses=",".join(repr(x) for x in twin["losses"]),
+            twin_grad_norms=",".join(repr(x) for x in twin["grad_norms"]),
+            loss_abs_diff_by_step=",".join(f"{x:.3e}" for x in dl),
+            grad_norm_abs_diff_by_step=",".join(f"{x:.3e}" for x in dn),
+            final_param_max_abs_diff=f"{worst:.3e}",
+            final_param_share_beyond_1e6=f"{share:.3e}",
+            twin_step_ms=",".join(f"{t:.2f}" for t in twin["step_ms"]),
+            twin_peak_gib=f"{twin['peak_gib']:.2f}")
+        if tag == "bf16":
+            f32 = twins["f32"]
+            bound = DIST_TP_SIGMAS * twin["sigma"] + DIST_TP_F32_SLACK
+            # step 1's gradient, leaf by leaf on every rank's blocks:
+            # |g - g_bf16| against |g_bf16 - g_f32|
+            per_leaf = [(r, k, a, b) for r, got in enumerate(ranks)
+                        for k, a, b in got[tag]["grads1"]]
+            over = [(r, k, a, b) for r, k, a, b in per_leaf
+                    if a > DIST_TP_GRAD_RATIO * b]
+            r_w, k_w, a_w, b_w = max(per_leaf,
+                                     key=lambda x: x[2] / max(x[3], 1e-30))
+            tot_a = math.sqrt(sum(a * a for _, _, a, _ in per_leaf))
+            tot_b = math.sqrt(sum(b * b for _, _, _, b in per_leaf))
+            met = dl[0] <= bound and not over
+            fields.update(
+                step1_loss_bound=f"{bound:.3e}", sigma=f"{twin['sigma']:.3e}",
+                step1_loss_in_sigmas=f"{dl[0] / twin['sigma']:.2f}",
+                grad1_leaf_blocks=len(per_leaf),
+                grad1_ratio_bound=DIST_TP_GRAD_RATIO,
+                grad1_blocks_over_bound=len(over),
+                grad1_worst_ratio=f"{a_w / max(b_w, 1e-30):.3f}",
+                grad1_worst_leaf=f"rank{r_w}:{k_w}",
+                grad1_worst_abs=f"{a_w:.3e},{b_w:.3e}",
+                grad1_all_blocks_ratio=f"{tot_a / max(tot_b, 1e-30):.3f}",
+                twin_vs_f32_twin_step1_loss=f"{abs(twin['losses'][0] - f32['losses'][0]):.3e}",
+                twin_vs_f32_twin_step1_grad_norm=f"{abs(twin['grad_norms'][0] - f32['grad_norms'][0]):.3e}",
+                within_rule=met)
+        else:
+            same = twin.get("at_rank_masters", [])
+            sl = [abs(a - b[0]) for a, b in zip(g0["losses"][1:], same)]
+            sn = [abs(a - b[1]) for a, b in zip(g0["grad_norms"][1:], same)]
+            met = (max(dl[:1] + sl) <= 1e-5 and max(dn[:1] + sn) <= 1e-5
+                   and worst <= 2 * TRAIN_LR and share <= 1e-3)
+            if same:
+                fields.update(
+                    loss_abs_diff_at_rank_masters=",".join(
+                        f"{x:.3e}" for x in dl[:1] + sl),
+                    grad_norm_abs_diff_at_rank_masters=",".join(
+                        f"{x:.3e}" for x in dn[:1] + sn))
+            fields.update(bound=1e-5, param_bound=2 * TRAIN_LR,
+                          share_bound=1e-3, within_rule=met)
+        if tag == "moe_dp":
+            # each data rank's drops, read on model coordinate 0
+            drops = [sum(x) for x in zip(*(got[tag]["dropped"] for got in ranks
+                                           if got["coords"]["model"] == 0))]
+            fields.update(dropped_pairs_by_layer_call=",".join(map(str, drops)),
+                          twin_dropped=",".join(map(str, twin["dropped"])))
+            if drops != twin["dropped"]:
+                failed.append("moe_dp: the ranks dropped other routed pairs than the "
+                     f"global batch does in one process: {drops} against "
+                     f"{twin['dropped']}")
+        say("dist", **fields)
+        name = part if tag == part else f"{part} {tag}"
+        if not met:
+            failed.append(f"{name}: the ranks differ from the one-process twin beyond "
+                 "the rule")
+        la = g0["launches_all_ranks"]
+        want = DIST_TP_MESH[0] * DIST_TP_MESH[1] * steps * cfg.n_layers
+        bf16 = run.params_dtype == "bfloat16"
+        fwd, bwd = ([want, 0], [want, 0, 0]) if bf16 else \
+            ([0, want], [0, 0, want])
+        say("dist", part=part, dtype=run.params_dtype,
+            launches_all_ranks=True, head_dim=cfg.head_dim,
+            flash_fwd_launches=f"wgmma_bf16:{la[0]},cuda_core_f32:{la[1]}",
+            flash_bwd_launches=f"wgmma_bf16:{la[2]},mma_bf16:{la[3]},"
+                               f"cuda_core_f32:{la[4]}")
+        if la[:2] != fwd or la[2:] != bwd:
+            failed.append(f"{name} launched flash {la[:2]} and its backward "
+                 f"{la[2:]}, expected {fwd} and {bwd}")
+        launches[tag] = {"fwd": sum(la[:2]), "bwd": sum(la[2:]),
+                         "bwd_route": "wgmma_bf16" if bf16
+                         else "cuda_core_f32", "head_dim": cfg.head_dim}
+    if failed:
+        fail("; ".join(failed))
+    return launches
+
+
+def tp_twins_after(plan, twins: dict, ranks: list,
+                   device: str = "cuda") -> None:
+    """After the ranks: each f32 run's later steps in one process from the
+    ranks' masters (``twin_at_rank_masters``), into ``twins``."""
+    coords = [r["tp"]["coords"] for r in ranks]
+    for tag, cfg, run, steps, seq, accum in tp_cases(plan):
+        if run.params_dtype == "float32" and steps > 1:
+            twins[tag]["at_rank_masters"] = twin_at_rank_masters(
+                plan, tag, cfg, run, steps, seq, accum, coords, device)
+
+
+def tp_twins(plan, device: str = "cuda") -> dict:
+    """The one-process twins of ``part=tp`` and ``part=moe_dp``, alone on
+    the card before the ranks."""
+    import shutil
+
+    shutil.rmtree(plan["tp_dir"], ignore_errors=True)
+    return {tag: tp_twin(plan, tag, cfg, run, steps, seq, accum, device)
+            for tag, cfg, run, steps, seq, accum in tp_cases(plan)}
+
+
 def dist_child() -> None:
     """``--dist``: ``DIST_RANKS`` ranks on this machine's cards (gloo when
     they share one); ``part=zero1``'s one-process runs before them and the
@@ -4285,14 +4913,21 @@ def dist_child() -> None:
         zero1_layers=f"{DIST_ZERO1_LAYERS}_of_24", zero1_params=n_zero1,
         zero1_f32_state_gib_whole=f"{12 * n_zero1 / 2**30:.2f}")
     # the ranks load the libraries this process builds
-    from repro_torch.kernels.flash_attention import BWD_WGMMA_LIB
+    from repro_torch.kernels.flash_attention import BWD_KERNEL, BWD_WGMMA_LIB
     from repro_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
 
     FLASH_KERNEL.build()
     BWD_WGMMA_LIB.build()
-    # part=zero1's one-process runs, alone on the card before the ranks
+    BWD_KERNEL.build()
+    # part=zero1's, part=tp's and part=moe_dp's one-process runs, alone on
+    # the card before the ranks
+    t0 = time.perf_counter()
     one = {accum: zero1_one_process(plan["zero1_cfg"], accum)
            for accum in (DIST_RANKS, 1)}
+    t1 = time.perf_counter()
+    twins = tp_twins(plan)
+    say("dist", part="one_process_walls", zero1_s=f"{t1 - t0:.1f}",
+        tp_and_moe_dp_s=f"{time.perf_counter() - t1:.1f}")
     out = ROOT / "build" / "dist"
     shutil.rmtree(plan["zero1_dir"], ignore_errors=True)
     try:
@@ -4305,9 +4940,15 @@ def dist_child() -> None:
         plan["ranks_losses"] = res[0]["zero1"]["losses"]
         result["elastic"] = elastic_report(
             plan, [r["elastic"] for r in res], final)
+        t0 = time.perf_counter()
+        tp_twins_after(plan, twins, res)
+        result["tp"] = tp_report(plan, [r["tp"] for r in res], twins)
+        say("dist", part="one_process_walls",
+            tp_and_moe_dp_after_s=f"{time.perf_counter() - t0:.1f}")
     finally:
         shutil.rmtree(out, ignore_errors=True)
         shutil.rmtree(plan["zero1_dir"], ignore_errors=True)
+        shutil.rmtree(plan["tp_dir"], ignore_errors=True)
     print(json.dumps(result), flush=True)
 
 
@@ -4333,6 +4974,13 @@ def phase_dist_child(entries: list) -> None:
     for part in ("pipeline", "zero1", "elastic"):
         bwd["launches"] += res[part]["bwd"]
         bwd["launches_by_route"]["wgmma_bf16"] += res[part]["bwd"]
+    for run in res["tp"].values():  # part=tp (bf16, f32), part=moe_dp
+        d = str(run["head_dim"])
+        by_dim[d] = by_dim.get(d, 0) + run["fwd"]
+        flash["launches"] += run["fwd"]
+        bwd["launches"] += run["bwd"]
+        route = bwd["launches_by_route"]
+        route[run["bwd_route"]] = route.get(run["bwd_route"], 0) + run["bwd"]
 
 
 # ---------------------------------------------------------------------------
@@ -5546,6 +6194,7 @@ def phase_calibration(card: str) -> None:
 
 
 def main() -> None:
+    t_start, walls = time.perf_counter(), {}
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the repo")
     sys.path.insert(0, str(SRC))
@@ -5811,48 +6460,63 @@ def main() -> None:
         bytes=nbytes, ops=ops, state_bytes_per_cycle=state,
         state_stream_bound_ms=f"{stream_ms:.4f}")
 
+    walls["phases_1_to_4"] = time.perf_counter() - t_start
+
+    def walled(name: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        return out
+
     # ---- 4b. the main path's batch split over the card listed 4 times ----
-    split_launches = phase_xsim_sharded(tr, geom, kw, kern)
+    split_launches = walled("xsim_sharded", phase_xsim_sharded, tr, geom, kw,
+                            kern)
     launches += split_launches
 
     # ---- 5. cost-table kernels and the planning path ---------------------
-    dpm_entries = phase_cost_tables(cfg)
+    dpm_entries = walled("cost_tables", phase_cost_tables, cfg)
 
     # ---- 6. batched planning and the plan server -------------------------
-    phase_bulk_plan(cfg)
+    walled("bulk_plan", phase_bulk_plan, cfg)
 
     # ---- 7. the ML serving path: hymba-1.5b, flash attention, SSD --------
-    serve_entries, alone_ms = phase_serve()
+    serve_entries, alone_ms = walled("serve", phase_serve)
 
     # ---- 7b. MoE serving: moonshot-v1-16b-a3b, flash attention at D = 128
-    phase_serve_child("--serve-moe", "moonshot", serve_entries, alone_ms)
+    walled("serve_moe", phase_serve_child, "--serve-moe", "moonshot",
+           serve_entries, alone_ms)
 
     # ---- 7c. MLA serving: deepseek-v2-236b, flash attention at D = 192
-    phase_serve_child("--serve-mla", "mla", serve_entries, alone_ms)
+    walled("serve_mla", phase_serve_child, "--serve-mla", "mla",
+           serve_entries, alone_ms)
 
     # ---- 7d. frame models: musicgen-medium, qwen2-vl-72b; the int8 cache
-    phase_serve_child("--serve-frames", "frames", serve_entries, alone_ms)
+    walled("serve_frames", phase_serve_child, "--serve-frames", "frames",
+           serve_entries, alone_ms)
 
     # ---- 7e. training: stablelm-1.6b, the flash backward kernel ----------
-    phase_train_child(serve_entries)
+    walled("train", phase_train_child, serve_entries)
 
-    # ---- 7f. dist: four ranks, DPM executors, compress, EP, pipeline ------
-    phase_dist_child(serve_entries)
+    # ---- 7f. dist: four ranks, DPM executors, compress, EP, pipeline,
+    # ZeRO-1, elastic restore, tensor parallelism, MoE over data ranks ----
+    walled("dist", phase_dist_child, serve_entries)
 
     # ---- 8. the segmented-min kernel through segmin / arbitrate ----------
-    segmin_entries = phase_segmin()
+    segmin_entries = walled("segmin", phase_segmin)
 
     # ---- 9. the host NoC: WormholeSim, simulate, against xsim -------------
-    phase_host_sim()
+    walled("host_sim", phase_host_sim)
 
     # ---- 10. 3-D and chiplet fabrics --------------------------------------
-    phase_topo3d(card)
+    walled("topo3d", phase_topo3d, card)
 
     # ---- 11. ML-workload traces and DPM-scheduled collectives -------------
-    phase_trace(card)
+    walled("trace", phase_trace, card)
 
     # ---- 12. the telemetry calibration loop -------------------------------
-    phase_calibration(card)
+    walled("calibration", phase_calibration, card)
+    say("walls", total_s=f"{time.perf_counter() - t_start:.1f}",
+        **{f"{k}_s": f"{v:.1f}" for k, v in walls.items()})
 
     # ---- 13. kernels line and result --------------------------------------
     if "jax" in sys.modules or "repro" in sys.modules:

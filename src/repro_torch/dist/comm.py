@@ -10,6 +10,13 @@ bit for bit whatever the backend's dtype support. Where the group's backend
 is gloo and a payload lies on a card, it is staged through host memory:
 gloo moves only host tensors for these operations. The rule is read from
 the group (``staged``), never found by trying.
+
+Training on a mesh adds ``TensorParallel``: this rank's view of the
+``model`` axis and of the data axes that split the batch's rows, with the
+autograd Functions of tensor parallelism (``EnterModel``, ``LeaveModel``,
+``GatherModel``, ``LeaveReplicated``) and ``SumOverRanks``. They stage
+through the host as the rest do: they use ``all_reduce`` and
+``all_gather``, not DTensor.
 """
 from __future__ import annotations
 
@@ -119,6 +126,19 @@ def all_reduce_sum(ax: Axis, t: torch.Tensor) -> torch.Tensor:
         out.copy_(host)
     else:
         dist.all_reduce(out, group=ax.group)
+    return out
+
+
+def all_reduce_max(ax: Axis, t: torch.Tensor) -> torch.Tensor:
+    """The elementwise maximum over the axis (``lax.pmax``), as a new
+    tensor."""
+    out = t.detach().clone().contiguous()
+    if ax.staged(out):
+        host = out.cpu()
+        dist.all_reduce(host, op=dist.ReduceOp.MAX, group=ax.group)
+        out.copy_(host)
+    else:
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=ax.group)
     return out
 
 
@@ -236,3 +256,196 @@ class GatherRows(torch.autograd.Function):
     def backward(ctx, ct):
         rows = ct.shape[0] // ctx.ax.n
         return ct[ctx.ax.me * rows:(ctx.ax.me + 1) * rows], None
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over ``model`` and sums over the data ranks, for training
+# ---------------------------------------------------------------------------
+def _sum_f32(ax: Axis, t: torch.Tensor) -> torch.Tensor:
+    """The sum over the axis of ``t`` taken in f32, back in ``t``'s dtype:
+    one rounding of the whole sum, whatever the ranks' dtype."""
+    return all_reduce_sum(ax, t.float()).to(t.dtype)
+
+
+class EnterModel(torch.autograd.Function):
+    """The input of a column-parallel product (Megatron's ``f``): the same
+    tensor on every model rank; backward sums the ranks' cotangents, each
+    of which reaches only the rank's own columns."""
+
+    @staticmethod
+    def forward(ctx, t, ax: Axis):
+        ctx.ax = ax
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _sum_f32(ctx.ax, ct), None
+
+
+class LeaveModel(torch.autograd.Function):
+    """The output of a row-parallel product (Megatron's ``g``): the sum of
+    the ranks' partial products, summed in f32 and rounded once to the
+    partials' dtype; backward passes the cotangent, which every rank holds
+    whole, to each partial."""
+
+    @staticmethod
+    def forward(ctx, t, ax: Axis):
+        return _sum_f32(ax, t)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None
+
+
+class GatherModel(torch.autograd.Function):
+    """The model ranks' column blocks of a tensor, concatenated along
+    ``dim`` in coordinate order. Every rank then uses the whole tensor for
+    its own part of a sum that a ``LeaveModel`` closes, so backward sums
+    the ranks' cotangents and keeps this rank's block (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, t, ax: Axis, dim: int):
+        ctx.ax, ctx.dim, ctx.width = ax, dim, t.shape[dim]
+        parts = all_gather(ax, t)
+        return torch.cat(parts.unbind(0), dim=dim)
+
+    @staticmethod
+    def backward(ctx, ct):
+        total = _sum_f32(ctx.ax, ct)
+        return (total.narrow(ctx.dim, ctx.ax.me * ctx.width,
+                             ctx.width).contiguous(), None, None)
+
+
+class LeaveReplicated(torch.autograd.Function):
+    """The exit of a region whose output every model rank computes whole:
+    identity forward; backward divides the cotangent by the number of
+    ranks, so that the sums of ``EnterModel``/``GatherModel`` count the
+    ranks' equal cotangents once."""
+
+    @staticmethod
+    def forward(ctx, t, ax: Axis):
+        ctx.ax = ax
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct / ctx.ax.n, None
+
+
+class SumOverRanks(torch.autograd.Function):
+    """``psum`` over an axis whose ranks hold different rows of the batch
+    and whose gradients ``train.optim.DataParallel`` averages: backward is
+    psum's transpose, the sum of the ranks' cotangents, so that the mean
+    of the ranks' gradients is the gradient of the global function."""
+
+    @staticmethod
+    def forward(ctx, t, ax: Axis):
+        ctx.ax = ax
+        return all_reduce_sum(ax, t)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return all_reduce_sum(ctx.ax, ct), None
+
+
+class TensorParallel:
+    """This rank's view of a training mesh, for the models' forward (read
+    through ``shardctx.tensor_parallel``): the ``model`` axis over which
+    the parameters' ``heads``/``kv_heads``/``mlp``/``vocab``/``experts``
+    dims are split (tensor parallelism, ``m`` ranks, this one at ``me``),
+    and the data axes ``row_axes`` over which the batch's rows are split
+    (``n_rows`` ranks, this one at ``row_index``; a MoE layer's capacity,
+    ranks and load-balance loss are the global batch's).
+
+    A dim of whole size ``full`` is split iff ``split(full)``: the rule of
+    ``dist.sharding`` (the size divides it). Every rank runs the same
+    graph and holds the same loss; ``enter``, ``leave``, ``gather`` and
+    ``leave_replicated`` keep each rank's gradients those of its blocks of
+    that one loss. With no mesh (one process, serving) there is one model
+    rank and one row rank, and every operator is the identity: the layers
+    run one code path, which is the one-process function there."""
+
+    def __init__(self, mesh=None, row_axes: tuple[str, ...] = ()):
+        import math
+
+        sizes = (dict(zip(mesh.mesh_dim_names, mesh.shape))
+                 if mesh is not None else {})
+        self.model = Axis(mesh, "model") if sizes.get("model", 1) > 1 else None
+        self.m = self.model.n if self.model else 1
+        self.me = self.model.me if self.model else 0
+        self.rows = tuple(Axis(mesh, a) for a in row_axes)
+        self.n_rows = math.prod(ax.n for ax in self.rows)
+        idx = 0
+        for ax in self.rows:  # the major axis first
+            idx = idx * ax.n + ax.me
+        self.row_index = idx
+
+    # ------------------------------------------------------------ model
+    def split(self, full: int) -> bool:
+        return self.m > 1 and full % self.m == 0
+
+    def over(self, *fulls: int) -> "TensorParallel":
+        """This view where the rule splits one of the dims ``fulls`` (a
+        layer's leaves), else ``ONE_RANK``: a layer none of whose leaves
+        is split runs whole on every rank, as one process runs it."""
+        return self if any(self.split(f) for f in fulls) else ONE_RANK
+
+    def block(self, full: int) -> tuple[int, int]:
+        """This rank's ``[lo, hi)`` of a dim of whole size ``full`` (the
+        whole dim where it is not split)."""
+        if not self.split(full):
+            return 0, full
+        w = full // self.m
+        return self.me * w, (self.me + 1) * w
+
+    def enter(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.model is None else EnterModel.apply(t, self.model)
+
+    def leave(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.model is None else LeaveModel.apply(t, self.model)
+
+    def leave_replicated(self, t: torch.Tensor) -> torch.Tensor:
+        return (t if self.model is None
+                else LeaveReplicated.apply(t, self.model))
+
+    def close(self, t: torch.Tensor, full: int) -> torch.Tensor:
+        """The exit of a region's part whose dim ``full`` the rank holds
+        its block of: ``leave`` where ``split(full)``, else
+        ``leave_replicated`` (every rank computed the part whole)."""
+        return self.leave(t) if self.split(full) else self.leave_replicated(t)
+
+    def gather(self, t: torch.Tensor, full: int, dim: int = -1
+               ) -> torch.Tensor:
+        """The whole of a tensor whose dim ``dim`` (whole size ``full``)
+        this rank holds its block of where ``split(full)``, for use inside
+        a region that a ``leave`` or ``leave_replicated`` closes; an
+        unsplit tensor (a replicated leaf, a product with one) enters the
+        region through ``enter``."""
+        if not self.split(full):
+            return self.enter(t)
+        return GatherModel.apply(t, self.model, dim % t.dim())
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise maximum over the model ranks (no gradient)."""
+        t = t.detach()
+        return t if self.model is None else all_reduce_max(self.model, t)
+
+    # ------------------------------------------------------------- rows
+    def rows_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks of the batch's rows, differentiable
+        (``SumOverRanks``)."""
+        for ax in self.rows:
+            t = SumOverRanks.apply(t, ax)
+        return t
+
+    def rows_before(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the row ranks before this one (zeros on
+        the first; no gradient)."""
+        shape = t.shape
+        t = t.detach()
+        for ax in reversed(self.rows):  # the minor axis first
+            t = all_gather(ax, t)
+        return t.reshape(self.n_rows, *shape)[:self.row_index].sum(0)
+
+
+ONE_RANK = TensorParallel()

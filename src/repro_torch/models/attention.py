@@ -15,6 +15,16 @@ are zeros and the scale ``D**-0.5`` is MLA's ``(nope + rope)**-0.5``.
 The backward kernel does not take D = 192, so MLA trains on the CPU only
 (on the card a call under grad raises).
 
+Under tensor parallelism (``shardctx.tensor_parallel``) a rank runs attention
+on its own heads through the same kernels. The weights are 2-D, ``(d,
+H*Dh)`` with axes ``("embed", "heads")``, and the rule splits H*Dh
+wherever the model size divides it, also mid-head: where a rank's columns
+are whole heads and its q heads are the groups of its kv heads, it
+attends on them alone; otherwise it gathers the q/k/v columns of the heads
+that its block of the output needs (``_head_span``). Either way the
+rank's block of ``wo``'s rows takes its block of the output and the ranks'
+partial products are summed.
+
 Decode attends one query against a contiguous KV cache in plain PyTorch, as
 the reference does in jnp; the port writes the new token into the cache in
 place. A GQA cache is bf16 (or the run's ``kv_cache_dtype``) or int8 with
@@ -29,8 +39,10 @@ import torch.nn.functional as F
 
 from ..kernels.flash_attention.ops import flash_attention
 from .config import ArchConfig, MLAConfig, RunConfig
+from ..shardctx import tensor_parallel
 from .layers import (
-    Params, Specs, dense_apply, dense_init, norm_apply, norm_init, split,
+    Params, Specs, dense_apply, dense_init, norm_apply, norm_init,
+    row_parallel, split, tp_project, tree_map,
 )
 from .rope import apply_mrope, apply_rope
 
@@ -127,16 +139,54 @@ def gqa_apply(
 ):
     B, S, _ = x.shape
     H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = dense_apply(p["wq"], x).reshape(B, S, H, Dh)
-    k = dense_apply(p["wk"], x).reshape(B, S, KH, Dh)
-    v = dense_apply(p["wv"], x).reshape(B, S, KH, Dh)
-    q, k = _rope_q_k(q, k, positions, cfg)
-    out = flash_attention(q, k, v, causal=True, window=window,
-                          device=x.device)
-    out = dense_apply(p["wo"], out.reshape(B, S, H * Dh))
+    G = H // KH
+    tp = tensor_parallel().over(H * Dh)
+    if return_kv and tp.m > 1:
+        raise NotImplementedError("gqa_apply: return_kv under tensor "
+                                  "parallelism (serving) is not ported")
+    xe = tp.enter(x)
+    if H % tp.m == 0 and KH % tp.m == 0:
+        # whole heads on every rank, its q heads the groups of its kv heads
+        q = dense_apply(p["wq"], xe).reshape(B, S, H // tp.m, Dh)
+        k = dense_apply(p["wk"], xe).reshape(B, S, KH // tp.m, Dh)
+        v = dense_apply(p["wv"], xe).reshape(B, S, KH // tp.m, Dh)
+        q, k = _rope_q_k(q, k, positions, cfg)
+        out = flash_attention(q, k, v, causal=True, window=window,
+                              device=x.device)
+        out = out.reshape(B, S, -1)
+    else:
+        # a head split: the rank's columns are not whole heads, or its q
+        # heads are not the groups of its kv heads. Each rank gathers the
+        # q/k/v columns (whole tensors, then the heads of its span) of the
+        # heads that its block of the output needs; heads on a block's
+        # edge are computed by both ranks, each keeping its columns.
+        lo, hi = tp.block(H * Dh)
+        h0, h1 = _head_span(lo, hi, Dh, G)
+        g0, g1 = h0 // G, (h1 - 1) // G + 1
+        q = tp_project(tp, p["wq"], xe, H * Dh).reshape(B, S, H, Dh)
+        k = tp_project(tp, p["wk"], xe, KH * Dh).reshape(B, S, KH, Dh)
+        v = tp_project(tp, p["wv"], xe, KH * Dh).reshape(B, S, KH, Dh)
+        q, k = _rope_q_k(q[:, :, h0:h1], k[:, :, g0:g1], positions, cfg)
+        out = flash_attention(q, k, v[:, :, g0:g1].contiguous(), causal=True,
+                              window=window, device=x.device)
+        out = out.reshape(B, S, -1)[..., lo - h0 * Dh:hi - h0 * Dh]
+    y = row_parallel(tp, p["wo"], out)
     if return_kv:
-        return out, (k, v)
-    return out
+        return y, (k, v)
+    return y
+
+
+def _head_span(lo: int, hi: int, dh: int, group: int) -> tuple[int, int]:
+    """The q heads ``[h0, h1)`` that columns ``[lo, hi)`` of the attention
+    output (``dh`` a head) lie in, widened to whole kv groups of ``group``
+    q heads where they reach into more than one, so that local q head
+    ``i`` reads local kv head ``i // group`` (inside one group the span
+    reads its one kv head)."""
+    h0, h1 = lo // dh, -(-hi // dh)
+    g0, g1 = h0 // group, (h1 - 1) // group + 1
+    if g1 - g0 > 1:
+        h0, h1 = g0 * group, g1 * group
+    return h0, h1
 
 
 def gqa_init_cache(cfg: ArchConfig, run: RunConfig, batch: int, max_len: int,
@@ -225,26 +275,6 @@ def mla_init(gen, cfg: ArchConfig,
     })
 
 
-def _mla_qkv(p: Params, x: torch.Tensor, cfg: ArchConfig,
-             positions: torch.Tensor):
-    """Full (naive) MLA q/k/v for prefill, and the latent to cache."""
-    m: MLAConfig = cfg.mla
-    B, S, _ = x.shape
-    H, nope, rope = cfg.n_heads, m.qk_nope_head_dim, m.qk_rope_head_dim
-    cq = norm_apply(p["qnorm"], dense_apply(p["wdq"], x))
-    q = dense_apply(p["wuq"], cq).reshape(B, S, H, nope + rope)
-    q_nope, q_rope = q.split([nope, rope], dim=-1)
-    ckv = norm_apply(p["kvnorm"], dense_apply(p["wdkv"], x))
-    kv = dense_apply(p["wukv"], ckv).reshape(B, S, H, nope + m.v_head_dim)
-    k_nope, v = kv.split([nope, m.v_head_dim], dim=-1)
-    k_rope = dense_apply(p["wkr"], x).reshape(B, S, 1, rope)
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
-    q_full = torch.cat([q_nope, q_rope], dim=-1)
-    k_full = torch.cat([k_nope, k_rope.expand(B, S, H, rope)], dim=-1)
-    return q_full, k_full, v, ckv, k_rope[:, :, 0]
-
-
 def mla_apply(
     p: Params,
     x: torch.Tensor,  # (B, S, d)
@@ -254,17 +284,54 @@ def mla_apply(
     *,
     return_kv: bool = False,
 ):
+    """Full (naive) MLA for prefill and training, on this rank's heads:
+    the latents and the shared rope key are computed whole (their leaves
+    are replicated), the up-projections and ``wo`` split by heads. With
+    ``return_kv``, also the latent and the rope key to cache."""
     m: MLAConfig = cfg.mla
     B, S, _ = x.shape
-    q, k, v, ckv, krope = _mla_qkv(p, x, cfg, positions)
-    Dv = v.shape[-1]
+    H, nope, rope, dv = (cfg.n_heads, m.qk_nope_head_dim, m.qk_rope_head_dim,
+                         m.v_head_dim)
+    tp = tensor_parallel().over(H * (nope + rope), H * (nope + dv), H * dv)
+    if return_kv and tp.m > 1:
+        raise NotImplementedError("mla_apply: return_kv under tensor "
+                                  "parallelism (serving) is not ported")
+    cq = tp.enter(norm_apply(p["qnorm"], dense_apply(p["wdq"], x)))
+    ckv = norm_apply(p["kvnorm"], dense_apply(p["wdkv"], x))
+    k_rope = tp.enter(dense_apply(p["wkr"], x).reshape(B, S, 1, rope))
+    lo, hi = tp.block(H * dv)
+    if H % tp.m == 0:  # whole heads in wuq, wukv and wo
+        h = H // tp.m
+        q = dense_apply(p["wuq"], cq).reshape(B, S, h, nope + rope)
+        kv = dense_apply(p["wukv"], tp.enter(ckv)).reshape(B, S, h,
+                                                           nope + dv)
+        h0 = lo // dv
+    else:
+        # a head split: gather the q/kv columns, keep the heads that this
+        # rank's block of the output lies in
+        h0, h1 = _head_span(lo, hi, dv, 1)
+        q = tp_project(tp, p["wuq"], cq, H * (nope + rope)).reshape(
+            B, S, H, nope + rope)[:, :, h0:h1]
+        kv = tp_project(tp, p["wukv"], tp.enter(ckv), H * (nope + dv)
+                        ).reshape(B, S, H, nope + dv)[:, :, h0:h1]
+        h = h1 - h0
+    q_nope, q_rope = q.split([nope, rope], dim=-1)
+    k_nope, v = kv.split([nope, dv], dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(B, S, h, rope)], dim=-1)
     # one head dim for q, k and v: v zero-padded to q's, output sliced back
-    v = F.pad(v, (0, q.shape[-1] - Dv))
-    out = flash_attention(q, k, v, causal=True, device=x.device)[..., :Dv]
-    out = dense_apply(p["wo"], out.reshape(B, S, cfg.n_heads * m.v_head_dim))
+    v = F.pad(v, (0, q.shape[-1] - dv))
+    out = flash_attention(q, k, v, causal=True, device=x.device)[..., :dv]
+    out = out.reshape(B, S, h * dv)[..., lo - h0 * dv:hi - h0 * dv]
+    # where wo is not split every rank computed every head: its replicated
+    # product is counted once
+    wo = p["wo"] if tp.split(H * dv) else tree_map(tp.enter, p["wo"])
+    y = tp.close(out @ wo["w"].to(out.dtype), H * dv)
     if return_kv:
-        return out, (ckv, krope)
-    return out
+        return y, (ckv, k_rope[:, :, 0])
+    return y
 
 
 def mla_init_cache(cfg: ArchConfig, run: RunConfig, batch: int, max_len: int,

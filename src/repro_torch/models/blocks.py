@@ -56,8 +56,11 @@ def _moe_ffn(pf: Params, xn: torch.Tensor, cfg: ArchConfig,
     """The MoE FFN: ``(y, aux)``. ``moe_impl="ep"`` runs expert
     parallelism (``dist.ep``, DPM-scheduled all-to-all rounds) when
     ``shardctx`` holds a mesh whose ``model`` axis divides the experts, as
-    the reference does; otherwise, and for ``"dense"``, the dense path."""
-    if run.moe_impl == "ep":
+    the reference does; otherwise, and for ``"dense"``, the dense path
+    (which trains on a mesh's ranks, ``models.moe``)."""
+    from ..shardctx import training_on_mesh
+
+    if run.moe_impl == "ep" and not training_on_mesh():
         from ..dist.comm import axis_size
         from ..dist.ep import moe_apply_ep
         from ..shardctx import _CTX
@@ -78,7 +81,7 @@ def _ffn(kind: str, pf: Params, xn: torch.Tensor, cfg: ArchConfig,
     zero f32 scalar for a dense MLP."""
     if kind.endswith("_moe"):
         return _moe_ffn(pf, xn, cfg, run)
-    return (mlp_apply(pf, xn, cfg.mlp),
+    return (mlp_apply(pf, xn, cfg.mlp, _dense_d_ff(cfg)),
             torch.zeros((), dtype=torch.float32, device=xn.device))
 
 
@@ -104,9 +107,13 @@ def block_init(kind: str, gen, cfg: ArchConfig,
     if kind.endswith("_moe"):
         parts["ffn"] = moe_init(gen, cfg, device)
     else:
-        d_ff = cfg.dense_d_ff if (cfg.moe and cfg.dense_d_ff) else cfg.d_ff
-        parts["ffn"] = mlp_init(gen, cfg, device, d_ff)
+        parts["ffn"] = mlp_init(gen, cfg, device, _dense_d_ff(cfg))
     return split(parts)
+
+
+def _dense_d_ff(cfg: ArchConfig) -> int:
+    """The hidden width of a dense MLP layer (a MoE model's may differ)."""
+    return cfg.dense_d_ff if (cfg.moe and cfg.dense_d_ff) else cfg.d_ff
 
 
 # ---------------------------------------------------------------- prefill

@@ -16,6 +16,20 @@ tuples are leaves). Random draws come from an explicit
 Logical axis vocabulary:
     batch seq embed heads kv_heads head_dim mlp vocab experts expert_mlp
     layers state conv qk_rope kv_lora q_lora
+
+Tensor parallelism (training on a mesh whose ``model`` axis has more than
+one rank, ``shardctx.tensor_parallel``): each rank holds its ``model``
+block of the leaves whose ``heads``/``kv_heads``/``mlp``/``vocab``/
+``experts`` dim the rule splits (``dist.sharding``: the axis size divides
+the dim). A product whose out-dim is split runs column-parallel on the
+rank's block (its bias too); one whose in-dim is split runs row-parallel
+and the ranks' partial products are summed (``row_parallel``), a
+replicated bias added after the sum. ``embed_apply`` looks ids up in the
+rank's vocabulary block and sums the ranks' rows. The split of a dim is
+read from its whole size, which the callers take from the configuration.
+Outside training on a mesh the view has one rank (``dist.comm.ONE_RANK``),
+its operators are the identity, and the same code is the one-process
+layer.
 """
 from __future__ import annotations
 
@@ -24,6 +38,8 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+
+from ..shardctx import tensor_parallel
 
 Params = dict[str, Any]
 Specs = dict[str, Any]
@@ -101,8 +117,40 @@ def embed_init(gen, vocab: int, d: int,
                             ("vocab", "embed"))})
 
 
-def embed_apply(p: Params, ids: torch.Tensor, dtype) -> torch.Tensor:
-    return p["table"][ids.long()].to(dtype)
+def tp_project(tp, p: Params, x: torch.Tensor, full: int) -> torch.Tensor:
+    """The whole output (width ``full``) of ``dense_apply(p, x)`` on every
+    model rank, inside a region that ``tp.leave``/``tp.leave_replicated``
+    closes: the ranks' column blocks gathered where the rule splits
+    ``full``, else the product with the replicated leaves entering the
+    region. ``x`` has entered it (``tp.enter``)."""
+    if tp.split(full):
+        return tp.gather(dense_apply(p, x), full)
+    return dense_apply(tree_map(tp.enter, p), x)
+
+
+def row_parallel(tp, p: Params, h: torch.Tensor) -> torch.Tensor:
+    """``dense_apply(p, h)`` of a product whose in-dim ``tp`` splits (the
+    rank's rows of ``w`` take its columns of ``h``): the ranks' partial
+    products summed (``tp.leave``), then the replicated bias."""
+    y = tp.leave(h @ p["w"].to(h.dtype))
+    if "b" in p:
+        y = y + p["b"].to(h.dtype)
+    return y
+
+
+def embed_apply(p: Params, ids: torch.Tensor, dtype,
+                vocab: int) -> torch.Tensor:
+    """The table's rows of ``ids`` in ``dtype``. Where tensor parallelism
+    splits the (padded) ``vocab``, each rank looks up the ids in its
+    block, zeros the others, and the ranks' rows are summed."""
+    tp = tensor_parallel().over(vocab)
+    lo, hi = tp.block(vocab)
+    ids = ids.long()
+    inside = (ids >= lo) & (ids < hi)
+    rows = p["table"][(ids - lo).clamp(0, hi - lo - 1)].to(dtype)
+    return tp.leave(torch.where(inside[..., None], rows,
+                                torch.zeros((), dtype=dtype,
+                                            device=rows.device)))
 
 
 def lm_head_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -125,13 +173,18 @@ def mlp_init(gen, cfg, device: torch.device,
     })
 
 
-def mlp_apply(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
+def mlp_apply(p: Params, x: torch.Tensor, kind: str,
+              d_ff: int) -> torch.Tensor:
+    """The dense MLP of hidden width ``d_ff``; where tensor parallelism
+    splits it, column-parallel into the hidden layer and row-parallel out
+    of it."""
+    tp = tensor_parallel().over(d_ff)
+    x = tp.enter(x)
     if kind == "swiglu":
         h = F.silu(dense_apply(p["wg"], x)) * dense_apply(p["wi"], x)
-        return dense_apply(p["wo"], h)
-    # jax.nn.gelu is the tanh approximation by default
-    h = F.gelu(dense_apply(p["wi"], x), approximate="tanh")
-    return dense_apply(p["wo"], h)
+    else:  # jax.nn.gelu is the tanh approximation by default
+        h = F.gelu(dense_apply(p["wi"], x), approximate="tanh")
+    return row_parallel(tp, p["wo"], h)
 
 
 def stack_init(init_fn, gen, n: int, cast=None) -> tuple[Params, Specs]:

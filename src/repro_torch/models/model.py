@@ -23,7 +23,14 @@ parameters, which ``launch.specs`` and ZeRO-1 training (``train``)
 resolve on a mesh. The model runs on rank-local tensors and sets no
 sharding constraints; under ``moe_impl="ep"`` with a mesh in
 ``shardctx`` its MoE layers run expert-parallel (``dist.ep``).
-``cache_axes`` gives the reference's logical axes of the caches for
+In training on a mesh whose ``model`` axis has more than one rank
+(``shardctx.tensor_parallel``) each rank's ``forward`` runs on its ``model``
+blocks of the parameters: the layers split as ``models.layers`` says, the
+embedding looked up in each rank's vocabulary block, and the LM head and
+the cross-entropy vocab-parallel (``_lse_and_label``: the max, the
+sum of exponentials and the label's logit reduced over the ranks, the
+padded vocabulary masked in each block). ``cache_axes`` gives the
+reference's logical axes of the caches for
 ``dist.sharding``. Caches are per layer: ``caches["g{i}"]`` is a list with
 one dict per layer of the group (the reference stacks them); decode writes
 KV caches in place.
@@ -35,6 +42,7 @@ from typing import Any
 import torch
 
 from ..device import resolve_device
+from ..shardctx import tensor_parallel
 from torch.utils.checkpoint import checkpoint
 
 from .blocks import (
@@ -138,7 +146,8 @@ def _embed(params, cfg: ArchConfig, run: RunConfig, batch: dict,
            pos0: int = 0) -> torch.Tensor:
     dt = getattr(torch, run.activations_dtype)
     if cfg.embed_input == "tokens":
-        x = embed_apply(params["embed"], batch["tokens"], dt)
+        x = embed_apply(params["embed"], batch["tokens"], dt,
+                        padded_vocab(cfg, run))
     else:  # modality frontend stub: precomputed frame/patch embeddings
         x = batch["frames"].to(dt)
     if cfg.pos == "sinusoidal":
@@ -168,14 +177,40 @@ def _group_apply(kind: str, gparams: Params, count: int, x: torch.Tensor,
     return x, aux
 
 
-def _logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+def _logits(params, cfg: ArchConfig, x: torch.Tensor,
+            lo: int = 0) -> torch.Tensor:
+    """The f32 logits of the LM head's vocabulary rows from ``lo`` on (the
+    rank's block under tensor parallelism), padded entries masked."""
     table = params["lm_head"] if "lm_head" in params else params["embed"]
     logits = lm_head_apply(table, x).float()
     vp = logits.shape[-1]
-    if vp != cfg.vocab:  # mask padded vocab entries
-        mask = torch.arange(vp, device=x.device) < cfg.vocab
+    if lo + vp > cfg.vocab:  # mask padded vocab entries
+        mask = torch.arange(lo, lo + vp, device=x.device) < cfg.vocab
         logits = torch.where(mask, logits, -1e30)
     return logits
+
+
+def _lse_and_label(params, cfg: ArchConfig, run: RunConfig,
+                   x: torch.Tensor, labels: torch.Tensor):
+    """``(logsumexp, the label's logit)`` of the f32 logits. Where tensor
+    parallelism splits the (padded) vocabulary, from this rank's block of
+    the LM head: the max, the sum of the exponentials and the label's
+    logit reduced over the model ranks (as ``jax.nn.logsumexp``, the max
+    carries no gradient). A whole vocabulary takes ``torch.logsumexp``,
+    one fused reduction, and its backward."""
+    tp = tensor_parallel().over(padded_vocab(cfg, run))
+    lo, hi = tp.block(padded_vocab(cfg, run))
+    logits = _logits(params, cfg, tp.enter(x), lo)
+    if tp.m == 1:
+        lse = torch.logsumexp(logits, dim=-1)
+    else:
+        mx = tp.max(logits.amax(-1))
+        lse = mx + torch.log(tp.leave(torch.exp(logits - mx[..., None])
+                                      .sum(-1)))
+    inside = (labels >= lo) & (labels < hi)
+    ll = torch.gather(logits, -1,
+                      (labels - lo).clamp(0, hi - lo - 1)[..., None])[..., 0]
+    return lse, tp.leave(torch.where(inside, ll, 0.0))
 
 
 def forward(params: Params, batch: dict, cfg: ArchConfig, run: RunConfig):
@@ -195,10 +230,8 @@ def forward(params: Params, batch: dict, cfg: ArchConfig, run: RunConfig):
                               positions)
         aux_total = aux_total + aux
     x = norm_apply(params["final_norm"], x)
-    logits = _logits(params, cfg, x)
     labels = batch["labels"].to(device=x.device, dtype=torch.long)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    lse, ll = _lse_and_label(params, cfg, run, x, labels)
     ce = (lse - ll).mean()
     zl = run.z_loss * (lse**2).mean()
     aux_coef = cfg.moe.aux_loss_coef if cfg.moe else 0.0

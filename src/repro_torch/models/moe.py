@@ -13,12 +13,30 @@ Slots, drops and ranks equal the reference's exactly: tokens are flattened
 row-major over ``(B, S)`` then over the k choices, the sort is stable, and
 the top-k order is ``lax.top_k``'s (ties to the lower expert id). Padding
 tokens are routed and take capacity, as in the reference.
+
+In training on a mesh (``shardctx.tensor_parallel``) the layer computes
+the global batch's function from each rank's rows: the capacity comes from
+the global token count, a pair's rank within its expert is the count of
+that expert's pairs on the ranks before this one (the batch's rows are in
+rank order) plus its rank here, and the load-balance loss's ``f`` and
+``pbar`` are global means. Each rank fills its own rows' slots. The
+gradient of the global ``aux`` reaches each rank's rows alone, so its
+``pbar`` sums over the ranks with psum's transpose (``SumOverRanks``):
+after ``DataParallel`` averages the ranks' gradients the aux term is the
+reference's, not 1/n of it. Over ``model`` the experts are split (the
+reference constrains the buffer to ``("experts", None, None)``): a rank
+runs its experts' FFN on its slice of the buffer and combines their
+pairs, the shared expert runs as a split MLP, the router's logits are
+gathered whole, and the ranks' partial outputs are summed. Outside
+training on a mesh the view has one rank of each kind
+(``dist.comm.ONE_RANK``) and the same code is the one-process layer.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..shardctx import tensor_parallel
 from .config import ArchConfig, MoEConfig
 from .layers import Params, Specs, dense_init, normal, split
 
@@ -48,24 +66,34 @@ def moe_init(gen, cfg: ArchConfig,
     return split(leaves)
 
 
-def route(p: Params, x: torch.Tensor, m: MoEConfig):
+def route(p: Params, x: torch.Tensor, m: MoEConfig, tp=None):
     """Router: f32 softmax over experts, top-k with renormalised weights.
 
     ``x``: (T, d). Returns (expert ids (T, k) int64, weights (T, k) f32, the
-    Switch-style load-balance loss of training).
+    Switch-style load-balance loss of training). On a training mesh
+    (``tp``, a ``dist.comm.TensorParallel``; one process's by default) the
+    logits are whole on every model rank and the loss's means are over the
+    rows of every row rank.
     """
-    logits = x.float() @ p["router"]["w"].float()
+    if tp is None:
+        from ..dist.comm import ONE_RANK
+
+        tp = ONE_RANK
+    E = m.n_experts
+    router = p["router"]["w"]
+    logits = (tp.gather(x.float() @ router.float(), E) if tp.split(E)
+              else x.float() @ tp.enter(router).float())
     probs = torch.softmax(logits, dim=-1)  # (T, E)
     # a stable descending sort is lax.top_k's order: ties to the lower id
     weights, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     weights, ids = weights[:, : m.top_k], ids[:, : m.top_k]
     weights = weights / weights.sum(-1, keepdim=True).clamp_min(1e-9)
-    E = m.n_experts
     assign = torch.zeros((x.shape[0], E), dtype=torch.float32,
                          device=x.device)
     assign.scatter_add_(1, ids, torch.ones_like(weights))
-    f = assign.mean(0) / m.top_k
-    aux = E * torch.sum(f * probs.mean(0))
+    T = x.shape[0] * tp.n_rows
+    f = tp.rows_sum(assign.sum(0)) / T / m.top_k
+    aux = E * torch.sum(f * (tp.rows_sum(probs.sum(0)) / T))
     return ids, weights, aux
 
 
@@ -74,12 +102,15 @@ def capacity(m: MoEConfig, tokens: int) -> int:
     return max(8, (c + 7) // 8 * 8)
 
 
-def dispatch_indices(ids: torch.Tensor, m: MoEConfig, cap: int):
+def dispatch_indices(ids: torch.Tensor, m: MoEConfig, cap: int,
+                     before: torch.Tensor | None = None):
     """Sort-based dispatch plan.
 
     ``ids``: (T, k) expert choices. Returns (slot (T*k,), keep (T*k,)):
     ``slot`` indexes an (E*cap,) buffer; dropped pairs get slot 0 / keep
-    False.
+    False. ``before`` (E,) counts each expert's pairs ranked ahead of these
+    (other ranks' rows): a pair is kept iff its global rank is below
+    ``cap``, and takes its slot from its rank among these pairs.
     """
     Tk = ids.numel()
     flat = ids.reshape(Tk)
@@ -91,7 +122,7 @@ def dispatch_indices(ids: torch.Tensor, m: MoEConfig, cap: int):
     first.scatter_reduce_(0, sorted_e, pos, "amin")
     ranked = torch.empty_like(pos)
     ranked[order] = pos - first[sorted_e]
-    keep = ranked < cap
+    keep = ranked < cap if before is None else ranked + before[flat] < cap
     slot = torch.where(keep, flat * cap + ranked, 0)
     return slot, keep
 
@@ -139,20 +170,45 @@ def combine(ye: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
 
 
 def moe_apply_dense(p: Params, x: torch.Tensor, cfg: ArchConfig):
-    """Token-major in, (E, cap, d) expert compute, combine.
+    """Token-major in, (E, cap, d) expert compute, combine; on a training
+    mesh the global batch's function from this rank's rows and ``model``
+    blocks (module docstring).
 
     x: (B, S, d). Returns (y, aux_loss).
     """
     m: MoEConfig = cfg.moe
     B, S, d = x.shape
-    T, k = B * S, m.top_k
-    xt = x.reshape(T, d)
-    ids, w, aux = route(p, xt, m)
-    cap = capacity(m, T)
-    slot, keep = dispatch_indices(ids, m, cap)
-    buf = dispatch_buffer(xt, slot, keep, k, m.n_experts * cap)
-    ye = expert_ffn(p, buf.reshape(m.n_experts, cap, d))
-    y = combine(ye.reshape(m.n_experts * cap, d), slot, keep, w, k)
+    T, k, E = B * S, m.top_k, m.n_experts
+    tp = tensor_parallel()
+    xt = tp.enter(x.reshape(T, d))
+    ids, w, aux = route(p, xt, m, tp)
+    cap = capacity(m, T * tp.n_rows)
+    counts = torch.zeros((E,), dtype=torch.long, device=x.device)
+    counts.scatter_add_(0, ids.reshape(-1), torch.ones_like(ids.reshape(-1)))
+    slot, keep = dispatch_indices(ids, m, cap, tp.rows_before(counts))
+    # this rank's experts: its slice of the buffer
+    e0, e1 = tp.block(E)
+    flat = ids.reshape(-1)
+    mine = keep & (flat >= e0) & (flat < e1)
+    slot = torch.where(mine, slot - e0 * cap, 0)
+    rows = (e1 - e0) * cap
+    experts = {n: p[n] for n in ("wi", "wg", "wo")}
+    if not tp.split(E):
+        experts = {n: tp.enter(t) for n, t in experts.items()}
+    buf = dispatch_buffer(xt, slot, mine, k, rows)
+    ye = expert_ffn(experts, buf.reshape(e1 - e0, cap, d))
+    parts = [(combine(ye.reshape(rows, d), slot, mine, w, k), E)]
     if m.n_shared:
-        y = y + shared_ffn(p, xt)
-    return y.reshape(B, S, d), aux
+        width = m.n_shared * m.d_expert
+        shared = {n: p[n] for n in ("shared_wi", "shared_wg", "shared_wo")}
+        if not tp.split(width):
+            shared = {n: tp.enter(t) for n, t in shared.items()}
+        parts.append((shared_ffn(shared, xt), width))
+    # the parts that the ranks split are summed over them, those computed
+    # whole counted once
+    partial = [y for y, full in parts if tp.split(full)]
+    whole = [y for y, full in parts if not tp.split(full)]
+    y = tp.leave(sum(partial)) if partial else 0
+    if whole:
+        y = y + tp.leave_replicated(sum(whole))
+    return y.reshape(B, S, d), tp.leave_replicated(aux)

@@ -9,6 +9,14 @@ ssd_scan_kernel`` instead: the CUDA intra-chunk kernel, then the same
 inter-chunk recurrence in PyTorch.
 
 Shapes: batch B, seq S, heads H, head_dim P, groups G, state N.
+
+Under tensor parallelism (``shardctx.tensor_parallel``) the rule splits
+``in_proj``'s output, the conv's channels, the per-head leaves and
+``norm_scale``, but the z/x/B/C/dt split of ``in_proj``'s output does not
+fall on the blocks' edges: each rank gathers ``in_proj``'s output and
+those small leaves whole and runs the block's whole scan, and its block of
+``out_proj``'s rows takes its columns of the scan's output, the ranks'
+partial products summed.
 """
 from __future__ import annotations
 
@@ -19,7 +27,11 @@ import torch.nn.functional as F
 
 from ..kernels.ssd.ops import ssd_scan_kernel
 from .config import ArchConfig, SSMConfig
-from .layers import Params, Specs, dense_apply, dense_init, normal, split
+from ..shardctx import tensor_parallel
+from .layers import (
+    Params, Specs, dense_apply, dense_init, normal, split, tp_project,
+    tree_map,
+)
 
 MIN_LOG = -30.0
 
@@ -189,8 +201,20 @@ def ssd_block_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     s: SSMConfig = cfg.ssm
     B_, S, d = x.shape
     di, H, G, N = s.d_inner(d), s.n_heads(d), s.n_groups, s.d_state
-
-    zxbcdt = dense_apply(p["in_proj"], x)
+    conv_dim = di + 2 * G * N
+    d_in = conv_dim + di + H
+    tp = tensor_parallel().over(d_in, conv_dim, H, di)
+    if return_state and tp.m > 1:
+        raise NotImplementedError("ssd_block_apply: return_state under "
+                                  "tensor parallelism (serving) is not "
+                                  "ported")
+    # the split of in_proj's output is not on the blocks' edges: its
+    # output and the block's small leaves are gathered whole
+    zxbcdt = tp_project(tp, p["in_proj"], tp.enter(x), d_in)
+    p = dict(p, conv_w=tp.gather(p["conv_w"], conv_dim, 1), **{
+        n: tp.gather(p[n], w, 0) for n, w in (
+            ("conv_b", conv_dim), ("A_log", H), ("D", H), ("dt_bias", H),
+            ("norm_scale", di))})
     z, xi, bm, cm, dt = _split_zxbcdt(zxbcdt, di, G * N, H)
     xbc = torch.cat([xi, bm, cm], dim=-1)
     xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"])
@@ -208,7 +232,11 @@ def ssd_block_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     y = y + xi.reshape(B_, S, H, s.head_dim) * p["D"][:, None]
     y = y.reshape(B_, S, di).to(x.dtype)
     y = _gated_rmsnorm(y, z, p["norm_scale"])
-    out = dense_apply(p["out_proj"], y)
+    # the rank's rows of out_proj take its columns of y
+    lo, hi = tp.block(di)
+    w = p["out_proj"] if tp.split(di) else tree_map(tp.enter,
+                                                     p["out_proj"])
+    out = tp.close(y[..., lo:hi] @ w["w"].to(y.dtype), di)
     if return_state:
         return out, {"conv": conv_state, "state": h_last}
     return out

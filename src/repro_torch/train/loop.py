@@ -14,10 +14,11 @@ run with f32 activations: the master weights are drawn and stored in f32)
 and casts the compute copy to ``run.params_dtype`` each step
 (``train.step.cast_params``), as the reference does.
 
-* **data ranks** — under a ``shardctx`` mesh (as ``models.blocks`` reads
-  it for expert parallelism) ``train`` runs on each rank of the mesh's
-  data axes (``optim.DataParallel``): each rank takes its rows of the
-  global batch and, with ``RunConfig.zero1``, keeps its blocks of the
+* **mesh** — under a ``shardctx`` mesh (as ``models.blocks`` reads it for
+  expert parallelism) ``train`` runs on each rank of the mesh
+  (``optim.DataParallel``): each rank takes its rows of the global batch
+  over the data axes, runs the forward on its ``model`` blocks (tensor
+  parallelism) and, with ``RunConfig.zero1``, keeps its blocks of the
   state; checkpoints hold whole leaves (``ckpt.save`` gathers them, rank 0
   writes) and a resume re-shards onto the mesh it runs on
   (``ckpt.restore``'s ``shardings``). Without a mesh nothing changes.
@@ -114,8 +115,6 @@ def train(cfg: ArchConfig, run: RunConfig, loop: LoopConfig, *,
     for step in range(start, loop.steps):
         batch = synthetic_batch(cfg, loop.batch, loop.seq, loop.seed, step,
                                 device=dev)
-        if data is not None:
-            batch = data.rows(batch)
         t0 = time.monotonic()
         state, metrics = step_fn(state, batch)
         loss = float(metrics["loss"])

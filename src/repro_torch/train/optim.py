@@ -12,19 +12,27 @@ to its jitted step for the same reason: at 1.6 B parameters the master
 weights and moments are 19.7 GB) and returns a new ``TrainState`` around
 them.
 
-``DataParallel`` trains over the data ranks of a mesh (``pod`` and
-``data`` axes): the reference's jitted step under the shardings of
-``launch.specs.train_cell``. With ``RunConfig.zero1`` each rank keeps
-only its block of every master, ``m`` and ``v`` leaf, as
+``DataParallel`` trains on a mesh of ``pod``, ``data`` and ``model``
+axes: the reference's jitted step under the shardings of
+``launch.specs.train_cell``. Each rank holds its ``model`` block of every
+leaf that the rule splits over ``model`` (tensor parallelism, the models'
+forward reading ``shardctx.tensor_parallel``) and takes its rows of the
+global batch over the data axes. With ``RunConfig.zero1`` it keeps only
+its block of every master, ``m`` and ``v`` leaf, as
 ``dist.sharding.zero1_shardings`` gives it (a leaf with no dim that the
-data ranks divide stays whole on every rank); without it the state stays
-whole on every rank. The forward runs on the gathered master, cast; the
-gradients are summed over the data ranks (``all_reduce``: gloo has no
-reduce-scatter), divided by their number, and each rank keeps its block;
-the clipping norm sums the squares of every rank's blocks, a whole leaf
-counted once; ``adamw_update`` then runs unchanged on the blocks. A mesh
-whose ``model`` axis has more than one rank (tensor parallelism) and a
-MoE model over more than one data rank raise ``NotImplementedError``.
+data ranks divide stays whole over them); without it the state is split
+over ``model`` alone. The forward runs on the master gathered over the
+data axes only, cast: the rank's model blocks, never a whole leaf split
+over ``model``. The gradients are summed over the data ranks
+(``all_reduce``; gloo runs ``reduce_scatter_tensor`` too, on host and
+card tensors under torch 2.11, but the swap waits for a measurement),
+divided by their number, and each rank keeps its block; the clipping
+norm sums the squares of every rank's blocks, a block held by several
+ranks counted once over the data and model axes; ``adamw_update`` then
+runs unchanged on the blocks. A
+MoE model's layers compute the global batch's routing from each rank's
+rows (``models.moe``). Axes other than ``pod``, ``data`` and ``model``
+raise ``NotImplementedError``, as does ``moe_impl="ep"``.
 """
 from __future__ import annotations
 
@@ -116,9 +124,8 @@ def clip_by_global_norm(grads, max_norm: float = 1.0,
 
 
 class DataParallel:
-    """Training over the data ranks of ``mesh`` (module docstring):
-    ``specs`` is the state's per-leaf spec tree, ``shapes`` the whole
-    leaves' shapes."""
+    """Training on the ranks of ``mesh`` (module docstring): ``specs`` is
+    the state's per-leaf spec tree, ``shapes`` the whole leaves' shapes."""
 
     def __init__(self, mesh, specs, shapes):
         from ..dist.sharding import _axis_sizes, mesh_coords
@@ -127,6 +134,8 @@ class DataParallel:
         self.mesh = mesh
         self.axes = tuple(a for a in ("pod", "data") if sizes.get(a, 1) > 1)
         self.n = math.prod(sizes[a] for a in self.axes)
+        self.split_axes = self.axes + (
+            ("model",) if sizes.get("model", 1) > 1 else ())
         self.coords = mesh_coords(mesh)
         self.specs = specs
         self.shapes = tree_map(lambda t: tuple(t.shape), shapes)
@@ -141,25 +150,17 @@ class DataParallel:
                                      zero1_shardings)
 
         sizes = _axis_sizes(mesh)
-        if sizes.get("model", 1) > 1:
-            raise NotImplementedError(
-                f"training on a mesh whose 'model' axis has {sizes['model']} "
-                "ranks (tensor parallelism) is not ported; train on a mesh "
-                "of data axes ('pod', 'data')")
         other = {a: n for a, n in sizes.items()
                  if a not in ("pod", "data", "model") and n > 1}
         if other:
             raise NotImplementedError(
                 f"training over mesh axes {other}: only the data axes "
-                "('pod', 'data') are ported")
-        if cfg.moe and math.prod(sizes.get(a, 1)
-                                 for a in ("pod", "data")) > 1:
+                "('pod', 'data') and the tensor-parallel axis 'model' are "
+                "ported")
+        if cfg.moe and run.moe_impl == "ep" and math.prod(sizes.values()) > 1:
             raise NotImplementedError(
-                f"{cfg.name}: MoE training over more than one data rank is "
-                "not ported; the router's load-balance loss and the expert "
-                "capacity couple the rows of the batch, so a step on each "
-                "rank's rows computes another function than the global "
-                "batch's")
+                f"{cfg.name}: expert-parallel training (moe_impl='ep') is "
+                "not ported; train with moe_impl='dense'")
         build = zero1_shardings if run.zero1 else tree_shardings
         return cls(mesh, build(specs, shapes, mesh), shapes)
 
@@ -168,8 +169,8 @@ class DataParallel:
         return tree_map(self.shard_leaf, tree, self.specs)
 
     def shard_leaf(self, t: torch.Tensor, spec: tuple) -> torch.Tensor:
-        """This rank's block of a whole leaf under ``spec`` (a copy; a leaf
-        it keeps whole comes back as it is)."""
+        """This rank's block of a leaf under ``spec`` (a copy; a leaf it
+        keeps whole comes back as it is)."""
         from ..dist.sharding import shard_slices
 
         sl = shard_slices(spec, t.shape, self.mesh, self.coords)
@@ -177,29 +178,37 @@ class DataParallel:
             return t
         return t[sl].clone()
 
+    def data_spec(self, spec: tuple) -> tuple:
+        """``spec`` with its ``model`` entries dropped: the split of a
+        model block over the data axes (the rules never shard one dim over
+        ``model`` and a data axis together)."""
+        return tuple(None if e == "model" else e for e in spec)
+
     def gather(self, tree, dtype: torch.dtype):
-        """The whole leaves of a tree of this rank's blocks, each cast to
-        ``dtype`` before it is gathered (the same bits as the cast of the
-        gathered leaf, in fewer bytes)."""
+        """This rank's model blocks of a tree of its state blocks, gathered
+        over the data axes, each cast to ``dtype`` before it is gathered
+        (the same bits as the cast of the gathered block, in fewer
+        bytes)."""
         from ..dist.comm import gather_shards
 
-        return tree_map(lambda t, spec: gather_shards(self.mesh, t.to(dtype),
-                                                      spec),
-                        tree, self.specs)
+        return tree_map(lambda t, spec: gather_shards(
+            self.mesh, t.to(dtype), self.data_spec(spec)), tree, self.specs)
 
     def average(self, grads):
-        """Whole gradients, one a rank's rows, to this rank's blocks of
-        their f32 mean over the data ranks, leaf by leaf."""
+        """The gradients of this rank's model blocks, one a rank's rows, to
+        this rank's blocks of their f32 mean over the data ranks, leaf by
+        leaf."""
         from ..dist.comm import all_reduce_axes
 
         def one(g, spec):
             total = all_reduce_axes(self.mesh, self.axes, g.float())
-            return self.shard_leaf(total.div_(self.n), spec)
+            return self.shard_leaf(total.div_(self.n), self.data_spec(spec))
 
         return tree_map(one, grads, self.specs)
 
     def mean(self, x: torch.Tensor) -> torch.Tensor:
-        """The mean of a rank's scalar over the data ranks."""
+        """The mean of a rank's scalar over the data ranks (the model ranks
+        hold the same)."""
         from ..dist.comm import all_reduce_axes
 
         return all_reduce_axes(self.mesh, self.axes, x.float()) / self.n
@@ -207,8 +216,8 @@ class DataParallel:
     def global_norm(self, grads) -> torch.Tensor:
         """``global_norm`` of the whole gradients from this rank's blocks:
         each rank's sum of squares over the blocks it owns (a block held by
-        several ranks counts on the one at coordinate 0 of the data axes
-        its leaf is not split over), summed over the data ranks."""
+        several ranks counts on the one at coordinate 0 of the data and
+        model axes its leaf is not split over), summed over the ranks."""
         from ..dist.comm import all_reduce_axes
         from ..dist.sharding import _flat_axes
 
@@ -217,21 +226,54 @@ class DataParallel:
         for (_, g), (_, spec) in zip(tree_flatten(grads),
                                      tree_flatten(self.specs)):
             split = {a for e in spec for a in _flat_axes(e)}
-            if all(self.coords[a] == 0 for a in self.axes if a not in split):
+            if all(self.coords[a] == 0 for a in self.split_axes
+                   if a not in split):
                 total = total + torch.sum(torch.square(g.float()))
-        return torch.sqrt(all_reduce_axes(self.mesh, self.axes, total))
+        return torch.sqrt(all_reduce_axes(self.mesh, self.split_axes, total))
 
-    def rows(self, batch: dict) -> dict:
+    def row_axes(self, n: int) -> tuple[str, ...]:
+        """The data axes over which a global batch of ``n`` rows is split,
+        as the reference shards its ``("batch", ...)`` inputs (an axis
+        that does not divide ``n`` leaves the rows whole over it)."""
+        from ..dist.sharding import _flat_axes, spec_for_shape
+
+        return _flat_axes(spec_for_shape(("batch",), (n,), self.mesh)[0])
+
+    def rows(self, batch: dict, accum: int = 1) -> dict:
         """This rank's rows of a global batch, as the reference shards its
-        ``("batch", "seq", ...)`` inputs."""
-        from ..dist.sharding import shard_slices, spec_for_shape
+        ``("batch", "seq", ...)`` inputs. With ``accum`` microbatches, its
+        block of each microbatch of the global batch, in order (the rows
+        ``build_train_step`` splits into microbatches on this rank)."""
+        from ..dist.sharding import _axis_sizes, shard_slices, spec_for_shape
 
+        sizes = _axis_sizes(self.mesh)
         out = {}
         for k, t in batch.items():
-            spec = spec_for_shape(("batch", "seq", "embed")[:t.dim()],
-                                  tuple(t.shape), self.mesh)
-            out[k] = t[shard_slices(spec, t.shape, self.mesh, self.coords)]
+            axes = self.row_axes(t.shape[0])
+            n = math.prod(sizes[a] for a in axes)
+            if accum > 1 and n > 1:
+                if t.shape[0] % (accum * n):
+                    raise ValueError(
+                        f"a batch of {t.shape[0]} rows does not split into "
+                        f"{accum} microbatches over {n} data ranks")
+                idx = 0
+                for a in axes:
+                    idx = idx * sizes[a] + self.coords[a]
+                out[k] = t.reshape(accum, n, -1, *t.shape[1:])[:, idx] \
+                    .reshape(-1, *t.shape[1:])
+            else:
+                spec = spec_for_shape(("batch", "seq", "embed")[:t.dim()],
+                                      tuple(t.shape), self.mesh)
+                out[k] = t[shard_slices(spec, t.shape, self.mesh,
+                                        self.coords)]
         return out
+
+    def parallel(self, n: int):
+        """The ``dist.comm.TensorParallel`` of this mesh for a global batch
+        of ``n`` rows, which the step's forward reads."""
+        from ..dist.comm import TensorParallel
+
+        return TensorParallel(self.mesh, self.row_axes(n))
 
     @property
     def state_specs(self) -> TrainState:

@@ -1,7 +1,8 @@
 """The train step: loss -> grads -> clip -> AdamW, with microbatch
 gradient accumulation and a cast compute copy over f32 master parameters,
-on one device or over the data ranks of a mesh (``optim.DataParallel``).
-Twin of ``repro.train.step``."""
+on one device or on the ranks of a mesh (``optim.DataParallel``: data
+ranks, tensor parallelism over ``model``). Twin of
+``repro.train.step``."""
 from __future__ import annotations
 
 from typing import Callable
@@ -35,9 +36,14 @@ def build_train_step(
 
     ``accum`` > 1 splits the batch into microbatches whose gradients sum in
     an f32 accumulator, then divides by ``accum``. Under ``data`` the state
-    holds this rank's blocks and ``batch`` this rank's rows: the forward
-    runs on the gathered cast masters, and the loss, metrics and gradients
-    are averaged over the data ranks (``optim.DataParallel``)."""
+    holds this rank's blocks and ``batch`` is the global batch, of which
+    the step takes this rank's rows (``data.rows``): the forward and
+    backward run on the cast masters gathered over the data axes (the
+    rank's ``model`` blocks, with ``data.parallel`` in ``shardctx``), and
+    the loss, metrics and gradients are averaged over the data ranks
+    (``optim.DataParallel``)."""
+    from ..shardctx import training_on
+
     compute_dtype = getattr(torch, run.params_dtype)
     lr_fn = lr_fn or cosine_lr(run)
 
@@ -45,6 +51,13 @@ def build_train_step(
         return loss_fn(cast_params(params, compute_dtype), batch, cfg, run)
 
     def train_step(state: TrainState, batch: dict):
+        if data is None:
+            return finish(state, *grads_of(state, batch))
+        n = next(iter(batch.values())).shape[0]
+        with training_on(data.parallel(n)):
+            return finish(state, *grads_of(state, data.rows(batch, accum)))
+
+    def grads_of(state: TrainState, batch: dict):
         metrics = {}
         params = (state.params if data is None
                   else data.gather(state.params, compute_dtype))
@@ -65,7 +78,9 @@ def build_train_step(
                 del g
             grads = tree_map(lambda g: g / accum, grads)
             loss = loss / accum
-        del params
+        return loss, metrics, grads
+
+    def finish(state: TrainState, loss, metrics, grads):
         norm = None
         if data is not None:
             grads = data.average(grads)

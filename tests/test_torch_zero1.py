@@ -19,8 +19,9 @@ smollm-135m's smoke config in f32 (``RUN_KW``) from the port's seeded
   blocks are the blocks that the reference's ``devices_indices_map`` gives
   its device, of the whole leaves its checkpoint gathered, bit for bit;
   its state bytes are what those blocks imply; with ``zero1=False`` every
-  rank holds the whole state. A ``model`` axis of 2 and a MoE model over 4
-  data ranks raise ``NotImplementedError``.
+  rank holds the whole state. A mesh axis other than ``pod``, ``data`` and
+  ``model`` raises ``NotImplementedError`` (a ``model`` axis and MoE over
+  data ranks train: ``tests/test_torch_tp.py``).
 - **Elastic restore**: the four ranks' step-2 checkpoint restored on 2
   ranks (ZeRO-1 blocks) and onto a (2, 2) ``("data", "model")`` mesh
   (``tree_shardings``), each block equal to the reference's index map of
@@ -255,10 +256,13 @@ def test_zero1_rank_holds_only_its_blocks(runs):
 
 
 def test_training_on_a_model_axis_or_moe_over_data_ranks_raises(runs):
+    """What training on a mesh still refuses raises: an axis other than
+    ``pod``, ``data`` and ``model``. (A ``model`` axis and MoE over data
+    ranks train now, against one process and the reference in
+    ``tests/test_torch_tp.py``.)"""
     for got in runs["four"]:
-        assert "tensor parallelism" in got["tp_error"], got["tp_error"]
-        assert "MoE training over more than one data rank" in \
-            got["moe_error"], got["moe_error"]
+        msg = got["other_axis_error"]
+        assert "training over mesh axes {'pipe': 4}" in msg, msg
 
 
 # --------------------------------------------------------------- elastic

@@ -12,7 +12,6 @@ from pathlib import Path
 import numpy as np
 
 NAME = "smollm-135m"
-MOE_NAME = "moonshot-v1-16b-a3b"
 RUN_KW = dict(remat="none", attn_chunk_q=32, attn_chunk_k=32, vocab_round=64,
               params_dtype="float32", activations_dtype="float32",
               learning_rate=3e-3)
@@ -98,7 +97,8 @@ def four_ranks(rank: int, tmp: str) -> dict:
     """ZeRO-1 over (4,) ``data``: ``STEPS`` steps saving at ``CKPT_AT``;
     then ``zero1=False``; the step-``CKPT_AT`` checkpoint restored onto a
     (2, 2) ``("data", "model")`` mesh under ``tree_shardings`` and saved
-    again from there; the two cases that raise."""
+    again from there; training on a mesh axis other than ``pod``/``data``/
+    ``model``, which raises."""
     from repro_torch.ckpt import save
     from repro_torch.configs import SMOKES
     from repro_torch.dist.sharding import tree_shardings
@@ -123,16 +123,14 @@ def four_ranks(rank: int, tmp: str) -> dict:
     out["dm_restore"] = flat_np(state)
     # saved again from the (2, 2) blocks: one writer, whole leaves
     save(tmp / "dm_resave", CKPT_AT, state, shardings=sh, mesh=dm)
-    for key, mesh, arch in (("tp_error", dm, NAME),
-                            ("moe_error", data, MOE_NAME)):
-        set_ctx(mesh)
-        try:
-            train(SMOKES[arch], run, loop_config(1), device="cpu")
-            out[key] = ""
-        except NotImplementedError as e:
-            out[key] = str(e)
-        finally:
-            clear_ctx()
+    set_ctx(make_mesh((4,), ("pipe",), "cpu"))
+    try:
+        train(cfg, run, loop_config(1), device="cpu")
+        out["other_axis_error"] = ""
+    except NotImplementedError as e:
+        out["other_axis_error"] = str(e)
+    finally:
+        clear_ctx()
     return out
 
 
