@@ -177,7 +177,7 @@ non-zero before the result line:
    group's broadcast / ``all_to_all_single``; ``part=compress``:
    ``compressed_psum`` of a stablelm-embedding-sized f32 gradient on each
    rank, identical on the four and within 0.05 of the exact all-reduce
-   relative to its max; ``part=ep``: moonshot at full width (12 of its 48
+   relative to its max; ``part=ep``: moonshot at full width (6 of its 48
    layers, each rank drawing the layers one at a time and keeping its 16
    of 64 experts), one f32 MoE layer (4 x 2,000 x 2,048, capacity factor
    64 / 6: nothing drops) through ``moe_apply_ep`` against
@@ -190,7 +190,7 @@ non-zero before the result line:
    dropped pairs and the tokens routed otherwise in each layer printed;
    layer 0, whose input is the same in both paths, may route otherwise
    only at near ties, and with nothing dropped the EP logits must equal
-   the control's bit for bit; 12 flash launches a rank a prefill; ``part=pipeline``: stablelm-1.6b's 24 layers in 4 stages of 6
+   the control's bit for bit; 6 flash launches a rank a prefill; ``part=pipeline``: stablelm-1.6b's 24 layers in 4 stages of 6
    through ``pipeline_apply`` (4 microbatches of one 4,096-token sequence,
    f32 masters, bf16 compute, a loss on the output), the forward equal to
    the 24 layers applied microbatch by microbatch on rank 0, every stage
@@ -247,6 +247,28 @@ non-zero before the result line:
    step 2 (the one process from the masters the ranks started it from)
    within 1e-5, the dropped pairs over the data ranks equal to the one
    process's, 8 + 8 ``cuda_core_f32`` launches at D = 128;
+   then serving on a mesh (``--serve-tp``, a child of its own):
+   ``[dist] part=stream_bf16``: the wrappers with the stream options on
+   f32 inputs at hymba's shapes launch the bf16 kernels (``wgmma_bf16``,
+   ``mma_bf16``) and agree with the plain versions with the same options
+   within the bf16 kernels' tolerances; ``[dist] part=serve_tp``: four
+   ranks on a (2, 2) ``("data", "model")`` mesh, each with its
+   ``tree_shardings`` blocks of the parameters, run
+   ``models.model.prefill`` and 16 teacher-forced ``decode_step``s under
+   ``shardctx.set_ctx(mesh, blocks=True)`` at full width (moonshot cut to
+   2 layers, deepseek to 1 + 1, hymba to 4; B = 4, a 2,000-token prompt),
+   in bf16 and in f32, against one-process twins run alone on the card
+   before them: the logits (whole on every rank) and every cache block
+   (shaped as its ``CACHE_RULES`` block) within ``SERVE_TP_F32_RTOL`` of
+   the twin's largest in f32, within ``SERVE_TP_BF16_RATIO`` times the
+   bf16 twin's distance from the f32 twin's in bf16; the flash and SSD
+   launches a rank with the counts set to 0 just before the prefill
+   (moonshot 2, deepseek 2 at D = 192, hymba 4 + 4 SSD, bf16 kernels in
+   bf16, f32 kernels in f32);
+   then ``[dryrun]``: a child for each fake world (``--dryrun-world=``
+   ``pod``, 256 ranks, then ``multipod``, 512) runs
+   ``launch.dryrun.run_cell`` on four cells and prints flops, bytes,
+   collectives by axis and kind, the roofline terms and ``trace_s``;
 8. segmented min: ``segmin`` and ``arbitrate`` on the card over ten cases
    (tests/test_kernels.py's shapes; xsim's fused link + ejection id space
    at the 8x8, 16x16 and 32x32 grids with B = 4, 16 and 132 instances; the
@@ -487,7 +509,9 @@ DIST_TIMEOUT_S = 600
 DIST_REPS = 3
 DIST_COMPRESS_SHAPE = (100352, 2048)
 DIST_COMPRESS_BOUND = 0.05  # tests/dist_checks.py's bound on the relative error
-DIST_EP_LAYERS = 12
+# part=ep's moonshot depth: 6 layers, which leaves part=serve_tp and
+# [dryrun] room within the script's time limit
+DIST_EP_LAYERS = 6
 DIST_EP_B, DIST_EP_S = 4, 2000
 DIST_EP_RTOL = 2e-5  # the f32 layer against the dense path, x max |y|
 DIST_PIPE_M, DIST_PIPE_SEQ = 4, 4096
@@ -524,6 +548,35 @@ DIST_TP_STEPS, DIST_TP_F32_STEPS = 3, 2
 DIST_MOE_DP_LAYERS, DIST_MOE_DP_SEQ, DIST_MOE_DP_STEPS = 1, 2048, 2
 DIST_TP_SIGMAS, DIST_TP_F32_SLACK, DIST_TP_GRAD_RATIO = 6.0, 1e-5, 1.7
 DIST_CHILD_TIMEOUT_S = 900
+# serving on a mesh ([dist] part=serve_tp): four ranks on a (2, 2) ("data",
+# "model") mesh, each holding its tree_shardings blocks of the parameters
+# and its CACHE_RULES blocks of the caches, at full width: moonshot cut to
+# 2 of its 48 layers, deepseek to 1 + 1 and hymba to 4 of 32 (both window
+# kinds); B = 4 (2 a data rank), a SERVE_TP_PROMPT-token prompt and
+# SERVE_TP_STEPS teacher-forced decode steps, in bf16 and in f32, against
+# the one-process twins run alone on the card before the ranks. f32: the
+# logits (the real vocabulary) within SERVE_TP_F32_RTOL of the twin's
+# largest, every cache block within it of its leaf's largest. bf16: each
+# logit and cache leaf is x_f32 + U + R (U the roundings before the last,
+# R the last one's); the ranks round their row-parallel partials and sum
+# them in f32, which moves a subset of the roundings behind U (at most
+# sqrt(2) |U| apart to first order) and rounds its own R, so the ranks'
+# bf16 values lie within sqrt(2) |x_bf16 - x_f32| of the bf16 twin's; the
+# bound is SERVE_TP_BF16_RATIO = 2 times the bf16 twin's largest distance
+# from the f32 twin's, over all 17 logit rows (prefill and decode) and
+# over each leaf's block (the margin for MoE routing that the roundings
+# flip on either side)
+SERVE_TP_MESH = (2, 2)
+SERVE_TP_B, SERVE_TP_PROMPT, SERVE_TP_STEPS = 4, 2000, 16
+SERVE_TP_F32_RTOL, SERVE_TP_BF16_RATIO = 1e-5, 2.0
+SERVE_TP_TIMEOUT_S, SERVE_TP_CHILD_TIMEOUT_S = 600, 750
+# the dry run on the card's host ([dryrun]): rank 0 of each production
+# mesh under a fake process group, a child a world
+DRYRUN_CELLS = (("stablelm-1.6b", "train_4k"),
+                ("moonshot-v1-16b-a3b", "prefill_32k"),
+                ("deepseek-v2-236b", "decode_32k"),
+                ("hymba-1.5b", "long_500k"))
+DRYRUN_CHILD_TIMEOUT_S = 300
 
 
 def fail(msg: str) -> None:
@@ -1384,8 +1437,9 @@ def plain_path():
     import repro_torch.models.ssm as ssm
     from repro_torch.kernels.flash_attention import flash_attention_ref
 
-    def attn(q, k, v, *, causal, window=None, device):
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    def attn(q, k, v, *, causal, window=None, stream_bf16=False, device):
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   stream_bf16=stream_bf16)
 
     def scan(*args, device):
         return ssm.ssd_scan(*args, return_state=True)
@@ -4904,7 +4958,7 @@ def dist_child() -> None:
         backend=choose_backend(DIST_RANKS, "cuda"),
         cards=torch.cuda.device_count(),
         ep_arch=ep_cfg.name, ep_layers=f"{ep_cfg.n_layers}_of_48",
-        cut="moonshot_layers_48_to_12",
+        cut=f"moonshot_layers_48_to_{DIST_EP_LAYERS}",
         ep_bf16_gib_per_rank=f"{2 * per_rank / 2**30:.2f}",
         ep_bf16_gib_dense=f"{2 * n_ep / 2**30:.2f}",
         compress_gib_per_rank=f"{4 * math.prod(DIST_COMPRESS_SHAPE) / 2**30:.2f}",
@@ -4981,6 +5035,444 @@ def phase_dist_child(entries: list) -> None:
         bwd["launches"] += run["bwd"]
         route = bwd["launches_by_route"]
         route[run["bwd_route"]] = route.get(run["bwd_route"], 0) + run["bwd"]
+
+
+# ---------------------------------------------------------------------------
+# serving on a mesh: prefill and decode on each rank's blocks ([dist]
+# part=serve_tp), and the dry run's fake worlds ([dryrun])
+# ---------------------------------------------------------------------------
+def serve_tp_plan() -> dict:
+    """``part=serve_tp``'s configurations: full width, cut in depth."""
+    from repro_torch.configs import ARCHS
+
+    return {"models": {
+        "moonshot": cut_depth(ARCHS[MOE_ARCH], (("attn_moe", 2),)),
+        "deepseek": cut_depth(ARCHS[MLA_ARCH], (("mla_dense", 1),
+                                                 ("mla_moe", 1))),
+        "hymba": cut_depth(ARCHS["hymba-1.5b"], (("hymba_g", 1),
+                                                ("hymba_w", 2),
+                                                ("hymba_g", 1)))},
+        "dir": str(ROOT / "build" / "serve_tp")}
+
+
+def serve_tp_run(dtype: str):
+    """The run of ``dtype``: parameters, activations and KV cache in it."""
+    from repro_torch.models import RunConfig
+
+    return RunConfig(params_dtype=dtype, activations_dtype=dtype,
+                     kv_cache_dtype=dtype)
+
+
+def serve_tp_tokens(cfg):
+    """The prompt and the decode steps' tokens, seeded, on the host."""
+    import torch
+
+    g = torch.Generator().manual_seed(13)
+    return torch.randint(0, cfg.vocab, (SERVE_TP_B,
+                                        SERVE_TP_PROMPT + SERVE_TP_STEPS),
+                         generator=g)
+
+
+def serve_tp_serve(params, cfg, run, toks, dev):
+    """A prefill of the prompt and the teacher-forced decode steps:
+    ``(logits of each on the host, caches, prefill ms, decode ms a
+    step)``."""
+    import torch
+
+    from repro_torch.models import decode_step, prefill
+
+    seq, P = toks.to(dev), SERVE_TP_PROMPT
+    timed_here = timed if dev.type == "cuda" else timed_host
+    (logits, caches), pre_ms = timed_here(lambda: prefill(
+        params, {"tokens": seq[:, :P]}, cfg, run,
+        cache_len=P + SERVE_TP_STEPS))
+    out, dec_ms = [logits.float().cpu()], 0.0
+    for i in range(SERVE_TP_STEPS):
+        (logits, caches), ms = timed_here(lambda: decode_step(
+            params, caches, {"tokens": seq[:, P + i:P + i + 1],
+                             "pos": P + i}, cfg, run))
+        out.append(logits.float().cpu())
+        dec_ms += ms
+    return torch.stack(out), caches, pre_ms, dec_ms / SERVE_TP_STEPS
+
+
+def timed_host(fn):
+    """``fn()`` and its wall time in ms (the ranks' CPU rehearsal)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def serve_tp_flat(caches) -> dict:
+    from repro_torch.models.layers import tree_flatten
+
+    return {f"{g}/{i}/{path}": t for g, layers in caches.items()
+            for i, layer in enumerate(layers)
+            for path, t in tree_flatten(layer)}
+
+
+def serve_tp_stream() -> None:
+    """``[dist] part=stream_bf16``: the two stream options on the card, each
+    wrapper on f32 inputs at hymba's shapes (a global layer's attention,
+    its SSD scan) against the plain version with the same option on the
+    same inputs, the counts set to 0 just before: the bf16 kernels must
+    run (``wgmma_bf16``, ``mma_bf16``), within the bf16 kernels' own
+    tolerances (``ATTN_ATOL``/``ATTN_ROW_RTOL``, ``SSD_ATOL``)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (
+        KERNEL as FLASH_KERNEL, flash_attention, flash_attention_ref,
+    )
+    from repro_torch.kernels.ssd import KERNEL as SSD_KERNEL, ssd_scan_kernel
+    from repro_torch.models.ssm import ssd_scan
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    g = torch.Generator(device=dev).manual_seed(17)
+    rand = lambda *shape: torch.randn(shape, device=dev, generator=g)  # noqa
+    B, S = 4, SERVE_TP_PROMPT
+    q, k, v = rand(B, S, 25, 64), rand(B, S, 5, 64), rand(B, S, 5, 64)
+    reset_flash_counts()
+    got = flash_attention(q, k, v, stream_bf16=True, device=dev)
+    launches = dict(FLASH_KERNEL.variant_launches)
+    want = flash_attention_ref(q, k, v, stream_bf16=True)
+    err = float((got - want).abs().max())
+    rows = float(((got - want).norm(dim=-1) / want.norm(dim=-1)).max())
+    bf16 = "torch.bfloat16"
+    say("dist", part="stream_bf16", kernel="flash_attention",
+        shape=tuple(q.shape), kv=tuple(k.shape), out_dtype=got.dtype,
+        launches=",".join(f"{a}:{n}" for a, n in launches.items()),
+        max_abs_err=f"{err:.3e}", atol=ATTN_ATOL[bf16],
+        max_row_rel_err=f"{rows:.3e}", row_rtol=ATTN_ROW_RTOL[bf16])
+    if (launches != {"wgmma_bf16": 1, "cuda_core_f32": 0}
+            or not err <= ATTN_ATOL[bf16] or not rows <= ATTN_ROW_RTOL[bf16]):
+        fail(f"attn_stream_bf16 on the card: {launches}, {err}, {rows}")
+    H, P, N, L = 50, 64, 16, 256
+    x, Bm, Cm = rand(B, S, H, P), rand(B, S, 1, N), rand(B, S, 1, N)
+    dt = torch.rand((B, S, H), device=dev, generator=g) * 0.1
+    A = -torch.linspace(1.0, 16.0, H, device=dev)
+    SSD_KERNEL.variant_launches = dict.fromkeys(SSD_KERNEL.variant_launches,
+                                                0)
+    # ssd_block_apply's stream option: x, B and C in bf16 to the kernel
+    y, h = ssd_scan_kernel(x.bfloat16(), dt, A, Bm.bfloat16(),
+                           Cm.bfloat16(), L, device=dev)
+    launches = dict(SSD_KERNEL.variant_launches)
+    y_w, h_w = ssd_scan(x, dt, A, Bm, Cm, L, return_state=True,
+                        stream_bf16=True)
+    err = max(float((y - y_w).abs().max()), float((h - h_w).abs().max()))
+    say("dist", part="stream_bf16", kernel="ssd_intra_chunk",
+        x=tuple(x.shape), chunk=L,
+        launches=",".join(f"{a}:{n}" for a, n in launches.items()),
+        max_abs_err_y_state=f"{err:.3e}", atol=SSD_ATOL[bf16],
+        plain_rms=f"{float(y_w.square().mean().sqrt()):.4f}")
+    if (launches != {"mma_bf16": 1, "cuda_core_f32": 0}
+            or not err <= SSD_ATOL[bf16]):
+        fail(f"ssd_stream_bf16 on the card: {launches}, {err}")
+
+
+def serve_tp_twins(plan, device_type: str = "cuda") -> dict:
+    """The one-process runs, alone on the card: their logits and caches
+    saved on the host for the ranks; their times."""
+    import torch
+
+    from repro_torch.models import model_init
+
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device_type == "cuda" else torch.device("cpu"))
+    Path(plan["dir"]).mkdir(parents=True, exist_ok=True)
+    out = {}
+    for tag, cfg in plan["models"].items():
+        toks = serve_tp_tokens(cfg)
+        for dt in ("bfloat16", "float32"):
+            run = serve_tp_run(dt)
+            params, _ = model_init(0, cfg, run, device=dev)
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            logits, caches, pre_ms, dec_ms = serve_tp_serve(
+                params, cfg, run, toks, dev)
+            torch.save({"logits": logits[..., :cfg.vocab],
+                        "caches": {k: t.cpu() for k, t in
+                                   serve_tp_flat(caches).items()}},
+                       Path(plan["dir"]) / f"{tag}_{dt}.pt")
+            out[f"{tag}/{dt}"] = {
+                "prefill_ms": pre_ms, "decode_ms": dec_ms,
+                "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                             if dev.type == "cuda" else 0.0)}
+            del params, caches
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    return out
+
+
+def serve_tp_against(plan, tag: str, dt: str, logits, caches, cfg, run,
+                     mesh, coords) -> dict:
+    """A rank's logits and cache blocks against the twins' (module
+    constants' rules): the worst ratio to its bound, logits and caches."""
+    import torch
+
+    from repro_torch.dist.sharding import (CACHE_RULES, shard_slices,
+                                           spec_for_shape)
+    from repro_torch.models.layers import tree_flatten
+    from repro_torch.models.model import cache_axes
+
+    load = lambda d: torch.load(Path(plan["dir"]) / f"{tag}_{d}.pt")  # noqa
+    twin, f32 = load(dt), (load("float32") if dt == "bfloat16" else None)
+    axes = {f"{g}/{path}": ax[1:] for g, tree in cache_axes(cfg, run).items()
+            for path, ax in tree_flatten(tree)}
+
+    def ratio(got, want, want32):
+        err = float((got.float() - want.float()).abs().max())
+        if want32 is None:  # f32: within the rtol of the largest
+            bound = SERVE_TP_F32_RTOL * float(want.float().abs().max())
+        else:
+            bound = SERVE_TP_BF16_RATIO * float(
+                (want.float() - want32.float()).abs().max())
+        return err, bound, (err / bound if bound else float(err > 0) * 1e9)
+
+    l_err, l_bound, l_ratio = ratio(logits[..., :cfg.vocab], twin["logits"],
+                                    f32["logits"] if f32 else None)
+    worst, shapes_ok, mine = (0.0, ""), True, serve_tp_flat(caches)
+    for path, w in twin["caches"].items():
+        g, _, leaf = path.split("/", 2)
+        spec = spec_for_shape(axes[f"{g}/{leaf}"], w.shape, mesh,
+                              CACHE_RULES)
+        sl = shard_slices(spec, w.shape, mesh, coords)
+        got = mine[path].cpu()
+        shapes_ok &= tuple(got.shape) == tuple(w[sl].shape)
+        r = ratio(got, w[sl], f32["caches"][path][sl] if f32 else None)[2]
+        worst = max(worst, (r, path))
+    return {"logit_err": l_err, "logit_bound": l_bound,
+            "logit_ratio": l_ratio, "cache_ratio": worst[0],
+            "cache_worst_leaf": worst[1], "cache_shapes_ok": shapes_ok}
+
+
+def serve_tp_rank(rank: int, plan: dict, device_type: str = "cuda") -> dict:
+    """One rank of ``part=serve_tp``: for each configuration and dtype its
+    blocks of the seeded parameters (the ranks draw the whole tree one at
+    a time and keep their blocks), then the prefill and decode steps on
+    its blocks under ``shardctx.set_ctx(mesh, blocks=True)``, the flash
+    and SSD counts set to 0 just before and read just after."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import (mesh_coords, shard_slices,
+                                           tree_shardings)
+    from repro_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
+    from repro_torch.kernels.ssd import KERNEL as SSD_KERNEL
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model_init
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.shardctx import clear_ctx, set_ctx
+
+    on_card = device_type == "cuda"
+    dev = (torch.device("cuda", torch.cuda.current_device()) if on_card
+           else torch.device("cpu"))
+    mesh = make_mesh(SERVE_TP_MESH, ("data", "model"), device_type)
+    coords = mesh_coords(mesh)
+    out = {"coords": coords}
+    for tag, cfg in plan["models"].items():
+        toks = serve_tp_tokens(cfg)
+        for dt in ("bfloat16", "float32"):
+            run = serve_tp_run(dt)
+            # one rank at a time draws the whole tree on the card and keeps
+            # its blocks on the host until every rank has drawn: the card
+            # holds one whole tree (deepseek's f32 is 20 GiB) at a time
+            mine = None
+            free_before = torch.cuda.mem_get_info()[0] if on_card else 0
+            for turn in range(DIST_RANKS):
+                dist.barrier()
+                if turn == rank:
+                    whole, specs = model_init(0, cfg, run, device=dev)
+                    mine = tree_map(
+                        lambda t, sp: t[shard_slices(sp, t.shape, mesh,
+                                                     coords)].cpu(),
+                        whole, tree_shardings(specs, whole, mesh))
+                    del whole
+                    if on_card:
+                        torch.cuda.empty_cache()
+            dist.barrier()
+            mine = tree_map(lambda t: t.to(dev), mine)
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            reset_flash_counts()
+            SSD_KERNEL.launches = 0
+            SSD_KERNEL.variant_launches = dict.fromkeys(
+                SSD_KERNEL.variant_launches, 0)
+            set_ctx(mesh, blocks=True)
+            try:
+                logits, caches, pre_ms, dec_ms = serve_tp_serve(
+                    mine, cfg, run, toks, dev)
+            finally:
+                clear_ctx()
+            res = {"flash": dict(FLASH_KERNEL.variant_launches),
+                   "flash_by_dim": {str(d): n for d, n in
+                                    FLASH_KERNEL.head_dim_launches.items()
+                                    if n},
+                   "ssd": dict(SSD_KERNEL.variant_launches),
+                   "prefill_ms": pre_ms, "decode_ms": dec_ms,
+                   "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                                if on_card else 0.0),
+                   "card_free_gib_before_draws": free_before / 2**30,
+                   "param_bytes": sum(t.numel() * t.element_size() for t in
+                                      tree_leaves(mine))}
+            res.update(serve_tp_against(plan, tag, dt, logits, caches, cfg,
+                                        run, mesh, coords))
+            out[f"{tag}/{dt}"] = res
+            del mine, caches
+            if on_card:
+                torch.cuda.empty_cache()
+    return out
+
+
+def serve_tp_child() -> None:
+    """``--serve-tp``: the one-process twins, then ``DIST_RANKS`` ranks
+    sharing the card over gloo; prints ``[dist] part=serve_tp`` lines and
+    one JSON line (the launches for the kernels line)."""
+    import shutil
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
+    from repro_torch.kernels.ssd import KERNEL as SSD_KERNEL
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import count_params, model_init
+
+    plan = serve_tp_plan()
+    FLASH_KERNEL.build()  # the ranks load the libraries built here
+    SSD_KERNEL.build()
+    serve_tp_stream()
+    t0 = time.perf_counter()
+    twins = serve_tp_twins(plan)
+    t1 = time.perf_counter()
+    out = ROOT / "build" / "serve_tp_ranks"
+    try:
+        ranks = spawn_ranks(serve_tp_rank, DIST_RANKS, (plan,), out_dir=out,
+                            device_type="cuda", timeout_s=SERVE_TP_TIMEOUT_S)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+        shutil.rmtree(plan["dir"], ignore_errors=True)
+    t2 = time.perf_counter()
+    totals = {"flash": {}, "flash_by_dim": {}, "ssd": {}}
+    for tag, cfg in plan["models"].items():
+        n_attn = sum(c for k, c in cfg.layout if k != "ssd")
+        n_ssd = sum(c for k, c in cfg.layout if k.startswith("hymba")
+                    or k == "ssd")
+        params = count_params(model_init(0, cfg, serve_tp_run("float32"),
+                                         device="meta")[0])
+        for dt in ("bfloat16", "float32"):
+            variant = "wgmma_bf16" if dt == "bfloat16" else "cuda_core_f32"
+            ssd_variant = "mma_bf16" if dt == "bfloat16" else "cuda_core_f32"
+            twin = twins[f"{tag}/{dt}"]
+            for r, rank in enumerate(ranks):
+                res = rank[f"{tag}/{dt}"]
+                say("dist", part="serve_tp", arch=cfg.name,
+                    layers=cfg.n_layers, dtype=dt, rank=r,
+                    coords=",".join(f"{a}{c}" for a, c in
+                                    rank["coords"].items()),
+                    params_whole=params, param_bytes=res["param_bytes"],
+                    batch=SERVE_TP_B, prompt=SERVE_TP_PROMPT,
+                    decode_steps=SERVE_TP_STEPS,
+                    logit_err=f"{res['logit_err']:.3e}",
+                    logit_bound=f"{res['logit_bound']:.3e}",
+                    logit_ratio=f"{res['logit_ratio']:.3f}",
+                    cache_ratio=f"{res['cache_ratio']:.3f}",
+                    cache_worst_leaf=res["cache_worst_leaf"],
+                    cache_blocks_shapes_equal=res["cache_shapes_ok"],
+                    flash=",".join(f"{k}:{v}" for k, v in
+                                   res["flash"].items()),
+                    head_dims=",".join(f"{k}:{v}" for k, v in
+                                       res["flash_by_dim"].items()),
+                    ssd=",".join(f"{k}:{v}" for k, v in res["ssd"].items()),
+                    prefill_ms=f"{res['prefill_ms']:.1f}",
+                    decode_ms_per_step=f"{res['decode_ms']:.1f}",
+                    peak_gib=f"{res['peak_gib']:.2f}",
+                    card_free_gib_before_draws=(
+                        f"{res['card_free_gib_before_draws']:.2f}"),
+                    twin_prefill_ms=f"{twin['prefill_ms']:.1f}",
+                    twin_decode_ms_per_step=f"{twin['decode_ms']:.1f}",
+                    twin_peak_gib=f"{twin['peak_gib']:.2f}")
+                if not res["cache_shapes_ok"]:
+                    fail(f"serve_tp {tag} {dt} rank {r}: a cache block's "
+                         "shape is not its CACHE_RULES block's")
+                if res["logit_ratio"] > 1 or res["cache_ratio"] > 1:
+                    fail(f"serve_tp {tag} {dt} rank {r}: logits at "
+                         f"{res['logit_ratio']:.3f} and caches at "
+                         f"{res['cache_ratio']:.3f} of their bounds")
+                if (res["flash"][variant] != n_attn
+                        or sum(res["flash"].values()) != n_attn
+                        or res["ssd"][ssd_variant] != n_ssd
+                        or sum(res["ssd"].values()) != n_ssd):
+                    fail(f"serve_tp {tag} {dt} rank {r}: flash "
+                         f"{res['flash']} (want {variant}:{n_attn}), SSD "
+                         f"{res['ssd']} (want {ssd_variant}:{n_ssd})")
+                for kind in ("flash", "flash_by_dim", "ssd"):
+                    for k, v in res[kind].items():
+                        totals[kind][k] = totals[kind].get(k, 0) + v
+    say("dist", part="serve_tp_walls", twins_s=f"{t1 - t0:.1f}",
+        ranks_s=f"{t2 - t1:.1f}")
+    print(json.dumps(totals), flush=True)
+
+
+def phase_serve_tp_child(entries: list) -> None:
+    """The ``--serve-tp`` child; its flash and SSD launches join the
+    kernels line's entries."""
+    res = run_child("--serve-tp", SERVE_TP_CHILD_TIMEOUT_S)
+    flash = next(e for e in entries if e["name"] == "flash_attention")
+    ssd = next(e for e in entries if e["name"] == "ssd_intra_chunk")
+    for d, n in res["flash_by_dim"].items():
+        by_dim = flash["launches_by_head_dim"]
+        by_dim[d] = by_dim.get(d, 0) + n
+    flash["launches"] += sum(res["flash"].values())
+    ssd["launches"] += sum(res["ssd"].values())
+
+
+def dryrun_world(world: str) -> None:
+    """``--dryrun-world pod|multipod``: rank 0 of the production mesh under
+    a fake process group (``launch.dryrun.run_cell``), ``DRYRUN_CELLS``;
+    prints ``[dryrun]`` lines and one JSON line."""
+    from repro_torch.launch.dryrun import run_cell
+
+    out = {}
+    for arch, shape in DRYRUN_CELLS:
+        res = run_cell(arch, shape, world)
+        coll = res["collectives_per_chip"]
+        by_axis: dict = {}
+        for kind, axes in coll.items():
+            if kind != "total":
+                for a, b in axes.items():
+                    by_axis[a] = by_axis.get(a, 0.0) + b
+        r, mem = res["roofline"], res["memory"]
+        say("dryrun", world=world, ranks=res["n_chips"], arch=arch,
+            shape=shape, kind=res["kind"], trace_s=res["trace_s"],
+            flops_per_chip=f"{res['flops_per_chip']:.6g}",
+            bytes_per_chip=f"{res['bytes_per_chip']:.6g}",
+            collective_bytes=f"{coll['total']:.6g}",
+            by_axis=",".join(f"{a}:{b:.4g}" for a, b in by_axis.items()),
+            by_kind=",".join(f"{k}:{sum(v.values()):.4g}"
+                             for k, v in coll.items() if k != "total"),
+            compute_s=f"{r['compute_s']:.4g}",
+            memory_s=f"{r['memory_s']:.4g}",
+            collective_s=f"{r['collective_s']:.4g}",
+            dominant=r["dominant"],
+            pod_collective_bytes=f"{r['pod_collective_bytes']:.4g}",
+            useful_flops_ratio=f"{res['useful_flops_ratio']:.4f}",
+            argument_bytes=mem["argument_size_in_bytes"],
+            output_bytes=mem["output_size_in_bytes"],
+            alias_bytes=mem["alias_size_in_bytes"],
+            peak_live_bytes=mem["peak_live_bytes_beyond_arguments"])
+        if not (res["flops_per_chip"] > 0 and coll["total"] > 0
+                and 0 < res["useful_flops_ratio"] <= 1):
+            fail(f"dryrun {world} {arch} {shape}: {res}")
+        out[f"{arch}/{shape}"] = res["trace_s"]
+    print(json.dumps(out), flush=True)
+
+
+def phase_dryrun() -> None:
+    """``[dryrun]``: a child a fake world, the pod's 256 ranks, then the
+    multi-pod mesh's 512."""
+    for world in ("pod", "multipod"):
+        t0 = time.perf_counter()
+        run_child(f"--dryrun-world={world}", DRYRUN_CHILD_TIMEOUT_S)
+        say("dryrun", world=world, child_wall_s=f"{time.perf_counter() - t0:.1f}")
 
 
 # ---------------------------------------------------------------------------
@@ -6223,6 +6715,12 @@ def main() -> None:
     if sys.argv[1:] == ["--dist"]:
         dist_child()
         return
+    if sys.argv[1:] == ["--serve-tp"]:
+        serve_tp_child()
+        return
+    if sys.argv[1:2] and sys.argv[1].startswith("--dryrun-world="):
+        dryrun_world(sys.argv[1].split("=", 1)[1])
+        return
     if sys.argv[1:] == ["--segmin-kernel-alone"]:
         segmin_kernel_alone()
         return
@@ -6500,6 +6998,12 @@ def main() -> None:
     # ---- 7f. dist: four ranks, DPM executors, compress, EP, pipeline,
     # ZeRO-1, elastic restore, tensor parallelism, MoE over data ranks ----
     walled("dist", phase_dist_child, serve_entries)
+
+    # ---- 7g. serving on a (2, 2) mesh: four ranks' blocks, CACHE_RULES --
+    walled("serve_tp", phase_serve_tp_child, serve_entries)
+
+    # ---- 7h. the dry run: rank 0 of each production mesh, fake group ----
+    walled("dryrun", phase_dryrun)
 
     # ---- 8. the segmented-min kernel through segmin / arbitrate ----------
     segmin_entries = walled("segmin", phase_segmin)

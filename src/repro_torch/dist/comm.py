@@ -11,12 +11,16 @@ is gloo and a payload lies on a card, it is staged through host memory:
 gloo moves only host tensors for these operations. The rule is read from
 the group (``staged``), never found by trying.
 
-Training on a mesh adds ``TensorParallel``: this rank's view of the
-``model`` axis and of the data axes that split the batch's rows, with the
-autograd Functions of tensor parallelism (``EnterModel``, ``LeaveModel``,
-``GatherModel``, ``LeaveReplicated``) and ``SumOverRanks``. They stage
-through the host as the rest do: they use ``all_reduce`` and
-``all_gather``, not DTensor.
+Training and serving on a mesh add ``TensorParallel``: this rank's view
+of the ``model`` axis and of the data axes that split the batch's rows,
+with the autograd Functions of tensor parallelism (``EnterModel``,
+``LeaveModel``, ``GatherModel``, ``LeaveReplicated``) and
+``SumOverRanks``, and for serving the caches' blocks over ``model``
+(``cat``, ``seq_block``, ``seq_span``) and the log-sum-exp merge of
+partial attention (``merge_softmax``). They stage through the host as the
+rest do: they use ``all_reduce`` and ``all_gather``, not DTensor. Under
+the ``fake`` backend of the dry run (``launch.dryrun``) nothing is staged:
+that group is not gloo.
 """
 from __future__ import annotations
 
@@ -140,6 +144,21 @@ def all_reduce_max(ax: Axis, t: torch.Tensor) -> torch.Tensor:
     else:
         dist.all_reduce(out, op=dist.ReduceOp.MAX, group=ax.group)
     return out
+
+
+def merge_softmax(ax: Axis, acc: torch.Tensor, mx: torch.Tensor,
+                  total: torch.Tensor) -> torch.Tensor:
+    """Softmax-weighted sums over keys split across the axis, from each
+    rank's part: ``mx`` its row maxima of the scores (``-1e30`` where it
+    holds no visible key), ``total`` its sums of ``exp(s - mx)`` and
+    ``acc`` (``total``'s shape plus one dim) its sums of ``exp(s - mx) v``.
+    The log-sum-exp merge: the maximum over the ranks, then one sum of the
+    parts rescaled to it; f32 in, f32 out."""
+    top = all_reduce_max(ax, mx)
+    w = torch.exp(mx - top)
+    both = all_reduce_sum(ax, torch.cat([acc * w[..., None],
+                                         (total * w)[..., None]], -1))
+    return both[..., :-1] / both[..., -1:]
 
 
 def gather_shards(mesh, t: torch.Tensor, spec: tuple) -> torch.Tensor:
@@ -429,6 +448,45 @@ class TensorParallel:
         """The elementwise maximum over the model ranks (no gradient)."""
         t = t.detach()
         return t if self.model is None else all_reduce_max(self.model, t)
+
+    # ----------------------------------------------------- serving caches
+    def cat(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The model ranks' blocks of ``t`` concatenated along ``dim`` in
+        coordinate order (no gradient; serving)."""
+        if self.model is None:
+            return t
+        return torch.cat(all_gather(self.model, t).unbind(0), dim=dim)
+
+    def seq_block(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a cache's sequence (dim 1), which
+        ``dist.sharding.CACHE_RULES`` splits over ``model``. The port keeps
+        every cache's sequence split on a ``model`` axis, so that a rank
+        reads its block's place from its length (``seq_span``): a length
+        the axis does not divide raises."""
+        if self.model is None:
+            return t
+        S = t.shape[1]
+        if S % self.m:
+            raise ValueError(
+                f"a cache of {S} positions does not split over the "
+                f"{self.m} ranks of 'model' (CACHE_RULES' seq); serving on "
+                "a mesh needs cache lengths that the model axis divides")
+        w = S // self.m
+        return t[:, self.me * w:(self.me + 1) * w]
+
+    def seq_span(self, local: int) -> tuple[int, int]:
+        """``(first position, whole length)`` of this rank's cache block of
+        ``local`` positions (``seq_block``'s layout)."""
+        if self.model is None:
+            return 0, local
+        return self.me * local, self.m * local
+
+    def merge_softmax(self, acc, mx, total) -> torch.Tensor:
+        """``dist.comm.merge_softmax`` over the model ranks (each holding a
+        block of the keys)."""
+        if self.model is None:
+            return acc / total[..., None]
+        return merge_softmax(self.model, acc, mx, total)
 
     # ------------------------------------------------------------- rows
     def rows_sum(self, t: torch.Tensor) -> torch.Tensor:

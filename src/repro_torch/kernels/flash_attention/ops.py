@@ -13,7 +13,12 @@ them: on the card the forward kernel with its LSE output and the backward
 kernel, on the CPU ``ref.flash_attention_ref`` and
 ``ref.flash_attention_bwd_ref``. CUDA tensors launch the kernels or raise
 (a head dim the backward kernel does not take raises before the forward
-runs); nothing falls back.
+runs); nothing falls back. ``stream_bf16`` (``RunConfig.attn_stream_bf16``)
+streams the operands in bf16: on the card q, k and v are cast to bf16 and
+the bf16 kernels run (the output cast back to q's type, the gradients
+back through the cast), on the CPU the plain versions round the products'
+operands to bf16 (``ref.py``). On ``meta`` tensors (the dry run,
+``launch.dryrun``) the plain versions give the shapes and nothing runs.
 """
 from __future__ import annotations
 
@@ -31,10 +36,13 @@ class FlashAttention(torch.autograd.Function):
     log-sum-exp, as the reference's ``_flash_bwd_rule`` does."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, q_offset):
+    def forward(ctx, q, k, v, causal, window, q_offset, stream_bf16=False):
         kw = dict(causal=causal, window=window, q_offset=q_offset)
-        fwd = flash_attention_cuda if q.is_cuda else flash_attention_ref
-        out, lse = fwd(q, k, v, return_lse=True, **kw)
+        if q.is_cuda:
+            out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        else:  # the plain version: the CPU, or meta tensors' shapes
+            kw["stream_bf16"] = stream_bf16
+            out, lse = flash_attention_ref(q, k, v, return_lse=True, **kw)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = kw
         return out
@@ -44,7 +52,7 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         bwd = flash_attention_bwd_cuda if q.is_cuda else flash_attention_bwd_ref
         dq, dk, dv = bwd(q, k, v, out, lse, dout, **ctx.kw)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(
@@ -55,18 +63,25 @@ def flash_attention(
     causal: bool = True,
     window: int | None = None,
     q_offset: int = 0,
+    stream_bf16: bool = False,
     device: torch.device | str = "cuda",
 ) -> torch.Tensor:
     dev = resolve_device(device)
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"no attention engine for device {dev}")
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     if grad and dev.type == "cuda":
         check_backward(q)
+    out_dtype = q.dtype
     q, k, v = (t.to(dev) for t in (q, k, v))
+    if stream_bf16 and dev.type == "cuda":
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     if grad:
-        return FlashAttention.apply(q, k, v, causal, window, q_offset)
-    if dev.type == "cuda":
-        return flash_attention_cuda(q, k, v, **kw)
-    return flash_attention_ref(q, k, v, **kw)
+        out = FlashAttention.apply(q, k, v, causal, window, q_offset,
+                                   stream_bf16)
+    elif dev.type == "cuda":
+        out = flash_attention_cuda(q, k, v, **kw)
+    else:
+        out = flash_attention_ref(q, k, v, stream_bf16=stream_bf16, **kw)
+    return out.to(out_dtype)

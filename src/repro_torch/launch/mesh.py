@@ -90,14 +90,16 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...],
     return mesh
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
     """16x16 = 256 ranks a pod; 2 pods for the multi-pod layout.
 
     Axes: "pod" (outer data-parallel), "data" (DP within pod), "model"
-    (TP/EP within pod). Raises without a process group of that size."""
+    (TP/EP within pod). Raises without a process group of that size (the
+    dry run's is a ``fake`` one, with ``device_type="cpu"``)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes)
+    return make_mesh(shape, axes, device_type)
 
 
 def _rank_main(rank: int, world_size: int, init_method: str,

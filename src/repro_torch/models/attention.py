@@ -31,6 +31,19 @@ place. A GQA cache is bf16 (or the run's ``kv_cache_dtype``) or int8 with
 one f32 scale per token and head; MLA caches the compressed latent
 (``ckv``, ``krope``), bf16 under int8, and decodes with the absorbed
 matmuls.
+
+Serving on a mesh (``shardctx.serving_on``) lays the caches out as
+``dist.sharding.CACHE_RULES`` does: every head, and this rank's block of
+the sequence over ``model`` (``TensorParallel.seq_block``). The prefill
+attends on the rank's heads as training does and returns k/v of every
+head (the ranks' heads gathered, or the whole k/v a head split already
+gathered; MLA's latent is whole on every rank), which ``models.blocks``
+cuts to the rank's block. A decode step projects with the rank's blocks,
+gathers q (MLA: the absorbed query) of every head, attends over its own
+block of the cache and merges the ranks' parts (``merge_softmax``); only
+the rank whose block holds the new token's slot writes it. The
+``attn_stream_bf16`` option streams the prefill's and training's
+attention in bf16 (``kernels.flash_attention.ops``).
 """
 from __future__ import annotations
 
@@ -66,6 +79,31 @@ def decode_attention(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", p, v.float())
     return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def _softmax_parts(s: torch.Tensor, valid: torch.Tensor, vals, spec: str):
+    """This rank's part of a softmax-weighted sum over its keys (the last
+    dim of the scores ``s``, ``valid`` broadcast to them): ``(acc, row
+    max, row total)`` for ``TensorParallel.merge_softmax``; ``spec`` is
+    the einsum of the weights with ``vals``."""
+    s = torch.where(valid, s, NEG_INF)
+    mx = s.amax(-1)
+    e = torch.where(valid, torch.exp(s - mx[..., None]), 0.0)
+    return torch.einsum(spec, e, vals), mx, e.sum(-1)
+
+
+def _decode_attention_tp(tp, q, k, v, valid) -> torch.Tensor:
+    """``decode_attention`` with the keys split over the model ranks: this
+    rank's block of the cache, all heads, the parts merged."""
+    B, _, H, D = q.shape
+    KH = k.shape[2]
+    if tp.model is None:
+        return decode_attention(q, k, v, valid)
+    qf = q.reshape(B, KH, H // KH, D).float() * D**-0.5
+    s = torch.einsum("bhgd,bshd->bhgs", qf, k.float())
+    valid = (valid[None, :] if valid.dim() == 1 else valid)[:, None, None]
+    parts = _softmax_parts(s, valid, v.float(), "bhgs,bshd->bhgd")
+    return tp.merge_softmax(*parts).reshape(B, 1, H, D).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -141,9 +179,6 @@ def gqa_apply(
     H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KH
     tp = tensor_parallel().over(H * Dh)
-    if return_kv and tp.m > 1:
-        raise NotImplementedError("gqa_apply: return_kv under tensor "
-                                  "parallelism (serving) is not ported")
     xe = tp.enter(x)
     if H % tp.m == 0 and KH % tp.m == 0:
         # whole heads on every rank, its q heads the groups of its kv heads
@@ -152,8 +187,11 @@ def gqa_apply(
         v = dense_apply(p["wv"], xe).reshape(B, S, KH // tp.m, Dh)
         q, k = _rope_q_k(q, k, positions, cfg)
         out = flash_attention(q, k, v, causal=True, window=window,
+                              stream_bf16=run.attn_stream_bf16,
                               device=x.device)
         out = out.reshape(B, S, -1)
+        if return_kv:  # the cache holds every head: the ranks' gathered
+            k, v = tp.cat(k, 2), tp.cat(v, 2)
     else:
         # a head split: the rank's columns are not whole heads, or its q
         # heads are not the groups of its kv heads. Each rank gathers the
@@ -166,9 +204,13 @@ def gqa_apply(
         q = tp_project(tp, p["wq"], xe, H * Dh).reshape(B, S, H, Dh)
         k = tp_project(tp, p["wk"], xe, KH * Dh).reshape(B, S, KH, Dh)
         v = tp_project(tp, p["wv"], xe, KH * Dh).reshape(B, S, KH, Dh)
-        q, k = _rope_q_k(q[:, :, h0:h1], k[:, :, g0:g1], positions, cfg)
-        out = flash_attention(q, k, v[:, :, g0:g1].contiguous(), causal=True,
-                              window=window, device=x.device)
+        # k roped whole: its span attends, all of it goes to a cache
+        q, k = _rope_q_k(q[:, :, h0:h1], k, positions, cfg)
+        out = flash_attention(q, k[:, :, g0:g1].contiguous(),
+                              v[:, :, g0:g1].contiguous(), causal=True,
+                              window=window,
+                              stream_bf16=run.attn_stream_bf16,
+                              device=x.device)
         out = out.reshape(B, S, -1)[..., lo - h0 * Dh:hi - h0 * Dh]
     y = row_parallel(tp, p["wo"], out)
     if return_kv:
@@ -216,36 +258,45 @@ def gqa_decode(
     window: int | None = None,
 ):
     """One decode step; writes the new K/V into ``cache`` in place and
-    returns ``(out, cache)``."""
+    returns ``(out, cache)``. On a mesh ``cache`` is this rank's block of
+    the sequence (module docstring)."""
     B = x.shape[0]
     H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    S = cache["k"].shape[1]
-    q = dense_apply(p["wq"], x).reshape(B, 1, H, Dh)
-    k = dense_apply(p["wk"], x).reshape(B, 1, KH, Dh)
-    v = dense_apply(p["wv"], x).reshape(B, 1, KH, Dh)
+    tp = tensor_parallel()
+    tw = tp.over(H * Dh)
+    xe = tw.enter(x)
+    q = tp_project(tw, p["wq"], xe, H * Dh).reshape(B, 1, H, Dh)
+    k = tp_project(tw, p["wk"], xe, KH * Dh).reshape(B, 1, KH, Dh)
+    v = tp_project(tw, p["wv"], xe, KH * Dh).reshape(B, 1, KH, Dh)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k = _rope_q_k(q, k, positions, cfg)
+    first, S = tp.seq_span(cache["k"].shape[1])
     slot = pos % S if window else pos
+    i = slot - first  # the slot in this rank's block, if it holds it
+    mine = 0 <= i < cache["k"].shape[1]
     if run.kv_cache_dtype == "int8":
         for name, t in (("k", k), ("v", v)):
             qv, sc = quantize_kv(t)
-            cache[name][:, slot] = qv[:, 0]
-            cache[f"{name}_scale"][:, slot] = sc[:, 0]
+            if mine:
+                cache[name][:, i] = qv[:, 0]
+                cache[f"{name}_scale"][:, i] = sc[:, 0]
         kk = dequantize_kv(cache["k"], cache["k_scale"], x.dtype)
         vv = dequantize_kv(cache["v"], cache["v_scale"], x.dtype)
     else:
-        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+        if mine:
+            cache["k"][:, i] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][:, i] = v[:, 0].to(cache["v"].dtype)
         kk, vv = cache["k"], cache["v"]
-    idx = torch.arange(S, device=x.device)
+    idx = first + torch.arange(cache["k"].shape[1], device=x.device)
     if window:
         # ring cache: every slot is valid once the cache has wrapped. RoPE
         # used absolute positions, so slot order does not matter for scores.
         valid = (idx <= slot) | (pos >= S)
     else:
         valid = idx <= pos
-    out = decode_attention(q, kk, vv, valid)
-    out = dense_apply(p["wo"], out.reshape(B, 1, H * Dh))
+    out = _decode_attention_tp(tp, q, kk, vv, valid)
+    lo, hi = tw.block(H * Dh)
+    out = row_parallel(tw, p["wo"], out.reshape(B, 1, H * Dh)[..., lo:hi])
     return out, cache
 
 
@@ -287,15 +338,13 @@ def mla_apply(
     """Full (naive) MLA for prefill and training, on this rank's heads:
     the latents and the shared rope key are computed whole (their leaves
     are replicated), the up-projections and ``wo`` split by heads. With
-    ``return_kv``, also the latent and the rope key to cache."""
+    ``return_kv``, also the latent and the rope key to cache (whole on
+    every rank)."""
     m: MLAConfig = cfg.mla
     B, S, _ = x.shape
     H, nope, rope, dv = (cfg.n_heads, m.qk_nope_head_dim, m.qk_rope_head_dim,
                          m.v_head_dim)
     tp = tensor_parallel().over(H * (nope + rope), H * (nope + dv), H * dv)
-    if return_kv and tp.m > 1:
-        raise NotImplementedError("mla_apply: return_kv under tensor "
-                                  "parallelism (serving) is not ported")
     cq = tp.enter(norm_apply(p["qnorm"], dense_apply(p["wdq"], x)))
     ckv = norm_apply(p["kvnorm"], dense_apply(p["wdkv"], x))
     k_rope = tp.enter(dense_apply(p["wkr"], x).reshape(B, S, 1, rope))
@@ -323,7 +372,9 @@ def mla_apply(
     k = torch.cat([k_nope, k_rope.expand(B, S, h, rope)], dim=-1)
     # one head dim for q, k and v: v zero-padded to q's, output sliced back
     v = F.pad(v, (0, q.shape[-1] - dv))
-    out = flash_attention(q, k, v, causal=True, device=x.device)[..., :dv]
+    out = flash_attention(q, k, v, causal=True,
+                          stream_bf16=run.attn_stream_bf16,
+                          device=x.device)[..., :dv]
     out = out.reshape(B, S, h * dv)[..., lo - h0 * dv:hi - h0 * dv]
     # where wo is not split every rank computed every head: its replicated
     # product is counted once
@@ -360,34 +411,63 @@ def mla_decode(
     q_eff = q_nope @ W_uk (absorb the key up-projection); scores = q_eff .
     c_kv + q_rope . k_rope; out = ((attn @ c_kv) @ W_uv) @ W_o (absorb the
     value up-projection). ``wukv`` is read in f32, as the reference does.
+    On a mesh each rank absorbs with its heads' block of ``wukv``, gathers
+    the absorbed query of every head, attends over its block of the
+    latent, merges the ranks' parts and takes its heads' block of the
+    merged latent output into ``wo``'s rows; heads split mid-head over
+    ``model`` are refused.
     """
     m: MLAConfig = cfg.mla
     B = x.shape[0]
-    H, nope, rope = cfg.n_heads, m.qk_nope_head_dim, m.qk_rope_head_dim
+    H, nope, rope, dv = (cfg.n_heads, m.qk_nope_head_dim, m.qk_rope_head_dim,
+                         m.v_head_dim)
+    tp = tensor_parallel()
+    tw = tp.over(H * (nope + rope), H * (nope + dv), H * dv)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     cq = norm_apply(p["qnorm"], dense_apply(p["wdq"], x))
-    q = dense_apply(p["wuq"], cq).reshape(B, 1, H, nope + rope)
+    q = tp_project(tw, p["wuq"], tw.enter(cq), H * (nope + rope)).reshape(
+        B, 1, H, nope + rope)
     q_nope, q_rope = q.split([nope, rope], dim=-1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     ckv_new = norm_apply(p["kvnorm"], dense_apply(p["wdkv"], x))  # (B,1,L)
     krope_new = apply_rope(
         dense_apply(p["wkr"], x).reshape(B, 1, 1, rope), positions,
         cfg.rope_theta).reshape(B, 1, rope)
-    cache["ckv"][:, pos] = ckv_new[:, 0].to(cache["ckv"].dtype)
-    cache["krope"][:, pos] = krope_new[:, 0].to(cache["krope"].dtype)
-    S = cache["ckv"].shape[1]
-    wukv = p["wukv"]["w"].float().reshape(m.kv_lora_rank, H,
-                                          nope + m.v_head_dim)
+    first, _ = tp.seq_span(cache["ckv"].shape[1])
+    if 0 <= pos - first < cache["ckv"].shape[1]:  # this rank holds the slot
+        cache["ckv"][:, pos - first] = ckv_new[:, 0].to(cache["ckv"].dtype)
+        cache["krope"][:, pos - first] = krope_new[:, 0].to(
+            cache["krope"].dtype)
+    h0, h1 = 0, H  # the heads of this rank's block of wukv
+    if tw.split(H * (nope + dv)):
+        if H % tw.m:
+            raise NotImplementedError(
+                f"mla_decode: {H} heads split mid-head over the {tw.m} "
+                "ranks of 'model'; serving MLA on a mesh needs whole heads "
+                "a rank")
+        h0, h1 = tw.block(H)
+    wukv = p["wukv"]["w"].float().reshape(m.kv_lora_rank, h1 - h0, nope + dv)
     w_uk, w_uv = wukv[:, :, :nope], wukv[:, :, nope:]
-    q_eff = torch.einsum("bhd,lhd->bhl", q_nope[:, 0].float(), w_uk)
+    q_eff = torch.einsum("bhd,lhd->bhl", q_nope[:, 0, h0:h1].float(), w_uk)
+    if h1 - h0 < H:
+        q_eff = tw.cat(q_eff, 1)  # every head's: (B, H, L)
     ckv_f = cache["ckv"].float()
     s = torch.einsum("bhl,bsl->bhs", q_eff, ckv_f)
     s = s + torch.einsum("bhr,bsr->bhs", q_rope[:, 0].float(),
                          cache["krope"].float())
-    valid = torch.arange(S, device=x.device) <= pos
-    s = torch.where(valid[None, None, :], s * (nope + rope) ** -0.5, NEG_INF)
-    prob = torch.softmax(s, dim=-1)
-    out_lat = torch.einsum("bhs,bsl->bhl", prob, ckv_f)  # (B, H, L)
-    out = torch.einsum("bhl,lhd->bhd", out_lat, w_uv)
-    out = out.reshape(B, 1, H * m.v_head_dim).to(x.dtype)
-    return dense_apply(p["wo"], out), cache
+    valid = first + torch.arange(ckv_f.shape[1], device=x.device) <= pos
+    s = s * (nope + rope) ** -0.5
+    if tp.model is None:
+        prob = torch.softmax(torch.where(valid[None, None, :], s, NEG_INF),
+                             dim=-1)
+        out_lat = torch.einsum("bhs,bsl->bhl", prob, ckv_f)  # (B, H, L)
+    else:
+        out_lat = tp.merge_softmax(*_softmax_parts(
+            s, valid[None, None, :], ckv_f, "bhs,bsl->bhl"))
+    out = torch.einsum("bhl,lhd->bhd", out_lat[:, h0:h1], w_uv)
+    out = out.reshape(B, 1, (h1 - h0) * dv).to(x.dtype)
+    # the rank's rows of wo take its columns of the output
+    lo, hi = tw.block(H * dv)
+    wo = p["wo"] if tw.split(H * dv) else tree_map(tw.enter, p["wo"])
+    out = out[..., lo - h0 * dv:hi - h0 * dv] @ wo["w"].to(out.dtype)
+    return tw.close(out, H * dv), cache

@@ -10,7 +10,11 @@ stacks a group) / apply
 (training: ``(x, aux)``, the MoE load-balance loss or 0, no cache) /
 prefill (``(x, cache)``) / init_cache / decode. The reference's
 ``block_apply`` returns ``(x, aux, cache)`` and builds the cache under
-``collect_cache``; the port splits the two uses.
+``collect_cache``; the port splits the two uses. Serving on a mesh
+(``shardctx.serving_on``) keeps each cache's ``CACHE_RULES`` block: the
+prefill's k/v (MLA's latent) of every head are laid out as in one process
+(ring-truncated, grown to ``cache_len``) and cut to the rank's block of
+the sequence (``TensorParallel.seq_block``) before they are quantized.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from .layers import (
 )
 from .moe import moe_apply_dense, moe_init
 from .ssm import ssd_block_apply, ssd_block_decode, ssd_init, ssd_init_cache
+from ..shardctx import tensor_parallel
 
 KINDS = ("attn_dense", "attn_moe", "mla_dense", "mla_moe", "ssd", "hymba_g",
          "hymba_w")
@@ -57,9 +62,13 @@ def _moe_ffn(pf: Params, xn: torch.Tensor, cfg: ArchConfig,
     parallelism (``dist.ep``, DPM-scheduled all-to-all rounds) when
     ``shardctx`` holds a mesh whose ``model`` axis divides the experts, as
     the reference does; otherwise, and for ``"dense"``, the dense path
-    (which trains on a mesh's ranks, ``models.moe``)."""
-    from ..shardctx import training_on_mesh
+    (which trains and serves on a mesh's ranks, ``models.moe``). Serving on
+    the rank's blocks (``serving_on``) runs ``dist.ep`` on the rank's rows
+    and experts (``_moe_ep_blocks``)."""
+    from ..shardctx import serving_on_mesh, training_on_mesh
 
+    if run.moe_impl == "ep" and serving_on_mesh():
+        return _moe_ep_blocks(pf, xn, cfg)
     if run.moe_impl == "ep" and not training_on_mesh():
         from ..dist.comm import axis_size
         from ..dist.ep import moe_apply_ep
@@ -73,6 +82,34 @@ def _moe_ffn(pf: Params, xn: torch.Tensor, cfg: ArchConfig,
             )
             return moe_apply_ep(pf, xn, cfg, mesh, data_axes=data_axes)
     return moe_apply_dense(pf, xn, cfg)
+
+
+def _moe_ep_blocks(pf: Params, xn: torch.Tensor, cfg: ArchConfig):
+    """``dist.ep`` under serving on the rank's blocks: the rank's rows
+    (split over the data axes already) shard again over ``model``, the
+    rank's experts are its block of them, and the router and the shared
+    experts, which tensor parallelism splits, are gathered whole. Where
+    that does not compose (``model`` of one rank, experts or tokens it
+    does not divide), raises: ``dist.ep``'s dense path needs every
+    expert on every rank."""
+    from ..dist.ep import moe_apply_ep
+    from ..shardctx import _CTX
+
+    tp = tensor_parallel()
+    E, T = cfg.moe.n_experts, xn.shape[0] * xn.shape[1]
+    if tp.m <= 1 or E % tp.m or T % tp.m:
+        raise NotImplementedError(
+            f"moe_impl='ep' on the rank's blocks needs a 'model' axis of "
+            f"more than one rank that divides the {E} experts and this "
+            f"rank's {T} tokens (model axis: {tp.m} ranks); serve with "
+            "moe_impl='dense'")
+    whole = {"router": {"w": tp.cat(pf["router"]["w"], 1)}}
+    if cfg.moe.n_shared:
+        fs = cfg.moe.n_shared * cfg.moe.d_expert
+        for n, dim in (("shared_wi", 1), ("shared_wg", 1), ("shared_wo", 0)):
+            whole[n] = tp.cat(pf[n], dim) if tp.split(fs) else pf[n]
+    return moe_apply_ep(dict(pf, **whole), xn, cfg, _CTX["mesh"],
+                        data_axes=())
 
 
 def _ffn(kind: str, pf: Params, xn: torch.Tensor, cfg: ArchConfig,
@@ -126,7 +163,8 @@ def _grow(t: torch.Tensor, length: int) -> torch.Tensor:
 def _kv_to_cache(k, v, run: RunConfig, window: int | None, cache_len=None):
     """Full-sequence K/V -> decode cache layout (ring-truncated for SWA,
     zero-padded to ``cache_len`` capacity for cache growth during decode),
-    then quantized under an int8 cache."""
+    on a mesh the rank's block of the sequence, then quantized under an
+    int8 cache."""
     if window:
         S = k.shape[1]
         if S >= window:
@@ -141,6 +179,8 @@ def _kv_to_cache(k, v, run: RunConfig, window: int | None, cache_len=None):
             k, v = _grow(k, window), _grow(v, window)
     elif cache_len is not None and cache_len > k.shape[1]:
         k, v = _grow(k, cache_len), _grow(v, cache_len)
+    tp = tensor_parallel()
+    k, v = tp.seq_block(k), tp.seq_block(v)
     if run.kv_cache_dtype == "int8":
         (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
         return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
@@ -166,16 +206,18 @@ def _mixer_apply(kind, p, xn, cfg, run, positions, collect_cache,
         out, (ckv, krope) = out
         if cache_len is not None and cache_len > ckv.shape[1]:
             ckv, krope = _grow(ckv, cache_len), _grow(krope, cache_len)
+        tp = tensor_parallel()
+        ckv, krope = tp.seq_block(ckv), tp.seq_block(krope)
         dt = latent_cache_dtype(run)
         return out, {"ckv": ckv.to(dt), "krope": krope.to(dt)}
+    ssd_kw = dict(return_state=collect_cache, chunk=run.ssd_chunk,
+                  stream_bf16=run.ssd_stream_bf16)
     if kind == "ssd":
-        out = ssd_block_apply(p["ssd"], xn, cfg, return_state=collect_cache,
-                              chunk=run.ssd_chunk)
+        out = ssd_block_apply(p["ssd"], xn, cfg, **ssd_kw)
         return out if collect_cache else (out, None)
     w = _window(kind, cfg)
     a = gqa_apply(p["attn"], xn, cfg, run, positions, window=w, **kv)
-    s = ssd_block_apply(p["ssd"], xn, cfg, return_state=collect_cache,
-                        chunk=run.ssd_chunk)
+    s = ssd_block_apply(p["ssd"], xn, cfg, **ssd_kw)
     cache = None
     if collect_cache:
         (a, (k, v)), (s, st) = a, s

@@ -34,9 +34,23 @@ reference's logical axes of the caches for
 ``dist.sharding``. Caches are per layer: ``caches["g{i}"]`` is a list with
 one dict per layer of the group (the reference stacks them); decode writes
 KV caches in place.
+
+Serving on a mesh (``shardctx.set_ctx(mesh, blocks=True)``): ``prefill``,
+``init_caches`` and ``decode_step`` take this rank's blocks of the
+parameters (``dist.sharding.tree_shardings`` of the spec tree) and of the
+caches (``CACHE_RULES`` of ``cache_axes``: batch over the data axes, the
+sequence over ``model``, every head; the SSD conv window's channels over
+``model``, its state whole) and the whole batch, of which each rank runs
+its rows (as the reference shards ``("batch", ...)`` inputs); the layers
+run under ``shardctx.serving_on`` on the rank's ``model`` blocks, and the
+returned last-token logits are whole on every rank (gathered over the
+vocabulary and the rows), as the reference's ``out_shardings=None``
+leaves them. A cache length that the ``model`` axis does not divide
+raises (``TensorParallel.seq_block``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any
 
 import torch
@@ -54,15 +68,6 @@ from .layers import (
     norm_init, stack_init, tree_leaves, tree_map,
 )
 from .rope import sinusoidal
-
-
-def check_run(run: RunConfig) -> None:
-    """Raise on the RunConfig options the port does not implement."""
-    if run.attn_stream_bf16 or run.ssd_stream_bf16:
-        raise NotImplementedError(
-            "attn_stream_bf16 / ssd_stream_bf16: the port's kernels compute "
-            "in f32 from their inputs' dtype; no configuration sets them"
-        )
 
 
 def padded_vocab(cfg: ArchConfig, run: RunConfig) -> int:
@@ -219,7 +224,6 @@ def forward(params: Params, batch: dict, cfg: ArchConfig, run: RunConfig):
     The loss is the mean cross-entropy (from ``logsumexp`` of the f32
     logits) plus ``run.z_loss`` times the mean squared log-normaliser plus
     the MoE load-balance loss times its coefficient."""
-    check_run(run)
     x = _embed(params, cfg, run, batch)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, dtype=torch.int32,
@@ -273,41 +277,130 @@ def make_train_step(cfg: ArchConfig, run: RunConfig, optimizer):
     return train_step
 
 
+class _Serving:
+    """Serving on the ranks of the ``shardctx`` mesh for a global batch of
+    ``n`` rows (``set_ctx(..., blocks=True)``): the data axes that split
+    the rows (``dist.sharding``'s rule for ``("batch", ...)``), this
+    rank's rows of a whole batch, and the ``TensorParallel`` the layers
+    read."""
+
+    def __init__(self, mesh, n: int):
+        from ..dist.comm import TensorParallel
+        from ..dist.sharding import _flat_axes, mesh_coords, spec_for_shape
+
+        self.mesh = mesh
+        self.coords = mesh_coords(mesh)
+        self.row_entry = spec_for_shape(("batch",), (n,), mesh)[0]
+        self.tp = TensorParallel(mesh, _flat_axes(self.row_entry))
+
+    def rows(self, batch: dict) -> dict:
+        from ..dist.sharding import shard_slices
+
+        out = dict(batch)
+        for k, t in batch.items():
+            if torch.is_tensor(t) and t.dim() >= 1:
+                spec = (self.row_entry,) + (None,) * (t.dim() - 1)
+                out[k] = t[shard_slices(spec, t.shape, self.mesh,
+                                        self.coords)]
+        return out
+
+    def whole_logits(self, logits: torch.Tensor, vocab: int) -> torch.Tensor:
+        """The rank's rows and vocabulary block of the logits gathered
+        whole."""
+        from ..dist.comm import gather_shards
+
+        model = "model" if self.tp.split(vocab) else None
+        return gather_shards(self.mesh, logits, (self.row_entry, None, model))
+
+
+def _serving(n: int) -> _Serving | None:
+    """The serving layout of a global batch of ``n`` rows, when the
+    ``shardctx`` mesh was set with ``blocks=True``; else None."""
+    from ..shardctx import _CTX, serving_blocks
+
+    return _Serving(_CTX["mesh"], n) if serving_blocks() else None
+
+
+@contextlib.contextmanager
+def _served(batch: dict):
+    """``(the batch this rank runs, its serving layout)``: on a mesh set
+    with ``blocks=True`` its rows, inside ``shardctx.serving_on``; else
+    ``(batch, None)``."""
+    from ..shardctx import serving_on
+
+    sv = _serving((batch["tokens"] if "tokens" in batch
+                   else batch["frames"]).shape[0])
+    if sv is None:
+        yield batch, None
+        return
+    with serving_on(sv.tp):
+        yield sv.rows(batch), sv
+
+
+def _last_logits(params, cfg: ArchConfig, run: RunConfig, x: torch.Tensor,
+                 sv: _Serving | None) -> torch.Tensor:
+    """The f32 logits of ``x`` (B, 1, d), whole on every rank."""
+    vp = padded_vocab(cfg, run)
+    lo, _ = tensor_parallel().over(vp).block(vp)
+    logits = _logits(params, cfg, x, lo)
+    return sv.whole_logits(logits, vp) if sv else logits
+
+
 @torch.no_grad()
 def prefill(params: Params, batch: dict, cfg: ArchConfig, run: RunConfig,
             cache_len: int | None = None):
     """Run the prompt ``batch["tokens"]`` (B, S) (a frame model's
     ``batch["frames"]`` (B, S, d)); return (last-token logits (B, 1, V_pad)
-    f32, caches).
+    f32, caches). On a mesh: the rank's blocks (module docstring).
 
     ``cache_len`` pads non-ring caches to that capacity so decode can append.
     """
-    check_run(run)
-    x = _embed(params, cfg, run, batch)
-    B, S = x.shape[0], x.shape[1]
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device).expand(B, S)
-    caches: dict[str, Any] = {}
-    for gi, (kind, count) in enumerate(cfg.layout):
-        caches[f"g{gi}"] = []
-        for i in range(count):
-            x, cache = block_prefill(kind, _layer(params[f"g{gi}"], i), x,
-                                     cfg, run, positions, cache_len=cache_len)
-            caches[f"g{gi}"].append(cache)
-    x = norm_apply(params["final_norm"], x)
-    return _logits(params, cfg, x[:, -1:, :]), caches
+    with _served(batch) as (batch, sv):
+        x = _embed(params, cfg, run, batch)
+        B, S = x.shape[0], x.shape[1]
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
+        caches: dict[str, Any] = {}
+        for gi, (kind, count) in enumerate(cfg.layout):
+            caches[f"g{gi}"] = []
+            for i in range(count):
+                x, cache = block_prefill(kind, _layer(params[f"g{gi}"], i),
+                                         x, cfg, run, positions,
+                                         cache_len=cache_len)
+                caches[f"g{gi}"].append(cache)
+        x = norm_apply(params["final_norm"], x)
+        return _last_logits(params, cfg, run, x[:, -1:, :], sv), caches
 
 
 def init_caches(cfg: ArchConfig, run: RunConfig, batch: int, max_len: int,
                 device: torch.device | str = "cuda"):
-    """Zeroed decode caches, one dict per layer of every group."""
-    check_run(run)
+    """Zeroed decode caches, one dict per layer of every group; on a mesh
+    this rank's ``CACHE_RULES`` blocks of them."""
+    from ..dist.sharding import CACHE_RULES, shard_slices, spec_for_shape
+
     dev = resolve_device(device)
-    return {
-        f"g{gi}": [block_init_cache(kind, cfg, run, batch, max_len, dev)
-                   for _ in range(count)]
-        for gi, (kind, count) in enumerate(cfg.layout)
-    }
+    sv = _serving(batch)
+    out = {}
+    for gi, (kind, count) in enumerate(cfg.layout):
+        if sv is None:
+            out[f"g{gi}"] = [block_init_cache(kind, cfg, run, batch, max_len,
+                                              dev) for _ in range(count)]
+            continue
+        whole = block_init_cache(kind, cfg, run, batch, max_len,
+                                 torch.device("meta"))
+
+        def block(t, axes):
+            spec = spec_for_shape(axes, t.shape, sv.mesh, CACHE_RULES)
+            if "seq" in axes and sv.tp.model is not None:
+                sv.tp.seq_block(t)  # a length the axis does not divide raises
+            sl = shard_slices(spec, t.shape, sv.mesh, sv.coords)
+            return torch.zeros(tuple(s.stop - s.start for s in sl),
+                               dtype=t.dtype, device=dev)
+
+        out[f"g{gi}"] = [tree_map(block, whole,
+                                  _block_cache_axes(kind, cfg, run))
+                         for _ in range(count)]
+    return out
 
 
 def _block_cache_axes(kind: str, cfg: ArchConfig, run: RunConfig):
@@ -350,14 +443,14 @@ def decode_step(params: Params, caches: dict, batch: dict, cfg: ArchConfig,
     """One decode step against the caches: ``batch`` holds ``tokens``
     (B, 1) (a frame model's ``frames`` (B, 1, d)) and ``pos``, the tokens
     already cached. Returns (logits (B, 1, V_pad), caches), the caches
-    updated."""
-    check_run(run)
+    updated. On a mesh: the rank's blocks (module docstring)."""
     pos = int(batch["pos"])
-    x = _embed(params, cfg, run, batch, pos0=pos)
-    for gi, (kind, count) in enumerate(cfg.layout):
-        group = caches[f"g{gi}"]
-        for i in range(count):
-            x, group[i] = block_decode(kind, _layer(params[f"g{gi}"], i),
-                                       group[i], x, cfg, run, pos)
-    x = norm_apply(params["final_norm"], x)
-    return _logits(params, cfg, x), caches
+    with _served(batch) as (batch, sv):
+        x = _embed(params, cfg, run, batch, pos0=pos)
+        for gi, (kind, count) in enumerate(cfg.layout):
+            group = caches[f"g{gi}"]
+            for i in range(count):
+                x, group[i] = block_decode(kind, _layer(params[f"g{gi}"], i),
+                                           group[i], x, cfg, run, pos)
+        x = norm_apply(params["final_norm"], x)
+        return _last_logits(params, cfg, run, x, sv), caches

@@ -43,7 +43,8 @@ def apply_mrope(
     freqs = rope_freqs(d, theta, x.device)
     sec_ids = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))[: d // 2]
+        torch.tensor(sections, device=x.device),
+        output_size=sum(sections))[: d // 2]
     pos = positions.float()[..., sec_ids]  # (..., S, D/2): per-band id
     return _rotate(x, pos * freqs)
 

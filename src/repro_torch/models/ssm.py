@@ -16,7 +16,15 @@ Under tensor parallelism (``shardctx.tensor_parallel``) the rule splits
 fall on the blocks' edges: each rank gathers ``in_proj``'s output and
 those small leaves whole and runs the block's whole scan, and its block of
 ``out_proj``'s rows takes its columns of the scan's output, the ranks'
-partial products summed.
+partial products summed. Serving on a mesh keeps the rank's block of the
+conv cache's channels (``CACHE_RULES``' "mlp") and the whole state: the
+prefill returns that block of the conv window, and a decode step gathers
+the blocks, runs the whole step and keeps its block of the new window.
+
+``ssd_stream_bf16`` (``stream_bf16`` here) takes the reference's streamed
+numerics in ``ssd_scan``: the operands of the intra-chunk products (C, B,
+the decay-weighted matrix and x) are rounded to bf16 and the products
+accumulate in f32; on the card the kernel runs on x, B and C in bf16.
 """
 from __future__ import annotations
 
@@ -29,8 +37,7 @@ from ..kernels.ssd.ops import ssd_scan_kernel
 from .config import ArchConfig, SSMConfig
 from ..shardctx import tensor_parallel
 from .layers import (
-    Params, Specs, dense_apply, dense_init, normal, split, tp_project,
-    tree_map,
+    Params, Specs, dense_init, normal, split, tp_project, tree_map,
 )
 
 MIN_LOG = -30.0
@@ -48,6 +55,7 @@ def ssd_scan(
     chunk: int,
     h0: torch.Tensor | None = None,  # (B, H, N, P) initial state
     return_state: bool = False,
+    stream_bf16: bool = False,
 ):
     B_, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
@@ -79,13 +87,15 @@ def ssd_scan(
 
     # ---- intra-chunk quadratic form ------------------------------------
     # M[i,j] = exp(cum_i - cum_j) * (C_i . B_j) * dt_j   for j <= i
-    cb = torch.einsum("bclhn,bckhn->bchlk", Ch, Bh)  # (B,nc,H,L,L)
+    st = (lambda t: t.to(torch.bfloat16).float()) if stream_bf16 else (
+        lambda t: t)
+    cb = torch.einsum("bclhn,bckhn->bchlk", st(Ch), st(Bh))  # (B,nc,H,L,L)
     ci = cum.permute(0, 1, 3, 2)  # (B,nc,H,L)
     dmat = ci[..., :, None] - ci[..., None, :]
     tri = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
     m = torch.where(tri, torch.exp(torch.clamp(dmat, min=MIN_LOG)), 0.0)
     m = m * cb * dtf.permute(0, 1, 3, 2)[..., None, :]  # * dt_j
-    y_intra = torch.einsum("bchlk,bckhp->bclhp", m, xf)
+    y_intra = torch.einsum("bchlk,bckhp->bclhp", st(m), st(xf))
 
     # ---- chunk-boundary states -----------------------------------------
     # state contribution of chunk c: sum_j exp(cum_L - cum_j) dt_j B_j x_j^T
@@ -196,25 +206,46 @@ def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor,
     return (yf * torch.rsqrt(ms + 1e-6) * scale).to(y.dtype)
 
 
-def ssd_block_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
-                    return_state: bool = False, chunk: int | None = None):
+def _whole_block(tp, p: Params, x: torch.Tensor, cfg: ArchConfig):
+    """``(in_proj's output, the block's leaves)`` whole on every model
+    rank: the split of in_proj's output is not on the blocks' edges, so
+    its output and the block's small leaves are gathered whole."""
     s: SSMConfig = cfg.ssm
-    B_, S, d = x.shape
-    di, H, G, N = s.d_inner(d), s.n_heads(d), s.n_groups, s.d_state
-    conv_dim = di + 2 * G * N
-    d_in = conv_dim + di + H
-    tp = tensor_parallel().over(d_in, conv_dim, H, di)
-    if return_state and tp.m > 1:
-        raise NotImplementedError("ssd_block_apply: return_state under "
-                                  "tensor parallelism (serving) is not "
-                                  "ported")
-    # the split of in_proj's output is not on the blocks' edges: its
-    # output and the block's small leaves are gathered whole
-    zxbcdt = tp_project(tp, p["in_proj"], tp.enter(x), d_in)
+    d = x.shape[-1]
+    di, H = s.d_inner(d), s.n_heads(d)
+    conv_dim = di + 2 * s.n_groups * s.d_state
+    zxbcdt = tp_project(tp, p["in_proj"], tp.enter(x), conv_dim + di + H)
     p = dict(p, conv_w=tp.gather(p["conv_w"], conv_dim, 1), **{
         n: tp.gather(p[n], w, 0) for n, w in (
             ("conv_b", conv_dim), ("A_log", H), ("D", H), ("dt_bias", H),
             ("norm_scale", di))})
+    return zxbcdt, p
+
+
+def _out_proj(tp, p: Params, y: torch.Tensor, di: int) -> torch.Tensor:
+    """The rank's rows of out_proj take its columns of ``y``; the ranks'
+    partial products summed."""
+    lo, hi = tp.block(di)
+    w = p["out_proj"] if tp.split(di) else tree_map(tp.enter,
+                                                     p["out_proj"])
+    return tp.close(y[..., lo:hi] @ w["w"].to(y.dtype), di)
+
+
+def _ssd_tp(d: int, s: SSMConfig):
+    di, H = s.d_inner(d), s.n_heads(d)
+    conv_dim = di + 2 * s.n_groups * s.d_state
+    return tensor_parallel().over(conv_dim + di + H, conv_dim, H,
+                                  di), conv_dim
+
+
+def ssd_block_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
+                    return_state: bool = False, chunk: int | None = None,
+                    stream_bf16: bool = False):
+    s: SSMConfig = cfg.ssm
+    B_, S, d = x.shape
+    di, H, G, N = s.d_inner(d), s.n_heads(d), s.n_groups, s.d_state
+    tp, conv_dim = _ssd_tp(d, s)
+    zxbcdt, p = _whole_block(tp, p, x, cfg)
     z, xi, bm, cm, dt = _split_zxbcdt(zxbcdt, di, G * N, H)
     xbc = torch.cat([xi, bm, cm], dim=-1)
     xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"])
@@ -226,19 +257,21 @@ def ssd_block_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
             bm.reshape(B_, S, G, N), cm.reshape(B_, S, G, N),
             chunk or s.chunk)
     if x.device.type == "cuda":
+        if stream_bf16:
+            args = tuple(t.to(torch.bfloat16) if i in (0, 3, 4) else t
+                         for i, t in enumerate(args))
         y, h_last = ssd_scan_kernel(*args, device=x.device)
     else:
-        y, h_last = ssd_scan(*args, return_state=True)
+        y, h_last = ssd_scan(*args, return_state=True,
+                             stream_bf16=stream_bf16)
     y = y + xi.reshape(B_, S, H, s.head_dim) * p["D"][:, None]
     y = y.reshape(B_, S, di).to(x.dtype)
     y = _gated_rmsnorm(y, z, p["norm_scale"])
-    # the rank's rows of out_proj take its columns of y
-    lo, hi = tp.block(di)
-    w = p["out_proj"] if tp.split(di) else tree_map(tp.enter,
-                                                     p["out_proj"])
-    out = tp.close(y[..., lo:hi] @ w["w"].to(y.dtype), di)
+    out = _out_proj(tp, p, y, di)
     if return_state:
-        return out, {"conv": conv_state, "state": h_last}
+        # the cache keeps the rank's block of the conv window's channels
+        lo, hi = tp.block(conv_dim)
+        return out, {"conv": conv_state[..., lo:hi], "state": h_last}
     return out
 
 
@@ -257,15 +290,19 @@ def ssd_init_cache(cfg: ArchConfig, batch: int, device: torch.device) -> dict:
 
 def ssd_block_decode(p: Params, cache: dict, x: torch.Tensor,
                      cfg: ArchConfig):
-    """Single-token recurrent step. x: (B, 1, d). Returns (out, new cache)."""
+    """Single-token recurrent step. x: (B, 1, d). Returns (out, new cache);
+    on a mesh the cache's conv window is the rank's block of channels."""
     s: SSMConfig = cfg.ssm
     B_, _, d = x.shape
     di, H, G, N = s.d_inner(d), s.n_heads(d), s.n_groups, s.d_state
-    zxbcdt = dense_apply(p["in_proj"], x)
+    tp, conv_dim = _ssd_tp(d, s)
+    zxbcdt, p = _whole_block(tp, p, x, cfg)
     z, xi, bm, cm, dt = _split_zxbcdt(zxbcdt, di, G * N, H)
     xbc = torch.cat([xi, bm, cm], dim=-1)
-    xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"],
-                                   cache["conv"])
+    window = tp.cat(cache["conv"], 2) if tp.split(conv_dim) else cache["conv"]
+    xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"], window)
+    lo, hi = tp.block(conv_dim)
+    conv_state = conv_state[..., lo:hi]
     xi = xbc[..., :di].reshape(B_, H, s.head_dim)
     bm = xbc[..., di: di + G * N].reshape(B_, G, N)
     cm = xbc[..., di + G * N:].reshape(B_, G, N)
@@ -279,4 +316,4 @@ def ssd_block_decode(p: Params, cache: dict, x: torch.Tensor,
     y = torch.einsum("bhn,bhnp->bhp", ch, h) + xi.float() * p["D"][:, None]
     y = y.reshape(B_, 1, di).to(x.dtype)
     y = _gated_rmsnorm(y, z, p["norm_scale"])
-    return dense_apply(p["out_proj"], y), {"conv": conv_state, "state": h}
+    return _out_proj(tp, p, y, di), {"conv": conv_state, "state": h}

@@ -31,9 +31,12 @@ at smoke width, on weights carried across by ``params_from_jax``.
   read as ``.to(x.dtype)`` in bf16 (MLA's ``wukv``, read in f32 by the
   absorbed decode, stays f32): prefill and decode logits with bf16
   activations are bit-identical to those of the f32 run's tree.
-- The port serves the reference's ten configurations; the options it does
-  not implement (``attn_stream_bf16``, ``ssd_stream_bf16``) raise.
+- The port serves the reference's ten configurations; an unknown one
+  raises. The stream options (``attn_stream_bf16``, ``ssd_stream_bf16``)
+  change only their own layers, within bf16 rounding.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -312,12 +315,21 @@ def test_unported_configs_and_options_raise():
         assert ("router" in p["ffn"]) == (kind == "mla_moe")
     with pytest.raises(ValueError):
         block_init("mla_sparse", None, cfg, torch.device("meta"))
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    for name in ("smollm-135m", "mamba2-1.3b"):  # attention only, SSD only
+    # the stream options are ported: each changes only its own layers
+    # (bf16 operands, f32 sums), within bf16 rounding of the plain run
+    toks = torch.from_numpy(
+        np.random.default_rng(3).integers(0, 512, (2, 40)).astype(np.int32))
+    for name, own in (("smollm-135m", "attn"), ("mamba2-1.3b", "ssd")):
         cfg = SMOKES[name]
-        params, _ = model_init(0, cfg, RunConfig(), device="cpu")
-        for bad in (dict(attn_stream_bf16=True), dict(ssd_stream_bf16=True)):
-            with pytest.raises(NotImplementedError):
-                prefill(params, {"tokens": toks}, cfg, RunConfig(**bad))
-            with pytest.raises(NotImplementedError):
-                init_caches(cfg, RunConfig(**bad), 1, 8, device="cpu")
+        run = RunConfig(activations_dtype="float32")
+        params, _ = model_init(0, cfg, run, device="cpu")
+        want, _ = prefill(params, {"tokens": toks}, cfg, run)
+        for opt in ("attn", "ssd"):
+            srun = dataclasses.replace(run, **{f"{opt}_stream_bf16": True})
+            got, _ = prefill(params, {"tokens": toks}, cfg, srun)
+            err = float((got - want).abs().max())
+            if opt == own:
+                assert 0 < err <= 2e-2 * float(want.abs().max()), (name, err)
+            else:
+                assert err == 0, (name, opt, err)
+            init_caches(cfg, srun, 1, 8, device="cpu")
