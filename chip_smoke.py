@@ -110,8 +110,8 @@ non-zero before the result line:
    ``deepseek-v2-236b`` at full width, its dense first layer and 7 of its
    59 MoE layers (the cut fits the 80 GB card), bf16-stored weights, the
    same 8 requests through ``BatchServer``; each prefill must launch the
-   bf16 flash kernel once a layer, all at D = 192 (MLA's q/k head dim,
-   v zero-padded); the peak memory, routing from untimed prefills; the
+   bf16 flash kernel once a layer, all at the head-dim pair (192, 128)
+   (q/k 128 + 64, v 128); the peak memory, routing from untimed prefills; the
    flash kernel against its plain version on the q/k/v of the first and
    last layers, bf16 and f32, with the cuts of 7b; ``[serve_vs_plain]`` of
    its first two layers (dense, MoE) in f32 as in 7b; ``[kernel_time]``
@@ -177,7 +177,7 @@ non-zero before the result line:
    group's broadcast / ``all_to_all_single``; ``part=compress``:
    ``compressed_psum`` of a stablelm-embedding-sized f32 gradient on each
    rank, identical on the four and within 0.05 of the exact all-reduce
-   relative to its max; ``part=ep``: moonshot at full width (6 of its 48
+   relative to its max; ``part=ep``: moonshot at full width (3 of its 48
    layers, each rank drawing the layers one at a time and keeping its 16
    of 64 experts), one f32 MoE layer (4 x 2,000 x 2,048, capacity factor
    64 / 6: nothing drops) through ``moe_apply_ep`` against
@@ -190,7 +190,8 @@ non-zero before the result line:
    dropped pairs and the tokens routed otherwise in each layer printed;
    layer 0, whose input is the same in both paths, may route otherwise
    only at near ties, and with nothing dropped the EP logits must equal
-   the control's bit for bit; 6 flash launches a rank a prefill; ``part=pipeline``: stablelm-1.6b's 24 layers in 4 stages of 6
+   the control's bit for bit; 3 flash launches a rank a prefill;
+   ``part=pipeline``: stablelm-1.6b's 24 layers in 4 stages of 6
    through ``pipeline_apply`` (4 microbatches of one 4,096-token sequence,
    f32 masters, bf16 compute, a loss on the output), the forward equal to
    the 24 layers applied microbatch by microbatch on rank 0, every stage
@@ -222,7 +223,7 @@ non-zero before the result line:
    ZeRO-1 over ``data`` on each rank's ``model`` blocks), that 4-layer
    stablelm, one 4,096-token sequence a data rank: per rank the state
    bytes and the forward's parameter bytes against what its blocks imply
-   (asserted equal), peak memory, step ms, flash launches; 3 bf16 steps
+   (asserted equal), peak memory, step ms, flash launches; 2 bf16 steps
    against the one-process twin (``accum=2``: each microbatch one data
    rank's row) under a rule derived from where the roundings differ (the
    row-parallel partial products rounded to bf16 by each rank's GEMM,
@@ -238,15 +239,15 @@ non-zero before the result line:
    later losses, grad norms and parameters printed; then two f32 steps:
    step 1 within 1e-5 of the f32 twin's loss and grad norm, step 2 of the
    one process restarted from the masters the ranks started it from,
-   parameters within 2 lr with at most 1e-3 beyond 1e-6; 48 + 48
+   parameters within 2 lr with at most 1e-3 beyond 1e-6; 32 + 32
    ``wgmma_bf16`` and 32 + 32 ``cuda_core_f32`` launches with the counts
    set to 0 just before; ``part=moe_dp``:
    moonshot at full width cut to 1 layer (32 of 64 experts a rank,
    2,048 tokens a data rank, the capacity and slots of the global 4,096)
-   for 2 f32 steps against the global batch in one process: step 1 and
-   step 2 (the one process from the masters the ranks started it from)
-   within 1e-5, the dropped pairs over the data ranks equal to the one
-   process's, 8 + 8 ``cuda_core_f32`` launches at D = 128;
+   for 1 f32 step against the global batch in one process: its loss and
+   grad norm within 1e-5, the parameters under the f32 rule, the dropped
+   pairs over the data ranks equal to the one process's, 4 + 4
+   ``cuda_core_f32`` launches at D = 128;
    then serving on a mesh (``--serve-tp``, a child of its own):
    ``[dist] part=stream_bf16``: the wrappers with the stream options on
    f32 inputs at hymba's shapes launch the bf16 kernels (``wgmma_bf16``,
@@ -266,7 +267,8 @@ non-zero before the result line:
    (moonshot 2, deepseek 2 at D = 192, hymba 4 + 4 SSD, bf16 kernels in
    bf16, f32 kernels in f32);
    then ``[dryrun]``: a child for each fake world (``--dryrun-world=``
-   ``pod``, 256 ranks, then ``multipod``, 512) runs
+   ``pod``, 256 ranks, and ``multipod``, 512, started before training
+   and working on the host beside it and the ranks) runs
    ``launch.dryrun.run_cell`` on four cells and prints flops, bytes,
    collectives by axis and kind, the roofline terms and ``trace_s``;
 8. segmented min: ``segmin`` and ``arbitrate`` on the card over ten cases
@@ -327,16 +329,24 @@ process of this script (``python3 chip_smoke.py --noc-cycle-alone``,
 ``--segmin-kernel-alone``), phase 7 the split of one prefill's time by
 kernel family (``--prefill-profile``), and phases 7b, 7c, 7d, 7e and 7f
 run whole in a child each (``--serve-moe``, ``--serve-mla``,
-``--serve-frames``, ``--train``, ``--dist``).
+``--serve-frames``, ``--train``, ``--dist``). Each of these children is
+started one ahead of its phase (``WARM_NEXT``): it makes its CUDA context,
+imports the port and waits for its go file while the phase before it
+runs. Phases 10-12 run in children of their own (``--phases=``) beside
+card phases that leave the card room: 11 beside 7d-7e', 10 and 12 beside
+7g; their times on the card are not taken alone. Every ``[phase]`` line
+ends with ``at_s``, the seconds since the script started.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -411,7 +421,34 @@ INT8_DECODE_STEPS = 8
 # faults planted in the int8 path to show what the checks catch
 INT8_FAULTS = ("decode_scale_zeroed", "prompt_v_scale_zeroed")
 SERVE_CHILD_TIMEOUT_S = 600
+# the child that each child's start warms (``warm``): started at once, it
+# makes its CUDA context, imports the port and waits for its go file, so
+# that its start-up overlaps the phase before it; None: the script's start.
+# Nothing is warmed beside the --dist child, whose ranks fill the card.
+WARM_NEXT = {
+    None: "--noc-cycle-alone",
+    "--noc-cycle-alone": "--dpm-cost-alone",
+    "--dpm-cost-alone": "--serve-kernel-alone",
+    "--serve-kernel-alone": "--prefill-profile",
+    "--prefill-profile": "--serve-moe",
+    "--serve-moe": "--serve-mla",
+    "--serve-mla": "--serve-frames",
+    "--serve-frames": "--train",
+    "--train": "--train-mla",
+    "--train-mla": "--dist",
+    "--serve-tp": "--segmin-kernel-alone",
+}
+_WARM: dict = {}  # flag -> (its waiting child, its go file)
+_WARMED: set = set()
+# phases 10-12 run in children beside card phases that leave room on the
+# card (``start_phases``): [trace] beside 7d-7e', [topo3d] and
+# [calibration] beside 7g; the parent waits at most this long for one
+BACKGROUND_TIMEOUT_S = 600
 PROFILE_TRIES = 3  # traces of one call before "no device time" fails
+# a torch.profiler trace started around a call often lacks the call's
+# first kernel, and a spin kernel launched before the call does not help
+# (tools/profiler_drops.py): a traced call follows one call in the
+# profiler's warm-up step, whose kernels the trace leaves out
 ATTN_ATOL = {"torch.bfloat16": 2e-2, "torch.float32": 1e-4}
 # the largest |got - want| / |want| over the output rows (each a D-vector)
 # on moonshot's captured inputs. Attention there is near-uniform, so late
@@ -423,16 +460,21 @@ ATTN_ATOL = {"torch.bfloat16": 2e-2, "torch.float32": 1e-4}
 ATTN_ROW_RTOL = {"torch.bfloat16": 2e-2, "torch.float32": 1e-3}
 SSD_ATOL = {"torch.bfloat16": 1e-1, "torch.float32": 5e-4}
 # edge cases of the kernels' tiles on seeded random inputs:
-# attention (label, B, S, H, KH, D, window),
+# attention (label, B, Sq, Sk, H, KH, D, Dv, window, q_offset), v of width
+# Dv (MLA's pair: q/k 192, v 128),
 # SSD (label, B, S, H, G, N, P, chunk)
 ATTN_EDGE_CASES = (
-    ("window_dead_first_tile", 2, 300, 4, 2, 64, 70),
-    ("sk_below_one_tile", 2, 40, 4, 2, 64, None),
-    ("d16", 2, 333, 4, 2, 16, None),
-    ("d32", 2, 333, 4, 1, 32, 100),
-    ("d128", 2, 333, 4, 2, 128, 100),
-    ("d192_gqa_window", 2, 333, 4, 2, 192, 100),
-    ("d192_sk_below_one_tile", 2, 40, 8, 8, 192, None),
+    ("window_dead_first_tile", 2, 300, 300, 4, 2, 64, 64, 70, 0),
+    ("sk_below_one_tile", 2, 40, 40, 4, 2, 64, 64, None, 0),
+    ("d16", 2, 333, 333, 4, 2, 16, 16, None, 0),
+    ("d32", 2, 333, 333, 4, 1, 32, 32, 100, 0),
+    ("d128", 2, 333, 333, 4, 2, 128, 128, 100, 0),
+    ("d192_gqa_window", 2, 333, 333, 4, 2, 192, 192, 100, 0),
+    ("d192_sk_below_one_tile", 2, 40, 40, 8, 8, 192, 192, None, 0),
+    ("mla_gqa_window", 2, 333, 333, 4, 2, 192, 128, 100, 0),
+    ("mla_sk_below_one_tile", 2, 40, 40, 8, 8, 192, 128, None, 0),
+    ("mla_ragged", 2, 1377, 1377, 8, 8, 192, 128, None, 0),
+    ("mla_q_offset_window", 2, 64, 1377, 8, 4, 192, 128, 1024, 1313),
 )
 SSD_EDGE_CASES = (
     ("groups2_n16", 2, 777, 8, 2, 16, 64, 256),
@@ -463,18 +505,41 @@ BWD_ROW_RTOL = 2e-2
 BWD_ROW_FLOOR = 0.1
 BWD_F32_RTOL = 1e-5
 # edge cases of the backward's tiles on seeded random inputs
-# (label, B, Sq, Sk, H, KH, D, window, q_offset); the last is a chunk of
-# 40 queries at position 60 of 100 keys under a window (the CPU tests'
-# q_offset case)
+# (label, B, Sq, Sk, H, KH, D, Dv, window, q_offset); "q_offset_window" is
+# a chunk of 40 queries at position 60 of 100 keys under a window (the CPU
+# tests' q_offset case); the "mla_" cases are MLA's pair (q/k 192, v 128),
+# whose dK/dV pass streams query tiles of 32 rows, "d192" (192, 192)'s of 16
 BWD_EDGE_CASES = (
-    ("gqa3_window", 2, 333, 333, 6, 2, 64, 100, 0),
-    ("gqa8", 1, 300, 300, 8, 1, 64, None, 0),
-    ("sk_below_one_tile", 2, 40, 40, 4, 2, 64, None, 0),
-    ("d16", 2, 200, 200, 4, 2, 16, None, 0),
-    ("d32_window", 2, 333, 333, 4, 1, 32, 70, 0),
-    ("d128", 2, 333, 333, 4, 2, 128, 100, 0),
-    ("q_offset_window", 1, 40, 100, 4, 2, 32, 50, 60),
+    ("gqa3_window", 2, 333, 333, 6, 2, 64, 64, 100, 0),
+    ("gqa8", 1, 300, 300, 8, 1, 64, 64, None, 0),
+    ("sk_below_one_tile", 2, 40, 40, 4, 2, 64, 64, None, 0),
+    ("d16", 2, 200, 200, 4, 2, 16, 16, None, 0),
+    ("d32_window", 2, 333, 333, 4, 1, 32, 32, 70, 0),
+    ("d128", 2, 333, 333, 4, 2, 128, 128, 100, 0),
+    ("q_offset_window", 1, 40, 100, 4, 2, 32, 32, 50, 60),
+    ("d192_gqa_window", 2, 333, 333, 4, 2, 192, 192, 100, 0),
+    ("mla_gqa_window", 2, 333, 333, 4, 2, 192, 128, 100, 0),
+    ("mla_sk_below_one_tile", 2, 40, 40, 8, 8, 192, 128, None, 0),
+    ("mla_ragged", 1, 1377, 1377, 4, 4, 192, 128, None, 0),
+    ("mla_q_offset_window", 1, 64, 1377, 4, 2, 192, 128, 1024, 1313),
 )
+# the MLA training phase (a child process, --train-mla): deepseek-v2-236b
+# at full width cut to its dense first layer (1.39 B parameters; one of its
+# MoE layers is 3.8 B, whose f32 master, Adam and gradient state do not
+# fit beside it), TRAIN_BATCH x TRAIN_SEQ tokens, MLA_TRAIN_STEPS steps of
+# train_run_config() at MLA_TRAIN_LR, the peak learning rate of the
+# DeepSeek-V2 technical report (2.4e-4): at the CLI's 3e-3 Adam's first
+# steps, about lr x sign(g) a weight, overshoot at d = 5,120 and a
+# 102,400-word head (an H100 ran 12.40, 1.59, 12.82, ..., 12.57), on the
+# plain attention path as on the kernels (tools/mla_lr_witness.py); the
+# plain backward on layer 0's captured inputs in groups of
+# MLA_BWD_HEAD_GROUP KV heads (its S x S tensors at 128 heads and S =
+# 4,096 are 8.6 GB each); the kernel path against the plain path over the
+# layer in f32 at MLA_PLAIN_SEQ tokens
+MLA_TRAIN_LAYOUT = (("mla_dense", 1),)
+MLA_TRAIN_STEPS, MLA_TRAIN_LR = 6, 2.4e-4
+MLA_BWD_HEAD_GROUP = 16
+MLA_PLAIN_SEQ = 1024
 # the checkpoint round trip: smollm-135m at full width, a save at step
 # CKPT_AT of CKPT_STEPS
 CKPT_ARCH = "smollm-135m"
@@ -498,20 +563,20 @@ XSIM_SPLIT_DEVICES = 4
 # payloads staged through host memory). Executors: EP's own chunk (moonshot
 # at B = 4, S = 2,000, 4 EP ranks: 16 experts x capacity 240 x d 2,048
 # bf16); compress: a gradient the size of stablelm-1.6b's embedding
-# (100,352 x 2,048 f32); EP: moonshot-v1-16b-a3b at full width, 12 of its
-# 48 layers (four ranks' attention, shared experts, embedding and head
-# beside the dense comparison's 15.5 GB on the card); pipeline:
-# stablelm-1.6b's 24 layers, 4 stages of 6, 4 microbatches of one 4,096-
-# token sequence
+# (100,352 x 2,048 f32); EP: moonshot-v1-16b-a3b at full width,
+# DIST_EP_LAYERS of its 48 layers (four ranks' attention, shared experts,
+# embedding and head beside the dense comparison on the card); pipeline:
+# stablelm-1.6b's 24 layers, 4 stages of 6, 4 microbatches of one
+# DIST_PIPE_SEQ-token sequence
 DIST_RANKS = 4
 DIST_ALGOS = ("DPM", "MU", "ring")
 DIST_TIMEOUT_S = 600
 DIST_REPS = 3
 DIST_COMPRESS_SHAPE = (100352, 2048)
 DIST_COMPRESS_BOUND = 0.05  # tests/dist_checks.py's bound on the relative error
-# part=ep's moonshot depth: 6 layers, which leaves part=serve_tp and
-# [dryrun] room within the script's time limit
-DIST_EP_LAYERS = 6
+# part=ep's moonshot depth (12, then 6, now 3 layers): cut to keep the
+# script within its time limit on a slow host
+DIST_EP_LAYERS = 3
 DIST_EP_B, DIST_EP_S = 4, 2000
 DIST_EP_RTOL = 2e-5  # the f32 layer against the dense path, x max |y|
 DIST_PIPE_M, DIST_PIPE_SEQ = 4, 4096
@@ -531,7 +596,9 @@ DIST_ZERO1_STEPS, DIST_ZERO1_CKPT_AT = 3, 2
 # MoE over data ranks (part=moe_dp): moonshot at full width cut to
 # DIST_MOE_DP_LAYERS layer (four ranks' f32 state, gradients and
 # activations share the card), DIST_MOE_DP_SEQ tokens a data rank,
-# DIST_MOE_DP_STEPS f32 steps. The bf16 rule's step-1 loss bound is
+# DIST_MOE_DP_STEPS f32 steps (2, now 1: cut for the time limit; the f32
+# part=tp run still checks a step taken from the ranks' masters). The
+# bf16 rule's step-1 loss bound is
 # DIST_TP_SIGMAS standard deviations of the extra roundings' first-order
 # effect plus DIST_TP_F32_SLACK for the f32 sums' order. Its step-1
 # gradient bound: each leaf block's distance to the one-process bf16
@@ -544,8 +611,8 @@ DIST_ZERO1_STEPS, DIST_ZERO1_CKPT_AT = 3, 2
 # 1 + 4 x 0.044, four standard deviations of the ratio of two norms over
 # the smallest block's 512 elements
 DIST_TP_MESH = (2, 2)
-DIST_TP_STEPS, DIST_TP_F32_STEPS = 3, 2
-DIST_MOE_DP_LAYERS, DIST_MOE_DP_SEQ, DIST_MOE_DP_STEPS = 1, 2048, 2
+DIST_TP_STEPS, DIST_TP_F32_STEPS = 2, 2
+DIST_MOE_DP_LAYERS, DIST_MOE_DP_SEQ, DIST_MOE_DP_STEPS = 1, 2048, 1
 DIST_TP_SIGMAS, DIST_TP_F32_SLACK, DIST_TP_GRAD_RATIO = 6.0, 1e-5, 1.7
 DIST_CHILD_TIMEOUT_S = 900
 # serving on a mesh ([dist] part=serve_tp): four ranks on a (2, 2) ("data",
@@ -585,6 +652,11 @@ def fail(msg: str) -> None:
 
 
 def say(phase: str, **kw) -> None:
+    """Print a ``[phase] key=value ...`` line; ``at_s`` closes it: the
+    seconds since the top-level script started (its children's lines too)."""
+    t0 = os.environ.get("CHIP_SMOKE_T0")
+    if t0 is not None:
+        kw["at_s"] = f"{time.time() - float(t0):.1f}"
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()),
           flush=True)
 
@@ -811,8 +883,9 @@ def check_earlier(phase: str, topo: str, rate: float, algo: str,
              f"{energy}; before batched planning {want[0]}, {want[1]}")
 
 
-def build_kernels() -> None:
-    """Build every kernel library at once, one ``nvcc`` per source."""
+def start_build() -> tuple:
+    """Start building every kernel library at once, one ``nvcc`` per
+    source: ``(libraries, futures by name)`` for ``finish_build``."""
     from repro_torch.kernels.dpm_cost import KERNEL as DPM_KERNEL
     from repro_torch.kernels.flash_attention import BWD_KERNEL, BWD_WGMMA_LIB
     from repro_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
@@ -825,11 +898,23 @@ def build_kernels() -> None:
                ("flash_attention_bwd", BWD_KERNEL),
                ("flash_attention_bwd_wgmma", BWD_WGMMA_LIB),
                ("ssd", SSD_KERNEL), ("noc_step", SEGMIN_KERNEL)]
-    t0 = time.monotonic()
-    with ThreadPoolExecutor(len(kernels)) as pool:
-        for f in [pool.submit(k.build) for _, k in kernels]:
-            f.result()
-    wall = time.monotonic() - t0
+    pool = ThreadPoolExecutor(len(kernels))
+    futures = {name: pool.submit(k.build) for name, k in kernels}
+    pool.shutdown(wait=False)
+    return kernels, futures
+
+
+def finish_build(build: tuple) -> None:
+    """Wait for ``start_build``'s libraries; print each one's nvcc time and
+    ptxas report and hold the shared-memory mirrors."""
+    from repro_torch.kernels.flash_attention import BWD_KERNEL, BWD_WGMMA_LIB
+    from repro_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
+    from repro_torch.kernels.ssd import KERNEL as SSD_KERNEL
+
+    kernels, futures = build
+    for f in futures.values():
+        f.result()
+    wall = max(k.build_seconds for _, k in kernels)
     for name, k in kernels:
         say("build", library=name, seconds=f"{wall:.2f}",
             nvcc_seconds=f"{k.build_seconds:.2f}")
@@ -896,7 +981,7 @@ def check_smem_mirrors(flash_lib, ssd_lib, bwd_lib, bwd_wgmma_lib) -> None:
     import torch
 
     from repro_torch.kernels.flash_attention.flash_attention import (
-        BWD_HEAD_DIMS, HEAD_DIMS, bwd_smem_bytes, smem_bytes as flash_smem,
+        HEAD_DIM_PAIRS, bwd_smem_bytes, smem_bytes as flash_smem,
     )
     from repro_torch.kernels.ssd.ssd import (
         TC_MAX_CHUNK, TC_SHAPES, smem_bytes as ssd_smem,
@@ -905,24 +990,24 @@ def check_smem_mirrors(flash_lib, ssd_lib, bwd_lib, bwd_wgmma_lib) -> None:
     for dtype in (torch.bfloat16, torch.float32):
         bf16 = int(dtype == torch.bfloat16)
         name = "flash_fwd_tc_kernel" if bf16 else "flash_fwd_kernel<f32>"
-        for D in HEAD_DIMS:
-            got = flash_lib.flash_attention_smem_bytes(bf16, D)
-            say("build", smem=f"{name}<{D}>", dynamic_smem=got)
-            if got != flash_smem(dtype, D):
-                fail(f"flash smem mirror: {got} != {flash_smem(dtype, D)}")
-        for D in BWD_HEAD_DIMS:
+        for D, Dv in HEAD_DIM_PAIRS:
+            got = flash_lib.flash_attention_smem_bytes(bf16, D, Dv)
+            say("build", smem=f"{name}<{D},{Dv}>", dynamic_smem=got)
+            if got != flash_smem(dtype, D, Dv):
+                fail(f"flash smem mirror: {got} != "
+                     f"{flash_smem(dtype, D, Dv)}")
             for part in ("dkdv", "dq"):
                 dkdv = int(part == "dkdv")
                 routes = [("mma_sync", bwd_lib.flash_attention_bwd_smem_bytes(
-                    bf16, D, dkdv), "tc_kernel" if bf16 else "kernel<f32>")]
+                    bf16, D, Dv, dkdv), "tc_kernel" if bf16 else "kernel<f32>")]
                 if bf16:
                     routes.append((
                         "wgmma",
                         bwd_wgmma_lib.flash_attention_bwd_wgmma_smem_bytes(
-                            D, dkdv), "wgmma_kernel"))
+                            D, Dv, dkdv), "wgmma_kernel"))
                 for route, got, kind in routes:
-                    want = bwd_smem_bytes(dtype, D, part, route=route)
-                    say("build", smem=f"flash_bwd_{part}_{kind}<{D}>",
+                    want = bwd_smem_bytes(dtype, D, Dv, part, route=route)
+                    say("build", smem=f"flash_bwd_{part}_{kind}<{D},{Dv}>",
                         route=route, dynamic_smem=got)
                     if got != want:
                         fail(f"flash backward smem mirror ({route}): {got} "
@@ -937,51 +1022,59 @@ def check_smem_mirrors(flash_lib, ssd_lib, bwd_lib, bwd_wgmma_lib) -> None:
                 fail(f"SSD smem mirror: {got} != {ssd_smem(dtype, *args)}")
 
 
-def profiled_ms(fn, match: str = "") -> tuple[float | None, int]:
-    """Device time (ms) and launch count of the CUDA kernels whose names
-    contain ``match`` in one call of ``fn``, from ``torch.profiler``; None
-    when none of ``PROFILE_TRIES`` traces holds device time for them (now
-    and then a trace comes back with no device activity at all, and a new
-    trace of the same call has it)."""
+def trace_kernels(fn) -> dict:
+    """``{kernel name: (launches, device ms)}`` of the CUDA kernels in one
+    ``torch.profiler`` trace of ``fn()``, taken in the step after a
+    warm-up step of the same call."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", 0.0)
+        if t > 0 and e.device_type == DeviceType.CUDA:
+            n, ms = out.get(e.key, (0, 0.0))
+            out[e.key] = (n + e.count, ms + t / 1e3)
+    return out
+
+
+def profiled_ms(fn, match: str = "", kernels: int | None = None
+                ) -> tuple[float | None, int, int]:
+    """Device time (ms) and launch count of the CUDA kernels whose names
+    contain ``match`` in one call of ``fn`` (``trace_kernels``), and the
+    number of traces discarded before it: a trace without device time for
+    them or, with ``kernels``, without that many launches. None when none
+    of ``PROFILE_TRIES`` traces has them."""
+    import torch
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        total, count = 0.0, 0
-        for e in prof.key_averages():
-            t = getattr(e, "device_time_total", 0.0)
-            if t > 0 and match in e.key and e.device_type == DeviceType.CUDA:
-                total += t
-                count += e.count
-        if count:
-            return total / 1e3, count
-    return None, 0
+    for tries in range(PROFILE_TRIES):
+        seen = [v for k, v in trace_kernels(fn).items() if match in k]
+        count = sum(n for n, _ in seen)
+        if count and kernels in (None, count):
+            return sum(ms for _, ms in seen), count, tries
+    return None, 0, PROFILE_TRIES
 
 
 def kernel_split_ms(fn, match: str) -> dict:
     """Device ms of one call of ``fn`` by CUDA kernel, for the kernels whose
-    names contain ``match`` (``torch.profiler``; empty when the trace holds
+    names contain ``match`` (``trace_kernels``; empty when the trace holds
     no device time)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {re.search(rf"{match}\w*", e.key)[0]: e.device_time_total / 1e3
-            for e in prof.key_averages()
-            if getattr(e, "device_time_total", 0.0) > 0 and match in e.key
-            and e.device_type == DeviceType.CUDA}
+    return {re.search(rf"{match}\w*", k)[0]: ms
+            for k, (_, ms) in trace_kernels(fn).items() if match in k}
 
 
 def median_ms(fn, reps: int = 3):
@@ -1370,7 +1463,7 @@ def phase_bulk_plan(cfg16) -> None:
     chunks = [keys[i:i + bpm.DISPATCH_CHUNK]
               for i in range(0, len(keys), bpm.DISPATCH_CHUNK)]
     outs, exact_ms = timed(lambda: [bp._dispatch(ck) for ck in chunks])
-    kernels_ms, n_kernels = profiled_ms(
+    kernels_ms, n_kernels, _ = profiled_ms(
         lambda: [bp._dispatch(ck) for ck in chunks])
     t0 = time.monotonic()
     lists = [[x.tolist() for x in out[:4]] for out in outs]
@@ -1476,18 +1569,19 @@ def capture_inputs(params, cfg, run, tokens) -> tuple[list, list]:
 
 def attention_bound_ms(q, k, v, window, q_offset=0) -> tuple[float, str, int, int]:
     """Least time the card could take for one attention call: the larger of
-    q, k, v read once and the output written once over HBM bandwidth, and
-    4 D operations per visible (query, key) pair (QK^T and PV, multiply and
-    add; the causal and window masks counted exactly) over the bf16
-    tensor-core rate."""
+    q, k, v read once and the output (v's width Dv) written once over HBM
+    bandwidth, and 2 D + 2 Dv operations per visible (query, key) pair (QK^T
+    and PV, multiply and add; the causal and window masks counted exactly)
+    over the bf16 tensor-core rate."""
     from repro_torch.kernels.flash_attention import attention_mask
 
     B, Sq, H, D = q.shape
-    Sk = k.shape[1]
+    Sk, Dv = k.shape[1], v.shape[-1]
     pairs = int(attention_mask(Sq, Sk, causal=True, window=window,
                                q_offset=q_offset, device=q.device).sum())
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
-    ops = 4 * D * pairs * B * H
+    nbytes = (sum(t.numel() for t in (q, k, v)) + B * Sq * H * Dv) \
+        * q.element_size()
+    ops = (2 * D + 2 * Dv) * pairs * B * H
     return roofline(nbytes, ops, BF16_FLOPS_PER_S)
 
 
@@ -1556,8 +1650,8 @@ def check_attention(label, q, k, v, window, q_offset, dtype,
     dead = dead_first_tile_rows(q.shape[1], k.shape[1], window, q_offset)
     say("kernel_vs_plain", kernel="flash_attention", case=label,
         dtype=str(dtype).removeprefix("torch."), variant=VARIANTS[dtype],
-        shape=tuple(q.shape), kv=tuple(k.shape), window=window,
-        q_offset=q_offset, dead_first_tile_rows=dead,
+        shape=tuple(q.shape), kv=tuple(k.shape), dv=v.shape[-1],
+        window=window, q_offset=q_offset, dead_first_tile_rows=dead,
         max_abs_err=err, atol=atol,
         plain_rms=f"{float(w.square().mean().sqrt()):.5f}",
         plain_median_abs=f"{float(w.abs().median()):.5f}",
@@ -1606,8 +1700,8 @@ def serve_kernel_alone() -> None:
     device time of one launch of each serving kernel on seeded random
     inputs at the serving shapes (the times depend on shapes and masks, not
     on values): hymba's global and window attention layers, moonshot's
-    attention at D = 128, deepseek's MLA prefill at D = 192 (128 heads, v
-    zero-padded), hymba's SSD layer and mamba2's. Run in a fresh
+    attention at D = 128, deepseek's MLA prefill (128 heads, q/k 192, v
+    128), hymba's SSD layer and mamba2's. Run in a fresh
     process by ``phase_serve``: in a long run of this script the profiler
     stopped reporting device time for these launches after the earlier
     phases had profiled, though a fresh process reports it."""
@@ -1641,11 +1735,11 @@ def serve_kernel_alone() -> None:
             lambda: flash_attention_cuda(qm, km, vm),
             f"flash_fwd{tc}_kernel")[0]
         del qm, km, vm
-        # deepseek's MLA prefill: 128 heads of 192, v zero-padded past 128
+        # deepseek's MLA prefill: 128 heads, q/k 192, v 128
         ds = ARCHS[MLA_ARCH]
-        qd, kd, vd = (randn(B, S, ds.n_heads, attn_head_dim(ds)).to(dtype)
-                      for _ in range(3))
-        vd[..., ds.mla.v_head_dim:] = 0
+        D, Dv = attn_head_dims(ds)
+        qd, kd, vd = (randn(B, S, ds.n_heads, d).to(dtype)
+                      for d in (D, D, Dv))
         out[f"flash_attention/mla/{dt_name}"] = profiled_ms(
             lambda: flash_attention_cuda(qd, kd, vd),
             f"flash_fwd{tc}_kernel")[0]
@@ -1718,13 +1812,16 @@ def child_json(flag: str) -> dict:
     ``--prefill-profile``): profiler times taken in a fresh process. A
     time the child's traces lacked (None) is taken from a second child."""
     def run() -> dict:
-        proc = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()), flag],
-            capture_output=True, text=True, timeout=300,
-        )
+        proc = start_child(flag)
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise
         if proc.returncode != 0:
-            fail(f"the child {flag} failed:\n{proc.stderr[-2000:]}")
-        return json.loads(proc.stdout.strip().splitlines()[-1])
+            fail(f"the child {flag} failed:\n{stderr[-2000:]}")
+        return json.loads(stdout.strip().splitlines()[-1])
 
     def lacks(a) -> bool:
         return a is None or isinstance(a, dict) and any(map(lacks, a.values()))
@@ -1826,8 +1923,8 @@ def phase_serve() -> list:
     serve_s = time.monotonic() - t0
     launches = {"flash_attention": FLASH_KERNEL.launches,
                 "ssd_intra_chunk": SSD_KERNEL.launches}
-    flash_dims = {str(d): n for d, n in FLASH_KERNEL.head_dim_launches.items()
-                  if n}
+    flash_dims = {pair_key(d): n
+                  for d, n in FLASH_KERNEL.head_dim_launches.items() if n}
     for i, (n, res, fl, sl, S, var) in enumerate(per_batch):
         B = res.tokens.shape[0]
         say("serve", batch=i, requests=n, prompt_len=S,
@@ -1928,14 +2025,15 @@ def phase_serve() -> list:
             check_attention(f"{lab}_S{ragged}", q[:, :ragged], k[:, :ragged],
                             v[:, :ragged], w, 0, dtype)
     edge = torch.Generator(device="cuda").manual_seed(1)
-    for lab, B_, S_, H_, KH_, D_, w in ATTN_EDGE_CASES:
-        q, k, v = (torch.randn((B_, S_, h, D_), generator=edge, device="cuda")
-                   for h in (H_, KH_, KH_))
+    for lab, B_, Sq_, Sk_, H_, KH_, D_, Dv_, w, off in ATTN_EDGE_CASES:
+        q, k, v = (torch.randn((B_, S_, h, d), generator=edge, device="cuda")
+                   for S_, h, d in ((Sq_, H_, D_), (Sk_, KH_, D_),
+                                    (Sk_, KH_, Dv_)))
         if lab == "window_dead_first_tile" and not dead_first_tile_rows(
-                S_, S_, w, 0):
+                Sq_, Sk_, w, off):
             fail(f"{lab}: no row has a fully masked first key tile")
         for dtype in (torch.bfloat16, torch.float32):
-            check_attention(lab, q, k, v, w, 0, dtype)
+            check_attention(lab, q, k, v, w, off, dtype)
     ssd = {}
     for dtype in (torch.bfloat16, torch.float32):
         ssd["hymba", dtype] = check_ssd("hymba", scan_calls[0], dtype)
@@ -2026,7 +2124,7 @@ def phase_serve() -> list:
                     "replaces": "src/repro/kernels/flash_attention/"
                                 "flash_attention.py:95",
                     "launches": launches["flash_attention"],
-                    "launches_by_head_dim": flash_dims,
+                    "launches_by_head_dim_pair": flash_dims,
                     "max_abs_err": max(v["err"] for v in attn.values()),
                     "ms": t["ms"], "plain_ms": t["plain_ms"],
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
@@ -2163,12 +2261,20 @@ def padded_prompts(reqs) -> "np.ndarray":
     return out
 
 
-def attn_head_dim(cfg) -> int:
-    """The head dim of a model's prefill attention: MLA's q/k (nope +
-    rope, v padded to it), else the GQA head dim."""
+def attn_head_dims(cfg) -> tuple[int, int]:
+    """The head-dim pair (q/k, v) of a model's prefill attention: MLA's
+    (nope + rope, v_head_dim), else the GQA head dim twice."""
     if cfg.mla:
-        return cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
-    return cfg.head_dim
+        return (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim,
+                cfg.mla.v_head_dim)
+    return cfg.head_dim, cfg.head_dim
+
+
+def pair_key(pair) -> str:
+    """A head-dim pair's key in the printed lines and the kernels line:
+    ``"192x128"``; an int is a head dim with v as wide."""
+    D, Dv = (pair, pair) if isinstance(pair, int) else pair
+    return f"{D}x{Dv}"
 
 
 def cut_depth(cfg, layout):
@@ -2192,7 +2298,8 @@ def reset_flash_counts() -> None:
 def counted_prefills(prefills: list):
     """Patch ``serve.engine.prefill`` so that the flash counts are set to 0
     just before each prefill and read just after: each prefill appends
-    (launches, launches by variant, launches by head dim) to ``prefills``."""
+    (launches, launches by variant, launches by head-dim pair) to
+    ``prefills``."""
     import repro_torch.serve.engine as engine
     from repro_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
 
@@ -2213,7 +2320,7 @@ def counted_prefills(prefills: list):
 def batch_line(tag: str, i: int, res, S: int, counts, cfg, **extra) -> int:
     """One ``[tag]`` line of batch ``i`` and its prefill's flash counts;
     fails unless the prefill launched the bf16 kernel once a layer, all at
-    the model's attention head dim. Returns the launches."""
+    the model's attention head-dim pair. Returns the launches."""
     fl, var, dims = counts
     B = res.tokens.shape[0]
     say(tag, batch=i, requests=B, prompt_len=S,
@@ -2223,12 +2330,13 @@ def batch_line(tag: str, i: int, res, S: int, counts, cfg, **extra) -> int:
         decode_tokens_per_s=f"{B / res.decode_ms_per_token * 1e3:.1f}",
         flash_launches=fl,
         variants=",".join(f"{k}:{v}" for k, v in var.items()),
-        head_dims=",".join(f"{d}:{n}" for d, n in dims.items()), **extra)
-    L, D = cfg.n_layers, attn_head_dim(cfg)
+        head_dims=",".join(f"{pair_key(d)}:{n}" for d, n in dims.items()),
+        **extra)
+    L, pair = cfg.n_layers, attn_head_dims(cfg)
     want = {"wgmma_bf16": L, "cuda_core_f32": 0}
-    if fl != L or var != want or dims != {D: L}:
+    if fl != L or var != want or dims != {pair: L}:
         fail(f"{tag} batch {i}: {fl} flash launches {var} at head dims "
-             f"{dims} a prefill, expected {want} at D = {D}")
+             f"{dims} a prefill, expected {want} at {pair}")
     if not ((0 <= res.tokens) & (res.tokens < cfg.vocab)).all():
         fail(f"{tag} batch {i}: tokens outside the vocabulary")
     return fl
@@ -2337,7 +2445,7 @@ def capture_layers(params, cfg, run, batch: dict, layers) -> dict:
     return {i: calls[i] for i in layers}
 
 
-def flash_checks(name: str, captured: dict, D: int, ragged: int) -> tuple:
+def flash_checks(name: str, captured: dict, pair: tuple, ragged: int) -> tuple:
     """The flash kernel against its plain version, bf16 and f32, on each
     captured layer, also cut to ``ragged`` keys and as a 64-query
     ``q_offset`` chunk, at the absolute and the per-row tolerance. Returns
@@ -2350,8 +2458,9 @@ def flash_checks(name: str, captured: dict, D: int, ragged: int) -> tuple:
     first = min(captured)
     for dtype in (torch.bfloat16, torch.float32):
         for layer, (q, k, v, w) in captured.items():
-            if w is not None or q.shape[-1] != D:
-                fail(f"layer {layer}: window {w}, head dim {q.shape[-1]}")
+            if w is not None or (q.shape[-1], v.shape[-1]) != pair:
+                fail(f"layer {layer}: window {w}, head dims {q.shape[-1]}, "
+                     f"{v.shape[-1]}")
             lab = f"{name}_l{layer}"
             r = check_attention(lab, q, k, v, w, 0, dtype, row_rtol=True)
             errs.append(r["err"])
@@ -2365,12 +2474,9 @@ def flash_checks(name: str, captured: dict, D: int, ragged: int) -> tuple:
     return max(errs), timing
 
 
-def flash_timing(timing: dict, q, k, v, dv: int | None = None) -> None:
+def flash_timing(timing: dict, q, k, v) -> None:
     """SDPA's time and the bounds beside each dtype's kernel timing, on the
-    inputs the kernel ran. Where ``dv``, the values' own width, is given, v
-    was zero-padded to the q/k head dim: ``bound_ms`` is then the bound of
-    the function itself (q and k at their dim, v and the output at ``dv``)
-    and ``padded_bound_ms`` that of the padded work the kernel does."""
+    inputs the kernel ran (v and the output at v's own width)."""
     import torch
     import torch.nn.functional as F
 
@@ -2381,20 +2487,7 @@ def flash_timing(timing: dict, q, k, v, dv: int | None = None) -> None:
             qd.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2),
             is_causal=True, enable_gqa=True))
         b_ms, b_by, nbytes, ops = attention_bound_ms(qd, kd, vd, None)
-        t.update(sdpa_ms=lib_ms, shape=list(q.shape))
-        if dv is not None:
-            D, es = q.shape[-1], qd.element_size()
-            if v.shape[:-1] != k.shape[:-1] or v[..., dv:].any():
-                fail(f"v {tuple(v.shape)} is not k's shape zero-padded "
-                     f"past {dv}")
-            t.update(padded_bound_ms=b_ms, padded_bytes=nbytes,
-                     padded_ops=ops)
-            # q and k read at D, v read and the output written at dv; per
-            # visible (query, key) pair 2 D operations for QK^T, 2 dv for PV
-            nbytes = ((qd.numel() + kd.numel()) * es
-                      + (vd.numel() // D + qd.numel() // D) * dv * es)
-            ops = ops // (4 * D) * (2 * D + 2 * dv)
-            b_ms, b_by, _, _ = roofline(nbytes, ops, BF16_FLOPS_PER_S)
+        t.update(sdpa_ms=lib_ms, shape=list(q.shape), dv=v.shape[-1])
         t.update(bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops,
                  f32_core_bound_ms=max(nbytes / HBM_BYTES_PER_S,
                                        ops / F32_FLOPS_PER_S) * 1e3)
@@ -2489,7 +2582,8 @@ def init_line(tag: str, cfg, run, **extra):
                        for t in tree_leaves(params))
     say(tag, arch=cfg.name, **extra, d_model=cfg.d_model,
         heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
-        attn_head_dim=attn_head_dim(cfg), params=count_params(params),
+        attn_head_dims=pair_key(attn_head_dims(cfg)),
+        params=count_params(params),
         weights_gib=f"{weight_bytes / 2**30:.2f}", init_s=f"{init_s:.2f}",
         init_peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
     return params
@@ -2499,7 +2593,8 @@ def child_result(dims: dict, err: float | None = None,
                  timing: dict | None = None) -> None:
     """The last line of a serving child: its flash launches by head dim,
     the largest kernel-vs-plain error and the kernel timings."""
-    print(json.dumps({"head_dim_launches": {str(d): n for d, n in dims.items()},
+    print(json.dumps({"head_dim_launches": {pair_key(d): n
+                                            for d, n in dims.items()},
                       "max_abs_err": err, "timing": timing or {}}),
           flush=True)
 
@@ -2541,7 +2636,8 @@ def serve_moe() -> None:
 
     # ---- the flash kernel against its plain version at D = 128 -----------
     ragged = int(lens[SERVE_MAX_BATCH:].max())  # batch 1's length
-    err, timing = flash_checks("moonshot", captured, cfg.head_dim, ragged)
+    err, timing = flash_checks("moonshot", captured, attn_head_dims(cfg),
+                               ragged)
     flash_timing(timing, *captured[0][:3])
     del captured
     torch.cuda.empty_cache()
@@ -2549,17 +2645,18 @@ def serve_moe() -> None:
     # ---- kernel path against plain path: 2 layers at full width, f32 ------
     layers_vs_plain(cfg, (("attn_moe", MOE_PLAIN_LAYERS),),
                     {"tokens": prompts})
-    child_result({cfg.head_dim: launches}, err, timing)
+    child_result({attn_head_dims(cfg): launches}, err, timing)
 
 
 def serve_mla() -> None:
     """``--serve-mla``: deepseek-v2-236b at full width, its dense first
     layer and ``MLA_LAYOUT``'s MoE layers, on the card in a process of its
     own: the same 8 requests through ``BatchServer`` (one ``wgmma_bf16``
-    flash launch at D = 192 a layer a prefill), routing from untimed
-    prefills, the flash kernel against its plain version on the q/k/v
-    (v zero-padded to 192) of the first and last layers, then the first
-    two layers in f32 on the kernel path against the plain path. Prints
+    flash launch at the head-dim pair (192, 128) a layer a prefill),
+    routing from untimed prefills, the flash kernel against its plain
+    version on the q/k/v (q and k 192 wide, v 128) of the first and last
+    layers, then the first two layers in f32 on the kernel path against
+    the plain path. Prints
     ``[serve_mla]``, ``[kernel_vs_plain]`` and ``[serve_vs_plain]`` lines,
     then one JSON line."""
     import numpy as np
@@ -2574,7 +2671,7 @@ def serve_mla() -> None:
     full, run = ARCHS[MLA_ARCH], RunConfig()
     cfg = cut_depth(full, MLA_LAYOUT)
     m, mla = cfg.moe, cfg.mla
-    D = attn_head_dim(cfg)
+    pair = attn_head_dims(cfg)
     params = init_line(
         "serve_mla", cfg, run,
         layers=f"{cfg.n_layers}_of_{full.n_layers}",
@@ -2596,19 +2693,18 @@ def serve_mla() -> None:
     del params
     torch.cuda.empty_cache()
     for layer, (q, k, v, _) in captured.items():
-        if v[..., mla.v_head_dim:].any() or q.shape[2] != cfg.n_heads:
-            fail(f"layer {layer}: v not zero past {mla.v_head_dim} or "
-                 f"{q.shape[2]} heads")
+        if q.shape[2] != cfg.n_heads:
+            fail(f"layer {layer}: {q.shape[2]} heads")
     ragged = int(lens[SERVE_MAX_BATCH:].max())  # batch 1's length
-    err, timing = flash_checks("deepseek", captured, D, ragged)
-    flash_timing(timing, *captured[0][:3], dv=mla.v_head_dim)
+    err, timing = flash_checks("deepseek", captured, pair, ragged)
+    flash_timing(timing, *captured[0][:3])
     del captured
     torch.cuda.empty_cache()
 
     # ---- kernel path against plain path: 2 layers at full width, f32 ------
     layers_vs_plain(full, (("mla_dense", 1), ("mla_moe", 1)),
                     {"tokens": padded_prompts(reqs[:SERVE_MAX_BATCH])})
-    child_result({D: launches}, err, timing)
+    child_result({pair: launches}, err, timing)
 
 
 def int8_run(params, cfg, run, kv: str, x, feed, fault: str | None = None):
@@ -2811,8 +2907,8 @@ def serve_frames() -> None:
         if any(res.tokens.shape != (SERVE_MAX_BATCH, SERVE_MAX_TOKENS)
                for res in results):
             fail(f"{name}: token shapes {[r.tokens.shape for r in results]}")
-        D = attn_head_dim(cfg)
-        dims[D] = dims.get(D, 0) + launches
+        pair = attn_head_dims(cfg)
+        dims[pair] = dims.get(pair, 0) + launches
         say("serve_frames", arch=cfg.name, batches=len(results),
             prompt_lens=",".join(str(f.shape[1]) for f in batches),
             max_tokens=SERVE_MAX_TOKENS, serve_s=f"{serve_s:.3f}",
@@ -2830,7 +2926,7 @@ def serve_frames() -> None:
                                   (0, cfg.n_layers - 1))
         del params, frames
         torch.cuda.empty_cache()
-        err, _ = flash_checks(cfg.name, captured, D, batches[1].shape[1])
+        err, _ = flash_checks(cfg.name, captured, pair, batches[1].shape[1])
         errs.append(err)
         del captured
         torch.cuda.empty_cache()
@@ -2845,19 +2941,23 @@ def serve_frames() -> None:
 # training: stablelm-1.6b through repro_torch.train.train, flash attention
 # forward and backward kernels
 # ---------------------------------------------------------------------------
-def bwd_bound_ms(q, k, window, q_offset=0) -> tuple[float, str, int, int]:
+def bwd_bound_ms(q, k, v, window, q_offset=0) -> tuple[float, str, int, int]:
     """Least time the card could take for one attention backward: the
     larger of q, k, v, out, dout and lse read once and dq, dk, dv written
-    once over HBM bandwidth, and 10 D operations per visible (query, key)
-    pair (Q K^T and dO V^T recomputed, P^T dO, dS^T Q, dS K; the masks
-    counted exactly) over the bf16 tensor-core rate."""
+    once over HBM bandwidth (out, dout and dv at v's width Dv), and 6 D +
+    4 Dv operations per visible (query, key) pair (Q K^T and dO V^T
+    recomputed, P^T dO, dS^T Q, dS K; the masks counted exactly) over the
+    bf16 tensor-core rate."""
     from repro_torch.kernels.flash_attention import attention_mask
 
     B, Sq, H, D = q.shape
+    Dv = v.shape[-1]
     pairs = int(attention_mask(Sq, k.shape[1], causal=True, window=window,
                                q_offset=q_offset, device=q.device).sum())
-    nbytes = 4 * (q.numel() + k.numel()) * q.element_size() + B * Sq * H * 4
-    return roofline(nbytes, 10 * D * pairs * B * H, BF16_FLOPS_PER_S)
+    nbytes = (2 * (q.numel() + k.numel() + v.numel() + B * Sq * H * Dv)
+              * q.element_size() + B * Sq * H * 4)
+    return roofline(nbytes, (6 * D + 4 * Dv) * pairs * B * H,
+                    BF16_FLOPS_PER_S)
 
 
 def row_rel_err(got, want) -> float:
@@ -2870,18 +2970,57 @@ def row_rel_err(got, want) -> float:
                  .max())
 
 
-def check_bwd(label, q, k, v, dout, window, q_offset, dtype) -> dict:
+def kv_groups(KH: int, G: int, group: int | None) -> list:
+    """(KV-head slice, query-head slice) of each group of ``group`` KV heads
+    (one group of all where ``group`` is None)."""
+    n = KH if group is None else group
+    return [(slice(h, min(h + n, KH)), slice(h * G, min(h + n, KH) * G))
+            for h in range(0, KH, n)]
+
+
+def plain_bwd(q, k, v, out, lse, dout, group: int | None = None, **kw):
+    """``flash_attention_bwd_ref`` in groups of ``group`` KV heads and
+    their query heads, the groups' results joined: the same function,
+    each group's S x S tensors alone in memory."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_ref
+
+    G = q.shape[2] // k.shape[2]
+    parts = [flash_attention_bwd_ref(q[:, :, qh], k[:, :, kh], v[:, :, kh],
+                                     out[:, :, qh], lse[:, :, qh],
+                                     dout[:, :, qh], **kw)
+             for kh, qh in kv_groups(k.shape[2], G, group)]
+    return tuple(torch.cat(x, dim=2) for x in zip(*parts))
+
+
+def plain_lse(q, k, v, group: int | None = None, **kw):
+    """The row log-sum-exp of ``flash_attention_ref`` in groups of
+    ``group`` KV heads, as ``plain_bwd``."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+
+    G = q.shape[2] // k.shape[2]
+    return torch.cat([flash_attention_ref(q[:, :, qh], k[:, :, kh],
+                                          v[:, :, kh], return_lse=True,
+                                          **kw)[1]
+                      for kh, qh in kv_groups(k.shape[2], G, group)], dim=2)
+
+
+def check_bwd(label, q, k, v, dout, window, q_offset, dtype,
+              group: int | None = None) -> dict:
     """The backward kernels against their plain version on the card, on
     the forward kernel's own out and lse (so that the backward alone is
     compared); bf16 on both routes (``wgmma``, ``mma_sync``) at the per-row
     bound ``BWD_ROW_RTOL``, f32 (one kernel whatever the route) within
     ``BWD_F32_RTOL`` x max |.|; a second call of each must give the same
-    bits."""
+    bits. With ``group`` the plain version runs in groups of that many KV
+    heads (``plain_bwd``); the kernels run on every head at once."""
     import torch
 
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd_cuda, flash_attention_bwd_ref,
-        flash_attention_cuda, flash_attention_ref,
+        flash_attention_bwd_cuda, flash_attention_cuda,
     )
     from repro_torch.kernels.flash_attention.flash_attention import (
         BWD_ROUTES, BWD_VARIANTS,
@@ -2890,10 +3029,9 @@ def check_bwd(label, q, k, v, dout, window, q_offset, dtype) -> dict:
     q, k, v, dout = (t.to(dtype) for t in (q, k, v, dout))
     kw = dict(causal=True, window=window, q_offset=q_offset)
     out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
-    lse_err = float((lse - flash_attention_ref(q, k, v, return_lse=True,
-                                               **kw)[1]).abs().max())
-    want, p_ms = median_ms(lambda: flash_attention_bwd_ref(
-        q, k, v, out, lse, dout, **kw))
+    lse_err = float((lse - plain_lse(q, k, v, group, **kw)).abs().max())
+    want, p_ms = median_ms(lambda: plain_bwd(q, k, v, out, lse, dout, group,
+                                             **kw))
     scales = [float(b.float().abs().max()) for b in want]
     bf16 = dtype == torch.bfloat16
     res = {}
@@ -2912,7 +3050,9 @@ def check_bwd(label, q, k, v, dout, window, q_offset, dtype) -> dict:
         say("kernel_vs_plain", kernel="flash_attention_bwd", case=label,
             dtype=str(dtype).removeprefix("torch."), route=route,
             variant=BWD_VARIANTS[route][dtype], shape=tuple(q.shape),
-            kv=tuple(k.shape), window=window, q_offset=q_offset,
+            kv=tuple(k.shape), dv=v.shape[-1], window=window,
+            q_offset=q_offset,
+            plain_split=(f"{group}_kv_heads_a_group" if group else "none"),
             max_abs_err_dq_dk_dv=",".join(f"{e:.3g}" for e in errs),
             max_abs_dq_dk_dv=",".join(f"{s:.3g}" for s in scales),
             max_row_rel_err_dq_dk_dv=",".join(f"{r:.3g}" for r in rows),
@@ -2929,69 +3069,79 @@ def check_bwd(label, q, k, v, dout, window, q_offset, dtype) -> dict:
                 routes=res)
 
 
-def bwd_kernel_time() -> dict:
-    """The backward kernels at stablelm's training shape on seeded inputs,
-    both routes from one run: each alone from the profiler (its three
-    kernels) and through the wrapper (CUDA events, the routes in turns),
-    the plain version, SDPA's backward on the same bf16 inputs (the library
-    yardstick), the bound (10 D a visible pair) and the design floor of the
-    two-pass kernels (14 D: Q K^T and dO V^T recomputed in each pass). Run
-    first in the ``--train`` child."""
+def bwd_kernel_time(case: str, B: int, S: int, H: int, KH: int, D: int,
+                    Dv: int, group: int | None = None) -> dict:
+    """The backward kernels at a training shape on seeded inputs (q and k
+    of head dim D, v of Dv), both routes from one run: each alone from the
+    profiler (its three kernels) and through the wrapper (CUDA events, the
+    routes in turns), the plain version (``plain_bwd``, in groups of
+    ``group`` KV heads where given), SDPA's backward on the same bf16
+    inputs (the library yardstick), the bound (6 D + 4 Dv a visible pair)
+    and the design floor of the two-pass kernels (8 D + 6 Dv: Q K^T and dO
+    V^T recomputed in each pass). Run first in the ``--train`` and
+    ``--train-mla`` children."""
     import statistics
 
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd_cuda, flash_attention_bwd_ref,
-        flash_attention_cuda,
+        flash_attention_bwd_cuda, flash_attention_cuda,
     )
     from repro_torch.kernels.flash_attention.flash_attention import (
         BWD_ROUTES, BWD_VARIANTS,
     )
 
-    B, S, H, D = TRAIN_BATCH, TRAIN_SEQ, 32, 64
     g = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v, dout = (torch.randn((B, S, H, D), generator=g, device="cuda")
-                     .to(torch.bfloat16) for _ in range(4))
+    q, k, v, dout = (torch.randn(shape, generator=g, device="cuda")
+                     .to(torch.bfloat16)
+                     for shape in ((B, S, H, D), (B, S, KH, D),
+                                   (B, S, KH, Dv), (B, S, H, Dv)))
     out, lse = flash_attention_cuda(q, k, v, return_lse=True)
     fns = {r: (lambda r=r: flash_attention_bwd_cuda(q, k, v, out, lse, dout,
                                                     route=r))
            for r in BWD_ROUTES}
     alone, split = {}, {}
     for route, fn in fns.items():
-        alone[route] = profiled_ms(fn, "flash_bwd")
+        # a call is three kernels: delta, dK/dV, dQ
+        alone[route] = profiled_ms(fn, "flash_bwd", kernels=3)
         if alone[route][0] is None:
-            fail(f"no device time for the flash backward kernels ({route})")
+            fail(f"no trace held the three flash backward kernels ({route})")
         split[route] = kernel_split_ms(fn, "flash_bwd")
     runs = {r: [] for r in BWD_ROUTES}
     for turn in (BWD_ROUTES, BWD_ROUTES[::-1], BWD_ROUTES):
         for route in turn:
             runs[route].append(timed(fns[route])[1])
     wrapper = {r: statistics.median(t) for r, t in runs.items()}
-    _, p_ms = median_ms(lambda: flash_attention_bwd_ref(q, k, v, out, lse,
-                                                        dout))
+    _, p_ms = median_ms(lambda: plain_bwd(q, k, v, out, lse, dout, group))
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
                   for t in (q, k, v))
-    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                       enable_gqa=True)
     do = dout.transpose(1, 2)
     _, lib_ms = median_ms(lambda: torch.autograd.grad(
         o, (qt, kt, vt), do, retain_graph=True))
-    b_ms, b_by, nbytes, ops = bwd_bound_ms(q, k, None)
-    floor_ms = 1.4 * ops / BF16_FLOPS_PER_S * 1e3
+    del o, qt, kt, vt
+    b_ms, b_by, nbytes, ops = bwd_bound_ms(q, k, v, None)
+    # the two passes' own work: 8 D + 6 Dv a visible pair
+    floor_ops = ops // (6 * D + 4 * Dv) * (8 * D + 6 * Dv)
+    floor_ms = floor_ops / BF16_FLOPS_PER_S * 1e3
     for route in BWD_ROUTES:
-        a_ms, kernels = alone[route]
+        a_ms, kernels, discarded = alone[route]
         ms = wrapper[route]
-        say("kernel_time", kernel="flash_attention_bwd", case="stablelm",
+        say("kernel_time", kernel="flash_attention_bwd", case=case,
             dtype="bfloat16", route=route,
             variant=BWD_VARIANTS[route][torch.bfloat16], shape=(B, S, H, D),
-            ms=f"{ms:.4f}",
+            kv_heads=KH, dv=Dv, ms=f"{ms:.4f}",
             ms_runs=",".join(f"{t:.4f}" for t in runs[route]),
             kernel_alone_ms=f"{a_ms:.4f}", kernels_per_call=kernels,
+            discarded_traces=discarded,
             kernels_ms=",".join(f"{k}:{t:.4f}"
                                 for k, t in split[route].items())
             or "not measured",
-            plain_ms=f"{p_ms:.4f}", sdpa_bwd_ms=f"{lib_ms:.4f}",
+            plain_ms=f"{p_ms:.4f}",
+            plain_split=(f"{group}_kv_heads_a_group" if group else "none"),
+            sdpa_bwd_ms=f"{lib_ms:.4f}",
             vs_sdpa=f"{ms / lib_ms:.3f}",
             alone_vs_sdpa=f"{a_ms / lib_ms:.3f}",
             bound_ms=f"{b_ms:.5f}", bound_by=b_by, bytes=nbytes, ops=ops,
@@ -2999,7 +3149,7 @@ def bwd_kernel_time() -> dict:
             times_bound=f"{ms / b_ms:.2f}",
             alone_times_bound=f"{a_ms / b_ms:.2f}",
             alone_times_floor=f"{a_ms / floor_ms:.2f}",
-            achieved_tflops_of_executed=f"{1.4 * ops / a_ms / 1e9:.1f}")
+            achieved_tflops_of_executed=f"{floor_ops / a_ms / 1e9:.1f}")
     return dict(ms=wrapper["wgmma"], alone_ms=alone["wgmma"][0],
                 plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
                 bound_by=b_by)
@@ -3015,10 +3165,13 @@ def train_run_config():
                      learning_rate=TRAIN_LR, vocab_round=128)
 
 
-def train_main(cfg, run) -> tuple[int, int]:
-    """The main path: ``train`` on the card for ``TRAIN_STEPS`` steps, the
-    launch counts set to 0 just before and read just after. Returns the
-    forward and backward flash launches."""
+def train_main(cfg, run, tag: str = "train",
+               steps: int = TRAIN_STEPS) -> tuple[int, int, dict]:
+    """The main path: ``train`` on the card for ``steps`` steps of
+    TRAIN_BATCH x TRAIN_SEQ tokens, the launch counts set to 0 just before
+    and read just after; every launch must be at the model's head-dim
+    pair. Returns the forward and backward flash launches and the
+    backward's by variant."""
     import statistics
 
     import torch
@@ -3029,7 +3182,7 @@ def train_main(cfg, run) -> tuple[int, int]:
     from repro_torch.train import LoopConfig, train
 
     n_params = count_params(model_init(0, cfg, run, device="meta")[0])
-    loop = LoopConfig(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+    loop = LoopConfig(steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                       log_every=0, seed=0)
     torch.cuda.reset_peak_memory_stats()
     reset_flash_counts()
@@ -3038,42 +3191,50 @@ def train_main(cfg, run) -> tuple[int, int]:
     torch.cuda.synchronize()
     fwd = dict(FLASH_KERNEL.variant_launches)
     bwd = dict(BWD_KERNEL.variant_launches)
+    pairs_run = {pair_key(p): (n, BWD_KERNEL.head_dim_launches[p])
+                 for p, n in FLASH_KERNEL.head_dim_launches.items()
+                 if n or BWD_KERNEL.head_dim_launches[p]}
     peak = torch.cuda.max_memory_allocated() / 2**30
     for i, (loss, gn, ms) in enumerate(zip(res.losses, res.grad_norms,
                                            res.step_ms)):
-        say("train", arch=cfg.name, step=i + 1, loss=repr(loss),
+        say(tag, arch=cfg.name, step=i + 1, loss=repr(loss),
             grad_norm=repr(gn), ms=f"{ms:.2f}")
     L = cfg.n_layers
-    want_fwd = {"wgmma_bf16": TRAIN_STEPS * L * (2 if run.remat == "block"
-                                                 else 1),
-                "cuda_core_f32": 0}
-    want_bwd = {"wgmma_bf16": TRAIN_STEPS * L, "mma_bf16": 0,
-                "cuda_core_f32": 0}
+    n_fwd = steps * L * (2 if run.remat == "block" else 1)
+    want_fwd = {"wgmma_bf16": n_fwd, "cuda_core_f32": 0}
+    want_bwd = {"wgmma_bf16": steps * L, "mma_bf16": 0, "cuda_core_f32": 0}
+    D, Dv = attn_head_dims(cfg)
+    want_pairs = {pair_key((D, Dv)): (n_fwd, steps * L)}
     med = statistics.median(res.step_ms[2:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
     pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    # 6 a parameter a token; attention 2 D + 2 Dv a visible pair forward,
+    # twice that backward
     flops = (6 * n_params * tokens
-             + 12 * cfg.head_dim * pairs * cfg.n_heads * L * TRAIN_BATCH)
+             + 6 * (D + Dv) * pairs * cfg.n_heads * L * TRAIN_BATCH)
     finite = all(map(math.isfinite, res.losses + res.grad_norms))
-    say("train", part="summary", arch=cfg.name, layers=L,
-        d_model=cfg.d_model, heads=cfg.n_heads, head_dim=cfg.head_dim,
+    say(tag, part="summary", arch=cfg.name, layers=L,
+        d_model=cfg.d_model, heads=cfg.n_heads, head_dims=pair_key((D, Dv)),
         params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-        steps=TRAIN_STEPS, lr=TRAIN_LR, remat=run.remat,
+        steps=steps, lr=run.learning_rate, remat=run.remat,
         params_dtype=run.params_dtype, master="float32",
         first_loss=repr(res.losses[0]), last_loss=repr(res.losses[-1]),
-        median_step_ms_3_to_8=f"{med:.2f}",
+        **{f"median_step_ms_3_to_{steps}": f"{med:.2f}"},
         tokens_per_s=f"{tokens / med * 1e3:.1f}",
         model_flops_per_step=flops,
         model_flops_share_of_bf16_peak=f"{flops / (med / 1e3) / BF16_FLOPS_PER_S:.4f}",
         peak_mem_gib=f"{peak:.2f}",
         flash_fwd_launches=",".join(f"{k}:{n}" for k, n in fwd.items()),
         flash_bwd_launches=",".join(f"{k}:{n}" for k, n in bwd.items()),
+        fwd_bwd_launches_by_head_dims=",".join(
+            f"{k}:{a}+{b}" for k, (a, b) in pairs_run.items()),
         wall_s=f"{res.wall_s:.2f}", finite=finite)
     if not finite or not res.losses[-1] < res.losses[0]:
         fail(f"training did not lower a finite loss: {res.losses}")
-    if fwd != want_fwd or bwd != want_bwd:
-        fail(f"training launched flash {fwd} and its backward {bwd}, "
-             f"expected {want_fwd} and {want_bwd}")
+    if fwd != want_fwd or bwd != want_bwd or pairs_run != want_pairs:
+        fail(f"training launched flash {fwd} and its backward {bwd} at "
+             f"{pairs_run}, expected {want_fwd} and {want_bwd} at "
+             f"{want_pairs}")
     return sum(fwd.values()), sum(bwd.values()), bwd
 
 
@@ -3159,10 +3320,11 @@ def train_split(cfg, run) -> dict:
     return {i: captured[i] for i in layers}
 
 
-def train_vs_plain(cfg, run) -> None:
-    """The first ``TRAIN_PLAIN_LAYERS`` layers at full width in f32 (one
-    sequence of ``TRAIN_SEQ``): loss and every gradient leaf on the kernel
-    path against the plain path."""
+def train_vs_plain(cfg, run, layers: int = TRAIN_PLAIN_LAYERS,
+                   seq: int = TRAIN_SEQ) -> None:
+    """The first ``layers`` layers at full width in f32 (one sequence of
+    ``seq``): loss and every gradient leaf on the kernel path against the
+    plain path."""
     import torch
 
     from repro_torch.kernels.flash_attention import BWD_KERNEL
@@ -3171,11 +3333,11 @@ def train_vs_plain(cfg, run) -> None:
     from repro_torch.models.layers import tree_flatten
     from repro_torch.train import synthetic_batch
 
-    cfg2 = cut_depth(cfg, ((cfg.layout[0][0], TRAIN_PLAIN_LAYERS),))
+    cfg2 = cut_depth(cfg, ((cfg.layout[0][0], layers),))
     run32 = dataclasses.replace(run, params_dtype="float32",
                                 activations_dtype="float32")
     params, _ = model_init(0, cfg2, run32, device="cuda")
-    batch = synthetic_batch(cfg2, 1, TRAIN_SEQ, 0, 0, device="cuda")
+    batch = synthetic_batch(cfg2, 1, seq, 0, 0, device="cuda")
     paths = {}
     for name in ("kernel", "plain"):
         with contextlib.ExitStack() as stack:
@@ -3198,7 +3360,7 @@ def train_vs_plain(cfg, run) -> None:
             worst, worst_leaf = r, name
     rel = abs(lk - lp) / abs(lp)
     say("train_vs_plain", arch=cfg.name, layers=cfg2.n_layers, batch=1,
-        seq=TRAIN_SEQ, activations="float32", params_dtype="float32",
+        seq=seq, activations="float32", params_dtype="float32",
         loss_kernel=repr(lk), loss_plain=repr(lp), loss_rel_diff=f"{rel:.3g}",
         loss_bound="1e-5", leaves=len(gk), worst_grad_ratio=f"{worst:.3g}",
         worst_leaf=worst_leaf, grad_bound="1e-3 x max|.| per leaf")
@@ -3290,19 +3452,35 @@ def tree_leaves_state(state) -> list:
     return [t for _, t in named_state_leaves(state)]
 
 
+def bwd_edge_cases(errs: list) -> None:
+    """``BWD_EDGE_CASES`` on seeded inputs, bf16 and f32 (``check_bwd``);
+    their largest errors go into ``errs``."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for label, B, Sq, Sk, H, KH, D, Dv, window, q_off in BWD_EDGE_CASES:
+        q, k, v, dout = (torch.randn(shape, generator=g, device="cuda")
+                         for shape in ((B, Sq, H, D), (B, Sk, KH, D),
+                                       (B, Sk, KH, Dv), (B, Sq, H, Dv)))
+        for dtype in (torch.bfloat16, torch.float32):
+            errs.append(check_bwd(label, q, k, v, dout, window, q_off,
+                                  dtype)["err"])
+
+
 def train_child() -> None:
     """``--train``: stablelm-1.6b trained at full width and depth on the
     card, in a process of its own. Prints ``[kernel_time]``, ``[train]``,
     ``[train_split]``, ``[train_vs_plain]``, ``[kernel_vs_plain]
-    kernel=flash_attention_bwd`` and ``[train_ckpt]`` lines, then one JSON
-    line for the kernels line."""
+    kernel=flash_attention_bwd`` (its layers and ``BWD_EDGE_CASES``) and
+    ``[train_ckpt]`` lines, then one JSON line for the kernels line."""
     import torch
 
     from repro_torch.configs import ARCHS
 
     if torch.backends.cuda.matmul.allow_tf32:
         fail("TF32 matmuls are on: the f32 comparison needs f32 products")
-    timing = bwd_kernel_time()
+    timing = bwd_kernel_time("stablelm", TRAIN_BATCH, TRAIN_SEQ, 32, 32, 64,
+                             64)
     cfg, run = ARCHS[TRAIN_ARCH], train_run_config()
     fwd, bwd, bwd_by_variant = train_main(cfg, run)
     captured = train_split(cfg, run)
@@ -3313,21 +3491,61 @@ def train_child() -> None:
                                   0, dtype)["err"])
     del captured
     torch.cuda.empty_cache()
-    g = torch.Generator(device="cuda").manual_seed(1)
-    for label, B, Sq, Sk, H, KH, D, window, q_off in BWD_EDGE_CASES:
-        q, dout = (torch.randn((B, Sq, H, D), generator=g, device="cuda")
-                   for _ in range(2))
-        k, v = (torch.randn((B, Sk, KH, D), generator=g, device="cuda")
-                for _ in range(2))
-        for dtype in (torch.bfloat16, torch.float32):
-            errs.append(check_bwd(label, q, k, v, dout, window, q_off,
-                                  dtype)["err"])
+    bwd_edge_cases(errs)
     train_vs_plain(cfg, run)
     train_checkpoints()
     print(json.dumps({"fwd_launches": fwd, "bwd_launches": bwd,
                       "bwd_launches_by_variant": bwd_by_variant,
-                      "head_dim": cfg.head_dim, "max_abs_err": max(errs),
-                      "timing": timing}), flush=True)
+                      "head_dims": pair_key(attn_head_dims(cfg)),
+                      "max_abs_err": max(errs), "timing": timing}),
+          flush=True)
+
+
+def train_mla_child() -> None:
+    """``--train-mla``: deepseek-v2-236b at full width, cut to its dense
+    first layer (``MLA_TRAIN_LAYOUT``), trained on the card in a process of
+    its own: the backward kernels timed at its shape (B = TRAIN_BATCH, S =
+    TRAIN_SEQ, 128 heads, q/k 192, v 128), ``MLA_TRAIN_STEPS`` steps of
+    ``train`` (every flash launch, forward and backward, at the pair (192,
+    128)), one step split, and the backward kernels against their plain
+    version on layer 0's captured q, k, v and output gradient, the plain
+    version in groups of ``MLA_BWD_HEAD_GROUP`` KV heads, and the layer in
+    f32 on the kernel path against the plain path (``MLA_PLAIN_SEQ``
+    tokens). Prints ``[kernel_time]``, ``[train_mla]``, ``[train_split]``,
+    ``[kernel_vs_plain] kernel=flash_attention_bwd`` and
+    ``[train_vs_plain]`` lines, then one JSON line for the kernels line."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matmuls are on: the f32 comparison needs f32 products")
+    cfg = cut_depth(ARCHS[MLA_ARCH], MLA_TRAIN_LAYOUT)
+    run = dataclasses.replace(train_run_config(), learning_rate=MLA_TRAIN_LR)
+    D, Dv = attn_head_dims(cfg)
+    timing = bwd_kernel_time("mla", TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads,
+                             cfg.n_heads, D, Dv, group=MLA_BWD_HEAD_GROUP)
+    torch.cuda.empty_cache()
+    fwd, bwd, bwd_by_variant = train_main(cfg, run, "train_mla",
+                                          MLA_TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    captured = train_split(cfg, run)
+    errs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for layer, (q, k, v, dout) in captured.items():
+            if (q.shape[-1], v.shape[-1]) != (D, Dv):
+                fail(f"layer {layer}: head dims {q.shape[-1]}, "
+                     f"{v.shape[-1]}, expected {D}, {Dv}")
+            errs.append(check_bwd(f"deepseek_l{layer}", q, k, v, dout, None,
+                                  0, dtype, group=MLA_BWD_HEAD_GROUP)["err"])
+    del captured
+    torch.cuda.empty_cache()
+    train_vs_plain(cfg, run, layers=1, seq=MLA_PLAIN_SEQ)
+    print(json.dumps({"fwd_launches": fwd, "bwd_launches": bwd,
+                      "bwd_launches_by_variant": bwd_by_variant,
+                      "head_dims": pair_key((D, Dv)),
+                      "max_abs_err": max(errs), "timing": timing}),
+          flush=True)
 
 
 def phase_train_child(entries: list) -> None:
@@ -3335,8 +3553,8 @@ def phase_train_child(entries: list) -> None:
     entry of the kernels line, and the backward kernel gets its own."""
     res = run_child("--train")
     flash = next(e for e in entries if e["name"] == "flash_attention")
-    by_dim = flash["launches_by_head_dim"]
-    d = str(res["head_dim"])
+    by_dim = flash["launches_by_head_dim_pair"]
+    d = res["head_dims"]
     by_dim[d] = by_dim.get(d, 0) + res["fwd_launches"]
     flash["launches"] += res["fwd_launches"]
     t = res["timing"]
@@ -3347,28 +3565,118 @@ def phase_train_child(entries: list) -> None:
         "replaces": "src/repro/models/attention.py:134",
         "launches": res["bwd_launches"],
         "launches_by_route": res["bwd_launches_by_variant"],
+        "launches_by_head_dim_pair": {d: res["bwd_launches"]},
         "max_abs_err": res["max_abs_err"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
     })
 
 
-def run_child(flag: str, timeout_s: float = SERVE_CHILD_TIMEOUT_S) -> dict:
-    """Run this script with ``flag`` in a child process, print its lines
-    and return its last line's JSON."""
+def add_launches(entry: dict, key: str, n: int, route: str | None = None
+                 ) -> None:
+    """Add ``n`` launches at the head-dim pair ``key`` (and, for the
+    backward, on ``route``) to a kernels-line entry."""
+    entry["launches"] += n
+    by_dim = entry["launches_by_head_dim_pair"]
+    by_dim[key] = by_dim.get(key, 0) + n
+    if route is not None:
+        by_route = entry["launches_by_route"]
+        by_route[route] = by_route.get(route, 0) + n
+
+
+def phase_train_mla_child(entries: list) -> None:
+    """The ``--train-mla`` child; its forward and backward launches join
+    the kernels line's flash entries, its errors the backward's."""
+    res = run_child("--train-mla")
+    flash = next(e for e in entries if e["name"] == "flash_attention")
+    bwd = next(e for e in entries if e["name"] == "flash_attention_bwd")
+    add_launches(flash, res["head_dims"], res["fwd_launches"])
+    for route, n in res["bwd_launches_by_variant"].items():
+        add_launches(bwd, res["head_dims"], n, route)
+    bwd["max_abs_err"] = max(bwd["max_abs_err"], res["max_abs_err"])
+
+
+def popen_child(flag: str, go: Path | None = None) -> subprocess.Popen:
+    """This script with ``flag`` in a child process; with ``go``, a warmed
+    child that waits for that file (``warm_wait``)."""
+    env = dict(os.environ)
+    if go is not None:
+        env["CHIP_SMOKE_GO"] = str(go)
+    return subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), flag],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+    )
+
+
+def warm(flag: str | None) -> None:
+    """Start ``flag``'s child ahead of its phase (``WARM_NEXT``), waiting
+    at its go file; killed at exit if never let go."""
+    if flag is None or flag in _WARMED:
+        return
+    _WARMED.add(flag)
+    go = ROOT / "build" / "go" / f"{flag.strip('-')}.{os.getpid()}"
+    go.parent.mkdir(parents=True, exist_ok=True)
+    go.unlink(missing_ok=True)
+    _WARM[flag] = (popen_child(flag, go), go)
+    atexit.register(stop_children, [_WARM[flag][0]])
+
+
+def warm_wait(go: Path) -> None:
+    """In a warmed child: make the CUDA context and import the port, then
+    wait for the parent to create ``go``; exit if the parent is gone."""
+    import torch
+
+    torch.zeros(1, device="cuda")
+    import repro_torch.models  # noqa: F401
+    import repro_torch.noc  # noqa: F401
+    import repro_torch.train  # noqa: F401
+
+    parent = os.getppid()
+    while not go.exists():
+        if os.getppid() != parent:
+            sys.exit(1)
+        time.sleep(0.02)
+    go.unlink(missing_ok=True)
+
+
+def start_child(flag: str) -> subprocess.Popen:
+    """Start this script with ``flag`` in a child process (let the warmed
+    one go, if ``warm`` started it), and warm the child after it."""
     import torch
 
     torch.cuda.empty_cache()
-    proc = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve()), flag],
-        capture_output=True, text=True, timeout=timeout_s,
-    )
-    lines = proc.stdout.strip().splitlines()
+    if flag in _WARM:
+        proc, go = _WARM.pop(flag)
+        go.touch()
+    else:
+        _WARMED.add(flag)
+        proc = popen_child(flag)
+    warm(WARM_NEXT.get(flag))
+    return proc
+
+
+def finish_child(proc: subprocess.Popen, flag: str,
+                 timeout_s: float = SERVE_CHILD_TIMEOUT_S) -> dict:
+    """Wait for a ``start_child`` child (killed at ``timeout_s``), print
+    its lines and return its last line's JSON."""
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    lines = stdout.strip().splitlines()
     for line in lines[:-1] if proc.returncode == 0 else lines:
         print(line, flush=True)
     if proc.returncode != 0:
-        fail(f"the child {flag} failed:\n{proc.stderr[-3000:]}")
+        fail(f"the child {flag} failed:\n{stderr[-3000:]}")
     return json.loads(lines[-1])
+
+
+def run_child(flag: str, timeout_s: float = SERVE_CHILD_TIMEOUT_S) -> dict:
+    """Run this script with ``flag`` in a child process, print its lines
+    and return its last line's JSON."""
+    return finish_child(start_child(flag), flag, timeout_s)
 
 
 def phase_serve_child(flag: str, case: str, entries: list,
@@ -3377,8 +3685,8 @@ def phase_serve_child(flag: str, case: str, entries: list,
     ``--serve-frames``); then, for a child that timed the flash kernel, its
     ``[kernel_time]`` (the wrapper, SDPA and the bound from the child, the
     kernel alone from ``--serve-kernel-alone``). The child's launches, by
-    head dim, and errors go into flash attention's entry of the kernels
-    line."""
+    head-dim pair, and errors go into flash attention's entry of the
+    kernels line."""
     res = run_child(flag)
     for dt_name, t in res["timing"].items():
         alone = alone_ms[f"flash_attention/{case}/{dt_name}"]
@@ -3387,16 +3695,9 @@ def phase_serve_child(flag: str, case: str, entries: list,
         extra = ({} if dt_name == "bfloat16" else dict(
             f32_core_bound_ms=f"{t['f32_core_bound_ms']:.5f}",
             alone_times_f32_core_bound=f"{alone / t['f32_core_bound_ms']:.2f}"))
-        if "padded_bound_ms" in t:
-            # bound_ms is the function's (v and the output unpadded); the
-            # padded work the kernel does is the secondary figure
-            extra.update(
-                bound_of="unpadded",
-                padded_bound_ms=f"{t['padded_bound_ms']:.5f}",
-                padded_bytes=t["padded_bytes"], padded_ops=t["padded_ops"],
-                alone_times_padded_bound=f"{alone / t['padded_bound_ms']:.2f}")
         say("kernel_time", kernel="flash_attention", case=case,
-            dtype=dt_name, shape=tuple(t["shape"]), ms=f"{t['ms']:.4f}",
+            dtype=dt_name, shape=tuple(t["shape"]), dv=t["dv"],
+            ms=f"{t['ms']:.4f}",
             kernel_alone_ms=f"{alone:.4f}",
             alone_times_bound=f"{alone / t['bound_ms']:.2f}",
             plain_ms=f"{t['plain_ms']:.4f}", sdpa_ms=f"{t['sdpa_ms']:.4f}",
@@ -3406,7 +3707,7 @@ def phase_serve_child(flag: str, case: str, entries: list,
             bytes=t["bytes"], ops=t["ops"],
             times_bound=f"{t['ms'] / t['bound_ms']:.1f}", **extra)
     flash = next(e for e in entries if e["name"] == "flash_attention")
-    by_dim = flash["launches_by_head_dim"]
+    by_dim = flash["launches_by_head_dim_pair"]
     for d, n in res["head_dim_launches"].items():
         by_dim[d] = by_dim.get(d, 0) + n
         flash["launches"] += n
@@ -5017,24 +5318,19 @@ def phase_dist_child(entries: list) -> None:
     res = run_child("--dist", DIST_CHILD_TIMEOUT_S)
     flash = next(e for e in entries if e["name"] == "flash_attention")
     bwd = next(e for e in entries if e["name"] == "flash_attention_bwd")
-    by_dim = flash["launches_by_head_dim"]
+    # the child's models are GQA: v as wide as q and k
     for part, n in ((res["ep"], res["ep"]["flash_launches"]),
                     (res["pipeline"], res["pipeline"]["fwd"]),
                     (res["zero1"], res["zero1"]["fwd"]),
                     (res["elastic"], res["elastic"]["fwd"])):
-        d = str(part["head_dim"])
-        by_dim[d] = by_dim.get(d, 0) + n
-        flash["launches"] += n
+        add_launches(flash, pair_key(part["head_dim"]), n)
     for part in ("pipeline", "zero1", "elastic"):
-        bwd["launches"] += res[part]["bwd"]
-        bwd["launches_by_route"]["wgmma_bf16"] += res[part]["bwd"]
+        add_launches(bwd, pair_key(res[part]["head_dim"]), res[part]["bwd"],
+                     "wgmma_bf16")
     for run in res["tp"].values():  # part=tp (bf16, f32), part=moe_dp
-        d = str(run["head_dim"])
-        by_dim[d] = by_dim.get(d, 0) + run["fwd"]
-        flash["launches"] += run["fwd"]
-        bwd["launches"] += run["bwd"]
-        route = bwd["launches_by_route"]
-        route[run["bwd_route"]] = route.get(run["bwd_route"], 0) + run["bwd"]
+        add_launches(flash, pair_key(run["head_dim"]), run["fwd"])
+        add_launches(bwd, pair_key(run["head_dim"]), run["bwd"],
+                     run["bwd_route"])
 
 
 # ---------------------------------------------------------------------------
@@ -5304,7 +5600,7 @@ def serve_tp_rank(rank: int, plan: dict, device_type: str = "cuda") -> dict:
             finally:
                 clear_ctx()
             res = {"flash": dict(FLASH_KERNEL.variant_launches),
-                   "flash_by_dim": {str(d): n for d, n in
+                   "flash_by_dim": {pair_key(d): n for d, n in
                                     FLASH_KERNEL.head_dim_launches.items()
                                     if n},
                    "ssd": dict(SSD_KERNEL.variant_launches),
@@ -5419,7 +5715,7 @@ def phase_serve_tp_child(entries: list) -> None:
     flash = next(e for e in entries if e["name"] == "flash_attention")
     ssd = next(e for e in entries if e["name"] == "ssd_intra_chunk")
     for d, n in res["flash_by_dim"].items():
-        by_dim = flash["launches_by_head_dim"]
+        by_dim = flash["launches_by_head_dim_pair"]
         by_dim[d] = by_dim.get(d, 0) + n
     flash["launches"] += sum(res["flash"].values())
     ssd["launches"] += sum(res["ssd"].values())
@@ -5466,13 +5762,71 @@ def dryrun_world(world: str) -> None:
     print(json.dumps(out), flush=True)
 
 
-def phase_dryrun() -> None:
-    """``[dryrun]``: a child a fake world, the pod's 256 ranks, then the
-    multi-pod mesh's 512."""
-    for world in ("pod", "multipod"):
+def start_dryrun() -> dict:
+    """Start ``[dryrun]``'s children, a fake world each (the pod's 256
+    ranks and the multi-pod mesh's 512): host work on meta tensors, run
+    beside the card phases that follow; a child still running when the
+    script exits is killed."""
+    procs = {world: start_child(f"--dryrun-world={world}")
+             for world in ("pod", "multipod")}
+    atexit.register(stop_children, list(procs.values()))
+    return procs
+
+
+def stop_children(procs) -> None:
+    """Kill the children of ``procs`` that are still running."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def phases_child(names: list) -> None:
+    """``--phases=a,b``: the phases ``names`` of the card's host-heavy
+    tail, in order, in a child that runs beside the parent's card phases
+    (``start_phases``); one JSON line, each phase's wall."""
+    run = {"trace": phase_trace, "topo3d": phase_topo3d,
+           "calibration": phase_calibration}
+    card = card_line()
+    walls = {}
+    for name in names:
         t0 = time.perf_counter()
-        run_child(f"--dryrun-world={world}", DRYRUN_CHILD_TIMEOUT_S)
-        say("dryrun", world=world, child_wall_s=f"{time.perf_counter() - t0:.1f}")
+        run[name](card)
+        walls[name] = time.perf_counter() - t0
+    print(json.dumps(walls), flush=True)
+
+
+def start_phases(names: tuple) -> tuple:
+    """Start ``phases_child`` on ``names``; killed at exit if still
+    running."""
+    proc = start_child("--phases=" + ",".join(names))
+    atexit.register(stop_children, [proc])
+    return proc, names
+
+
+def join_phases(started: tuple, walls: dict) -> None:
+    """Wait for a ``start_phases`` child and print its lines; ``walls``
+    gets each phase's wall in the child and the seconds waited here."""
+    proc, names = started
+    t0 = time.perf_counter()
+    res = finish_child(proc, "--phases=" + ",".join(names),
+                       BACKGROUND_TIMEOUT_S)
+    walls.update(res)
+    walls["_".join(names) + "_waited"] = time.perf_counter() - t0
+
+
+def phase_dryrun(procs: dict) -> None:
+    """``[dryrun]``: wait for ``start_dryrun``'s children and print their
+    lines, with the seconds this phase waited for each."""
+    t0 = time.perf_counter()
+    try:
+        for world, proc in procs.items():
+            finish_child(proc, f"--dryrun-world={world}",
+                         DRYRUN_CHILD_TIMEOUT_S)
+            say("dryrun", world=world,
+                waited_s=f"{time.perf_counter() - t0:.1f}")
+    finally:
+        stop_children(procs.values())
 
 
 # ---------------------------------------------------------------------------
@@ -5712,8 +6066,8 @@ def segmin_kernel_alone() -> None:
     )
 
     def alone(fn, match):
-        ms, _ = profiled_ms(lambda: [fn() for _ in range(SEGMIN_ALONE_REPS)],
-                            match)
+        ms = profiled_ms(lambda: [fn() for _ in range(SEGMIN_ALONE_REPS)],
+                         match)[0]
         return None if ms is None else ms / SEGMIN_ALONE_REPS
 
     out = {"cases": {}, "rounds": {}}
@@ -6685,8 +7039,21 @@ def phase_calibration(card: str) -> None:
     say("calibration", part="phase", card=repr(card))
 
 
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
 def main() -> None:
     t_start, walls = time.perf_counter(), {}
+    os.environ.setdefault("CHIP_SMOKE_T0", repr(time.time()))
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the repo")
     sys.path.insert(0, str(SRC))
@@ -6694,6 +7061,12 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
+    go = os.environ.pop("CHIP_SMOKE_GO", None)
+    if go is not None:
+        warm_wait(Path(go))
+    if sys.argv[1:2] and sys.argv[1].startswith("--phases="):
+        phases_child(sys.argv[1].split("=", 1)[1].split(","))
+        return
     if sys.argv[1:] == ["--serve-kernel-alone"]:
         serve_kernel_alone()
         return
@@ -6711,6 +7084,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--train"]:
         train_child()
+        return
+    if sys.argv[1:] == ["--train-mla"]:
+        train_mla_child()
         return
     if sys.argv[1:] == ["--dist"]:
         dist_child()
@@ -6732,14 +7108,7 @@ def main() -> None:
         return
 
     # ---- 1. environment ---------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if smi.returncode != 0:
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_line()
     say("env", python=sys.version.split()[0], torch=torch.__version__,
         cuda=torch.version.cuda, device=repr(torch.cuda.get_device_name(0)),
         count=torch.cuda.device_count())
@@ -6752,8 +7121,12 @@ def main() -> None:
     if "jax" in sys.modules or "repro" in sys.modules:
         fail("the port imported jax or the reference package")
 
-    # ---- 2. build ---------------------------------------------------------
-    build_kernels()
+    # ---- 2. build: phases 3-4 start once their libraries are built; the
+    # attention and SSD builds end beside them --------------------------
+    warm(WARM_NEXT[None])
+    build = start_build()
+    for name in ("noc_cycle", "dpm_cost", "noc_step"):
+        build[1][name].result()
 
     # ---- 3. kernel vs plain on the paper's 8x8 ----------------------------
     cycle_cases = {}  # inputs whose kernel-alone times a child process takes
@@ -6958,6 +7331,7 @@ def main() -> None:
         bytes=nbytes, ops=ops, state_bytes_per_cycle=state,
         state_stream_bound_ms=f"{stream_ms:.4f}")
 
+    finish_build(build)
     walls["phases_1_to_4"] = time.perf_counter() - t_start
 
     def walled(name: str, fn, *args):
@@ -6988,22 +7362,38 @@ def main() -> None:
     walled("serve_mla", phase_serve_child, "--serve-mla", "mla",
            serve_entries, alone_ms)
 
+    # [trace] (11) in a child beside 7d-7e', the card's room left by them
+    trace_child = start_phases(("trace",))
+
     # ---- 7d. frame models: musicgen-medium, qwen2-vl-72b; the int8 cache
     walled("serve_frames", phase_serve_child, "--serve-frames", "frames",
            serve_entries, alone_ms)
 
+    # the dry run's children (7h) work on the host beside 7e-7g
+    dryrun_procs = start_dryrun()
+
     # ---- 7e. training: stablelm-1.6b, the flash backward kernel ----------
     walled("train", phase_train_child, serve_entries)
+
+    # ---- 7e'. MLA training: deepseek-v2-236b's dense layer, the flash
+    # forward and backward at the head-dim pair (192, 128) -----------------
+    walled("train_mla", phase_train_mla_child, serve_entries)
+
+    join_phases(trace_child, walls)
 
     # ---- 7f. dist: four ranks, DPM executors, compress, EP, pipeline,
     # ZeRO-1, elastic restore, tensor parallelism, MoE over data ranks ----
     walled("dist", phase_dist_child, serve_entries)
 
+    # [topo3d] and [calibration] (10, 12) in a child beside 7g
+    tail_child = start_phases(("topo3d", "calibration"))
+
     # ---- 7g. serving on a (2, 2) mesh: four ranks' blocks, CACHE_RULES --
     walled("serve_tp", phase_serve_tp_child, serve_entries)
 
     # ---- 7h. the dry run: rank 0 of each production mesh, fake group ----
-    walled("dryrun", phase_dryrun)
+    walled("dryrun", phase_dryrun, dryrun_procs)
+    join_phases(tail_child, walls)
 
     # ---- 8. the segmented-min kernel through segmin / arbitrate ----------
     segmin_entries = walled("segmin", phase_segmin)
@@ -7011,14 +7401,9 @@ def main() -> None:
     # ---- 9. the host NoC: WormholeSim, simulate, against xsim -------------
     walled("host_sim", phase_host_sim)
 
-    # ---- 10. 3-D and chiplet fabrics --------------------------------------
-    walled("topo3d", phase_topo3d, card)
-
-    # ---- 11. ML-workload traces and DPM-scheduled collectives -------------
-    walled("trace", phase_trace, card)
-
-    # ---- 12. the telemetry calibration loop -------------------------------
-    walled("calibration", phase_calibration, card)
+    # 10. 3-D and chiplet fabrics, 11. ML-workload traces and DPM-scheduled
+    # collectives, 12. the telemetry calibration loop: in the children
+    # above
     say("walls", total_s=f"{time.perf_counter() - t_start:.1f}",
         **{f"{k}_s": f"{v:.1f}" for k, v in walls.items()})
 

@@ -43,12 +43,16 @@
 //   never passes through shared memory;
 // - key tiles are walked in ascending order with the same tile skipping as
 //   below, which the -1e30 cancellation of a fully masked first tile needs;
-// - D = 192 is MLA's query/key head dim (128 + 64; the model zero-pads
-//   its 128-wide values to 192): QK^T takes 12 k-steps over three 64-wide
-//   column blocks, O += P V is one m64n192k16 per k-step, and the O
-//   accumulator is 96 f32 registers a thread (64 at D = 128); one block an
-//   SM, three stages of K/V (197,760 bytes of shared memory; two stages,
-//   148,608 bytes, took 10% longer at MLA's prefill on an H100);
+// - v has a width DV of its own, read through its own map in its own
+//   column blocks; the head-dim pairs (D, DV) are (D, D) and MLA's
+//   (192, 128): q and k of 128 + 64, v of 128. There QK^T takes 12 k-steps
+//   over three 64-wide column blocks, O += P V is one m64n128k16 per k-step
+//   and the O accumulator 64 f32 registers a thread (96 at (192, 192),
+//   whose P V is m64n192k16); one block an SM, four stages of K/V (214,144
+//   bytes of shared memory; three, 173,184 bytes, ran within 0.1% of four
+//   at MLA's prefill on an H100). At (192, 192)
+//   three stages (197,760 bytes; two, 148,608 bytes, took 10% longer at
+//   MLA's padded prefill on an H100);
 // - at D <= 64 two blocks share an SM: the launch bounds cap the
 //   registers at 96 a thread, because with the producer warp 18 warps over
 //   4 schedulers put 5 on one, whose 16K registers give each at most 102
@@ -70,8 +74,8 @@
 // key tile (transposed) and the value tile sit in shared memory as f32; the
 // 256 threads form a 16 x 16 grid, each owning rows ty + 16 i (i < 4): it
 // computes 4 x 4 scores, takes the row max and sum with shuffles over the 16
-// threads of a row, and keeps its rows' running (m, l) and a 4 x D/16 slice
-// of the accumulator in registers. The probabilities pass through shared
+// threads of a row, and keeps its rows' running (m, l) and a 4 x DV/16
+// slice of the accumulator in registers. The probabilities pass through shared
 // memory to the P.V product.
 //
 // The ascending walk matters: with the finite -1e30, a row whose first live
@@ -105,24 +109,24 @@ struct Strides {
   long long b, s, h;  // in elements; the head dim is contiguous
 };
 
-template <int D>
+template <int D, int DV>
 constexpr size_t smem_floats() {
-  return (size_t)BQ * D + (size_t)D * (BK + 1) + (size_t)BK * D +
+  return (size_t)BQ * D + (size_t)D * (BK + 1) + (size_t)BK * DV +
          (size_t)BQ * BK;
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
     Strides qs, Strides ks, Strides vs, int Sq, int Sk, int H, int G,
     int causal, int window, int q_offset, float scale) {
-  constexpr int DJ = D / 16;  // accumulator columns per thread
+  constexpr int DJ = DV / 16;  // accumulator columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;                // [BQ][D], pre-scaled
   float* Kt = Qs + BQ * D;         // [D][BK + 1], transposed
-  float* Vs = Kt + D * (BK + 1);   // [BK][D]
-  float* Ps = Vs + BK * D;         // [BQ][BK]
+  float* Vs = Kt + D * (BK + 1);   // [BK][DV]
+  float* Ps = Vs + BK * DV;        // [BQ][BK]
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
@@ -156,9 +160,11 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     __syncthreads();  // the previous tile's readers are done
     for (int e = tid; e < BK * D; e += THREADS) {
       const int c = e / D, d = e % D, key = first_k + c;
-      const bool in = key < Sk;
-      Kt[d * (BK + 1) + c] = in ? to_f32(kb[key * ks.s + d]) : 0.f;
-      Vs[e] = in ? to_f32(vb[key * vs.s + d]) : 0.f;
+      Kt[d * (BK + 1) + c] = key < Sk ? to_f32(kb[key * ks.s + d]) : 0.f;
+    }
+    for (int e = tid; e < BK * DV; e += THREADS) {
+      const int c = e / DV, d = e % DV, key = first_k + c;
+      Vs[e] = key < Sk ? to_f32(vb[key * vs.s + d]) : 0.f;
     }
     __syncthreads();
 
@@ -217,7 +223,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     for (int c = 0; c < BK; ++c) {
       float vv[DJ];
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) vv[j] = Vs[c * D + tx + 16 * j];
+      for (int j = 0; j < DJ; ++j) vv[j] = Vs[c * DV + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float p = Ps[(ty + 16 * i) * BK + c];
@@ -232,7 +238,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     const int row = q0 + ty + 16 * i;
     if (row >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* orow = o + (((long long)b * Sq + row) * H + h) * D;
+    T* orow = o + (((long long)b * Sq + row) * H + h) * DV;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) store(orow + tx + 16 * j, acc[i][j] / den);
     // m is in units of the scaled score (Q was scaled on load)
@@ -241,13 +247,13 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            Strides qs, Strides ks, Strides vs, int B, int Sq, int Sk, int H,
            int KH, int causal, int window, int q_offset, float scale,
            cudaStream_t stream) {
-  const size_t bytes = smem_floats<D>() * sizeof(float);
-  auto kernel = flash_fwd_kernel<T, D>;
+  const size_t bytes = smem_floats<D, DV>() * sizeof(float);
+  auto kernel = flash_fwd_kernel<T, D, DV>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
@@ -271,22 +277,31 @@ constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// Shared layout of one head dim D. A tile row of DB <= 64 bf16 columns is
-// 32, 64 or 128 bytes, which is the TMA swizzle width and the wgmma layout
-// (B32, B64, B128); D = 128 and D = 192 (MLA's q/k head dim) are two and
-// three such column blocks side by side.
-template <int D>
+// Layout of one tile width W (a head dim). A tile row of DB <= 64 bf16
+// columns is 32, 64 or 128 bytes, which is the TMA swizzle width and the
+// wgmma layout (B32, B64, B128); W = 128 and W = 192 (MLA's q/k head dim)
+// are two and three such column blocks side by side.
+template <int W>
 struct Geo {
-  static constexpr int DB = D < 64 ? D : 64;
-  static constexpr int NB = D / DB;
+  static constexpr int DB = W < 64 ? W : 64;
+  static constexpr int NB = W / DB;
   static constexpr int ROW = DB * 2;
   static constexpr uint64_t LAYOUT = ROW == 128 ? 1 : ROW == 64 ? 2 : 3;
-  static constexpr int STAGES = D == 128 ? 2 : 3;
+};
+
+// Shared memory of the head-dim pair (D, DV): q and k of width D, v and
+// the output of width DV.
+template <int D, int DV>
+struct Pair {
+  static constexpr int STAGES =
+      D == 128 ? 2 : (D == 192 && DV == 128) ? 4 : 3;
   static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int T_BYTES = BK * D * 2;  // one K or one V tile
+  static constexpr int K_BYTES = BK * D * 2;   // one K tile
+  static constexpr int V_BYTES = BK * DV * 2;  // one V tile
+  static constexpr int KV_BYTES = K_BYTES + V_BYTES;
   // 1 KB of slack to align the tiles to the 1024-byte swizzle atom, the
   // Q tile, STAGES (K, V) pairs, then the mbarriers
-  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * 2 * T_BYTES + 128;
+  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * KV_BYTES + 128;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -523,15 +538,15 @@ __device__ __forceinline__ void wgmma_rs_m64n192(
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
       : "memory");
 }
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+template <int DV>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DV / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
-  if constexpr (D == 16) wgmma_rs_m64n16(o, a, db);
-  if constexpr (D == 32) wgmma_rs_m64n32(o, a, db);
-  if constexpr (D == 64) wgmma_rs_m64n64(o, a, db);
-  if constexpr (D == 128) wgmma_rs_m64n128(o, a, db);
-  if constexpr (D == 192) wgmma_rs_m64n192(o, a, db);
+  if constexpr (DV == 16) wgmma_rs_m64n16(o, a, db);
+  if constexpr (DV == 32) wgmma_rs_m64n32(o, a, db);
+  if constexpr (DV == 64) wgmma_rs_m64n64(o, a, db);
+  if constexpr (DV == 128) wgmma_rs_m64n128(o, a, db);
+  if constexpr (DV == 192) wgmma_rs_m64n192(o, a, db);
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -548,8 +563,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // Grid (H, B, query tiles), the last query tile first (the heaviest under
 // the causal mask). Warps 0-7 are two consumer warpgroups of 64 query rows
 // each; warp 8 is the producer, whose lane 0 loads the Q tile once and the
-// live K/V tiles in ascending order into a ring of STAGES stages.
-template <int D>
+// live K/V tiles in ascending order into a ring of STAGES stages. K is
+// read in column blocks of D, V in its own of DV.
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS, D >= 128 ? 1 : 2)
     flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
@@ -559,12 +575,15 @@ __global__ void __launch_bounds__(THREADS, D >= 128 ? 1 : 2)
                         int G, int causal, int window, int q_offset,
                         float scale_log2) {
   using Gm = Geo<D>;
-  constexpr int ROW = Gm::ROW, DB = Gm::DB, ST = Gm::STAGES;
+  using Gv = Geo<DV>;
+  using Pr = Pair<D, DV>;
+  constexpr int ROW = Gm::ROW, DB = Gm::DB, ST = Pr::STAGES;
+  constexpr int VROW = Gv::ROW, VDB = Gv::DB;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sq = base;                      // Q: NB blocks [BQ][DB]
-  const uint32_t skv = base + Gm::Q_BYTES;       // stage s: K then V
-  const uint32_t bars = skv + ST * 2 * Gm::T_BYTES;
+  const uint32_t skv = base + Pr::Q_BYTES;       // stage s: K then V
+  const uint32_t bars = skv + ST * Pr::KV_BYTES;
   const uint32_t qbar = bars;                    // Q landed
   auto full = [&](int s) { return bars + 8 * (1 + s); };        // K, V landed
   auto empty = [&](int s) { return bars + 8 * (1 + ST + s); };  // stage free
@@ -594,20 +613,20 @@ __global__ void __launch_bounds__(THREADS, D >= 128 ? 1 : 2)
   if (warp == CONSUMERS / 32) {
     // ---- producer ----
     if (lane == 0) {
-      mbar_expect_tx(qbar, Gm::Q_BYTES);
+      mbar_expect_tx(qbar, Pr::Q_BYTES);
       for (int cb = 0; cb < Gm::NB; ++cb)
         tma_load(sq + cb * BQ * ROW, &tq, qbar, cb * DB, h, q0, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % ST;
         mbar_wait(empty(s), ((i / ST) & 1) ^ 1);  // round 0 passes at once
-        mbar_expect_tx(full(s), 2 * Gm::T_BYTES);
-        const uint32_t ks = skv + s * 2 * Gm::T_BYTES;
+        mbar_expect_tx(full(s), Pr::KV_BYTES);
+        const uint32_t ks = skv + s * Pr::KV_BYTES;
         const int k0 = (kt0 + i) * BK;
-        for (int cb = 0; cb < Gm::NB; ++cb) {
+        for (int cb = 0; cb < Gm::NB; ++cb)
           tma_load(ks + cb * BK * ROW, &tk, full(s), cb * DB, kh, k0, b);
-          tma_load(ks + Gm::T_BYTES + cb * BK * ROW, &tv, full(s), cb * DB,
+        for (int cb = 0; cb < Gv::NB; ++cb)
+          tma_load(ks + Pr::K_BYTES + cb * BK * VROW, &tv, full(s), cb * VDB,
                    kh, k0, b);
-        }
       }
     }
     return;
@@ -623,9 +642,9 @@ __global__ void __launch_bounds__(THREADS, D >= 128 ? 1 : 2)
     hi[r] = causal ? min(qp, Sk - 1) : Sk - 1;
     lo[r] = window > 0 ? qp - window : -1;
   }
-  float oacc[D / 2], s[BK / 2];
+  float oacc[DV / 2], s[BK / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) oacc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
@@ -634,7 +653,7 @@ __global__ void __launch_bounds__(THREADS, D >= 128 ? 1 : 2)
   mbar_wait(qbar, 0);
   for (int i = 0; i < n_tiles; ++i) {
     const int st = i % ST;
-    const uint32_t ks = skv + st * 2 * Gm::T_BYTES, vs = ks + Gm::T_BYTES;
+    const uint32_t ks = skv + st * Pr::KV_BYTES, vs = ks + Pr::K_BYTES;
     mbar_wait(full(st), (i / ST) & 1);
 
     // S = Q K^T over D in k16 steps (32 bytes along a swizzled row)
@@ -707,7 +726,7 @@ __global__ void __launch_bounds__(THREADS, D >= 128 ? 1 : 2)
       l[r] = l[r] * corr[r] + x[0];
     }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) oacc[4 * j + e] *= corr[e >> 1];
 
@@ -726,9 +745,9 @@ __global__ void __launch_bounds__(THREADS, D >= 128 ? 1 : 2)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_pv<D>(oacc, pa[kk],
-                  gmma_desc(vs + kk * 16 * ROW, BK * ROW, 8 * ROW,
-                            Gm::LAYOUT));
+      wgmma_pv<DV>(oacc, pa[kk],
+                   gmma_desc(vs + kk * 16 * VROW, BK * VROW, 8 * VROW,
+                             Gv::LAYOUT));
     wgmma_commit();
     wgmma_wait();
     fence_regs(oacc);
@@ -749,9 +768,9 @@ __global__ void __launch_bounds__(THREADS, D >= 128 ? 1 : 2)
     if (lse != nullptr && t == 0)
       lse[((long long)b * Sq + row) * H + h] =
           m[r] * (scale_log2 * LN2) + logf(den);
-    __nv_bfloat16* orow = o + (((long long)b * Sq + row) * H + h) * D;
+    __nv_bfloat16* orow = o + (((long long)b * Sq + row) * H + h) * DV;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       const __nv_bfloat162 v = __floats2bfloat162_rn(
           oacc[4 * j + 2 * r] / den, oacc[4 * j + 2 * r + 1] / den);
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) = v;
@@ -786,15 +805,15 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// The model layout (B, S, heads, D), strides in elements, as a 4-D map
-// (D, heads, S, B) whose box is (DB, 1, rows, 1).
-template <int D>
+// The model layout (B, S, heads, W), strides in elements, as a 4-D map
+// (W, heads, S, B) whose box is (DB, 1, rows, 1).
+template <int W>
 bool make_map(CUtensorMap* map, const void* ptr, int heads, int S, int B,
               Strides st, int rows) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return false;
-  constexpr int DB = Geo<D>::DB;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+  constexpr int DB = Geo<W>::DB;
+  const cuuint64_t dims[4] = {(cuuint64_t)W, (cuuint64_t)heads,
                               (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2,
                                  (cuuint64_t)st.b * 2};
@@ -809,7 +828,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int heads, int S, int B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            Strides qs, Strides ks, Strides vs, int B, int Sq, int Sk, int H,
            int KH,
@@ -818,14 +837,15 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   CUtensorMap tq, tk, tv;
   if (!make_map<D>(&tq, q, H, Sq, B, qs, BQ) ||
       !make_map<D>(&tk, k, KH, Sk, B, ks, BK) ||
-      !make_map<D>(&tv, v, KH, Sk, B, vs, BK))
+      !make_map<DV>(&tv, v, KH, Sk, B, vs, BK))
     return (int)cudaErrorInvalidValue;
-  auto kernel = flash_fwd_tc_kernel<D>;
+  auto kernel = flash_fwd_tc_kernel<D, DV>;
+  constexpr int smem = Pair<D, DV>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Geo<D>::SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(H, B, (Sq + BQ - 1) / BQ);
-  kernel<<<grid, THREADS, Geo<D>::SMEM, stream>>>(
+  kernel<<<grid, THREADS, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, Sq, Sk, H, H / KH,
       causal, window, q_offset, scale * LOG2E);
   return (int)cudaGetLastError();
@@ -833,76 +853,69 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 }  // namespace tc
 
-// The kernel of (type, D): bf16 inputs the tensor-core kernel, f32 inputs
-// the CUDA-core one.
-template <int D>
+// The kernel of (type, D, DV): bf16 inputs the tensor-core kernel, f32
+// inputs the CUDA-core one.
+template <int D, int DV>
 int launch_typed(int bf16, const void* q, const void* k, const void* v,
                  void* o, float* lse, Strides qs, Strides ks, Strides vs,
                  int B, int Sq, int Sk, int H, int KH, int causal, int window,
                  int q_offset, float scale, cudaStream_t stream) {
   if (bf16)
-    return tc::launch<D>(q, k, v, o, lse, qs, ks, vs, B, Sq, Sk, H, KH,
-                         causal, window, q_offset, scale, stream);
-  return launch<float, D>(q, k, v, o, lse, qs, ks, vs, B, Sq, Sk, H, KH,
-                          causal, window, q_offset, scale, stream);
+    return tc::launch<D, DV>(q, k, v, o, lse, qs, ks, vs, B, Sq, Sk, H, KH,
+                             causal, window, q_offset, scale, stream);
+  return launch<float, D, DV>(q, k, v, o, lse, qs, ks, vs, B, Sq, Sk, H, KH,
+                              causal, window, q_offset, scale, stream);
+}
+
+template <int D, int DV>
+int smem_bytes(int bf16) {
+  return bf16 ? tc::Pair<D, DV>::SMEM : (int)(smem_floats<D, DV>() * 4);
 }
 
 }  // namespace
 
+// The head-dim pairs (D, DV) the kernels are built for: (D, D) for each
+// head dim, and MLA's q/k 192 with v 128 (flash_attention.py's
+// HEAD_DIM_PAIRS).
+#define FLASH_HEAD_DIM_PAIRS(X) \
+  X(16, 16) X(32, 32) X(64, 64) X(128, 128) X(192, 192) X(192, 128)
+
 extern "C" {
 
 // Launch on ``stream``; returns the cudaError_t of the launch (0 on
-// success). ``lse``, when not null, receives the (B, Sq, H) f32 row
-// log-sum-exp. ``bf16`` selects __nv_bfloat16 inputs and output (the
-// tensor-core kernel, whose pointers must be 16-byte aligned and whose
-// strides must be multiples of 8 elements), else float; ``window`` <= 0
-// means no window; strides are in elements.
+// success). q and k have head dim D, v and o head dim Dv. ``lse``, when not
+// null, receives the (B, Sq, H) f32 row log-sum-exp. ``bf16`` selects
+// __nv_bfloat16 inputs and output (the tensor-core kernel, whose pointers
+// must be 16-byte aligned and whose strides must be multiples of 8
+// elements), else float; ``window`` <= 0 means no window; strides are in
+// elements.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, float* lse, int bf16, int B, int Sq,
-                           int Sk, int H, int KH, int D, long long qsb, long long qss,
-                           long long qsh, long long ksb, long long kss,
-                           long long ksh, long long vsb, long long vss,
-                           long long vsh, int causal, int window,
-                           int q_offset, float scale, cudaStream_t stream) {
+                           int Sk, int H, int KH, int D, int Dv,
+                           long long qsb, long long qss, long long qsh,
+                           long long ksb, long long kss, long long ksh,
+                           long long vsb, long long vss, long long vsh,
+                           int causal, int window, int q_offset, float scale,
+                           cudaStream_t stream) {
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
-  switch (D) {
-    case 16:
-      return launch_typed<16>(bf16, q, k, v, o, lse, qs, ks, vs, B, Sq, Sk,
-                              H, KH, causal, window, q_offset, scale, stream);
-    case 32:
-      return launch_typed<32>(bf16, q, k, v, o, lse, qs, ks, vs, B, Sq, Sk,
-                              H, KH, causal, window, q_offset, scale, stream);
-    case 64:
-      return launch_typed<64>(bf16, q, k, v, o, lse, qs, ks, vs, B, Sq, Sk,
-                              H, KH, causal, window, q_offset, scale, stream);
-    case 128:
-      return launch_typed<128>(bf16, q, k, v, o, lse, qs, ks, vs, B, Sq, Sk, H,
-                               KH, causal, window, q_offset, scale, stream);
-    case 192:
-      return launch_typed<192>(bf16, q, k, v, o, lse, qs, ks, vs, B, Sq, Sk, H,
-                               KH, causal, window, q_offset, scale, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+#define FLASH_LAUNCH(d, dv)                                                 \
+  if (D == d && Dv == dv)                                                   \
+    return launch_typed<d, dv>(bf16, q, k, v, o, lse, qs, ks, vs, B, Sq, Sk, \
+                               H, KH, causal, window, q_offset, scale,      \
+                               stream);
+  FLASH_HEAD_DIM_PAIRS(FLASH_LAUNCH)
+#undef FLASH_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory of one block of the kernel of (type, D), in bytes
-// (0 for a D without a kernel).
-int flash_attention_smem_bytes(int bf16, int D) {
-  switch (D) {
-    case 16:
-      return bf16 ? tc::Geo<16>::SMEM : (int)(smem_floats<16>() * 4);
-    case 32:
-      return bf16 ? tc::Geo<32>::SMEM : (int)(smem_floats<32>() * 4);
-    case 64:
-      return bf16 ? tc::Geo<64>::SMEM : (int)(smem_floats<64>() * 4);
-    case 128:
-      return bf16 ? tc::Geo<128>::SMEM : (int)(smem_floats<128>() * 4);
-    case 192:
-      return bf16 ? tc::Geo<192>::SMEM : (int)(smem_floats<192>() * 4);
-    default:
-      return 0;
-  }
+// Dynamic shared memory of one block of the kernel of (type, D, Dv), in
+// bytes (0 for a pair without a kernel).
+int flash_attention_smem_bytes(int bf16, int D, int Dv) {
+#define FLASH_SMEM(d, dv) \
+  if (D == d && Dv == dv) return smem_bytes<d, dv>(bf16);
+  FLASH_HEAD_DIM_PAIRS(FLASH_SMEM)
+#undef FLASH_SMEM
+  return 0;
 }
 
 }  // extern "C"

@@ -6,8 +6,10 @@
 // jax.custom_vjp wires under chunked_attention; the JAX package has no
 // Pallas backward. For the saved q, k, v, out, the row log-sum-exp lse of
 // the scaled scores (flash_attention.cu writes it) and the output's
-// gradient dout, with s = (q_i . k_j) D^-1/2 and a key visible when
-// j < Sk, j <= q_offset + i (causal) and j > q_offset + i - window:
+// gradient dout (q and k of head dim D, v, out and dout of their own DV:
+// the head-dim pairs (D, D) and MLA's (192, 128)), with s = (q_i . k_j)
+// D^-1/2 and a key visible when j < Sk, j <= q_offset + i (causal) and
+// j > q_offset + i - window:
 //
 //   delta_i = sum_d dout_id out_id
 //   p_ij    = exp(min(s_ij - lse_i, 30)), 0 where masked
@@ -18,7 +20,7 @@
 //
 // in f32, the gradients written in the input type.
 //
-// Three kernels a call, all on a contiguous (B, S, heads, D) layout:
+// Three kernels a call, all on a contiguous (B, S, heads, width) layout:
 // - flash_bwd_delta_kernel: delta, one warp a row, into an f32 (B, Sq, H)
 //   scratch, so that each row's delta is computed once;
 // - dK/dV: one block per (64-key tile, KV head, batch). It loops over the
@@ -54,10 +56,15 @@
 // Rounding P and dS to bf16 for those products is where the kernel's
 // result leaves the f32 reference (the forward rounds P the same way).
 //
+// At D = 192 a warp's dK and dV (96 + 64 f32 a thread at (192, 128), 96 +
+// 96 at (192, 192)) with the tile's fragments pass the 255 registers a
+// thread may have: the dK/dV kernel spills there (ptxas' report is
+// chip_smoke.py's [build] lines), which the wgmma route does not.
+//
 // f32 inputs: flash_bwd_dkdv_kernel and flash_bwd_dq_kernel, 256 threads
-// as a 16 x 16 grid owning 4 x 4 of each 64 x 64 product and 4 x D/16 of
+// as a 16 x 16 grid owning 4 x 4 of each 64 x 64 product and 4 x W/16 of
 // each accumulator, f32 on the CUDA cores (f32 must stay f32), tiles of
-// D + 1 columns in shared memory.
+// W + 1 columns in shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -117,19 +124,19 @@ __device__ __forceinline__ long long at(int b, int s, int S, int head,
   return ((long long)b * S + s) * heads + head;
 }
 
-// delta = rowsum(dout * out), one warp a row of D
+// delta = rowsum(dout * out), one warp a row of DV
 template <typename T>
 __global__ void flash_bwd_delta_kernel(const T* __restrict__ o,
                                        const T* __restrict__ dout,
                                        float* __restrict__ delta, int rows,
-                                       int D) {
+                                       int DV) {
   const long long row = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;  // whole warps leave together
-  const T* orow = o + row * D;
-  const T* drow = dout + row * D;
+  const T* orow = o + row * DV;
+  const T* drow = dout + row * DV;
   float acc = 0.f;
-  for (int d = lane; d < D; d += 32)
+  for (int d = lane; d < DV; d += 32)
     acc = fmaf(to_f32(orow[d]), to_f32(drow[d]), acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -142,39 +149,42 @@ __global__ void flash_bwd_delta_kernel(const T* __restrict__ o,
 // ---------------------------------------------------------------------------
 constexpr int THREADS = 256;
 
-template <int D>
+template <int D, int DV>
 constexpr int f32_smem_bytes(bool dkdv) {
-  // 4 tiles (BN, D + 1); dK/dV: P and dS (BN, BN + 1), lse and delta
-  return dkdv ? 4 * (4 * BN * (D + 1) + 2 * BN * (BN + 1) + 2 * BN)
-              : 4 * (4 * BN * (D + 1) + BN * (BN + 1));
+  // tiles (BN, W + 1): K and Q of width D, V and dO of DV; dK/dV: P and dS
+  // (BN, BN + 1), lse and delta
+  return dkdv ? 4 * (2 * BN * (D + 1) + 2 * BN * (DV + 1) +
+                     2 * BN * (BN + 1) + 2 * BN)
+              : 4 * (2 * BN * (D + 1) + 2 * BN * (DV + 1) + BN * (BN + 1));
 }
 
-// rows [r0, r0 + BN) of a (B, S, heads, D) array at (b, head) into a tile
-// of row stride D + 1, zeros past S
-template <int D>
+// rows [r0, r0 + BN) of a (B, S, heads, W) array at (b, head) into a tile
+// of row stride W + 1, zeros past S
+template <int W>
 __device__ __forceinline__ void load_f32(float* dst, const float* src, int b,
                                          int head, int heads, int S, int r0) {
-  for (int e = threadIdx.x; e < BN * D; e += THREADS) {
-    const int r = e / D, d = e % D, row = r0 + r;
-    dst[r * (D + 1) + d] = row < S ? src[at(b, row, S, head, heads) * D + d]
+  for (int e = threadIdx.x; e < BN * W; e += THREADS) {
+    const int r = e / W, d = e % W, row = r0 + r;
+    dst[r * (W + 1) + d] = row < S ? src[at(b, row, S, head, heads) * W + d]
                                    : 0.f;
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, int H,
     int KH, int causal, int window, int q_offset, float scale) {
-  constexpr int DP = D + 1, PS = BN + 1, DJ = D / 16;
+  constexpr int DP = D + 1, VP = DV + 1, PS = BN + 1;
+  constexpr int DJ = D / 16, VJ = DV / 16;
   extern __shared__ float smem[];
-  float* Ks = smem;         // [BN keys][DP]
-  float* Vs = Ks + BN * DP;
-  float* Qs = Vs + BN * DP;  // [BN query rows][DP]
-  float* Os = Qs + BN * DP;  // dout
-  float* Ps = Os + BN * DP;  // [BN keys][PS]
+  float* Ks = smem;          // [BN keys][DP]
+  float* Vs = Ks + BN * DP;  // [BN keys][VP]
+  float* Qs = Vs + BN * VP;  // [BN query rows][DP]
+  float* Os = Qs + BN * DP;  // dout [BN query rows][VP]
+  float* Ps = Os + BN * VP;  // [BN keys][PS]
   float* Ss = Ps + BN * PS;  // dS
   float* Ls = Ss + BN * PS;  // the tile's lse
   float* Es = Ls + BN;       // and delta
@@ -183,13 +193,16 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(
   const int k0 = blockIdx.x * BN, kh = blockIdx.y, b = blockIdx.z;
   const int G = H / KH;
   load_f32<D>(Ks, k, b, kh, KH, Sk, k0);
-  load_f32<D>(Vs, v, b, kh, KH, Sk, k0);
+  load_f32<DV>(Vs, v, b, kh, KH, Sk, k0);
 
-  float dka[4][DJ], dva[4][DJ];
+  float dka[4][DJ], dva[4][VJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) dka[i][j] = dva[i][j] = 0.f;
+    for (int j = 0; j < DJ; ++j) dka[i][j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < VJ; ++j) dva[i][j] = 0.f;
+  }
 
   int qt0, qt1;
   live_q_tiles(k0, Sq, causal, window, q_offset, qt0, qt1);
@@ -199,7 +212,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(
       const int q0 = qt * BN;
       __syncthreads();  // the previous tile's readers are done
       load_f32<D>(Qs, q, b, h, H, Sq, q0);
-      load_f32<D>(Os, dout, b, h, H, Sq, q0);
+      load_f32<DV>(Os, dout, b, h, H, Sq, q0);
       for (int r = tid; r < BN; r += THREADS) {
         const int row = q0 + r;
         const bool in = row < Sq;
@@ -215,21 +228,28 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
       for (int d = 0; d < D; ++d) {
-        float kv[4], vv[4], qv[4], ov[4];
+        float kv[4], qv[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           kv[i] = Ks[(ty + 16 * i) * DP + d];
-          vv[i] = Vs[(ty + 16 * i) * DP + d];
           qv[i] = Qs[(tx + 16 * i) * DP + d];
-          ov[i] = Os[(tx + 16 * i) * DP + d];
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-            dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
-          }
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
+      }
+      for (int d = 0; d < DV; ++d) {
+        float vv[4], ov[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          vv[i] = Vs[(ty + 16 * i) * VP + d];
+          ov[i] = Os[(tx + 16 * i) * VP + d];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -246,21 +266,19 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(
 
       // dV += P^T dO, dK += dS^T Q: keys ty + 16 i, columns tx + 16 j
       for (int r = 0; r < BN; ++r) {
-        float ov[DJ], qv[DJ];
+        float ov[VJ], qv[DJ];
 #pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          ov[j] = Os[r * DP + tx + 16 * j];
-          qv[j] = Qs[r * DP + tx + 16 * j];
-        }
+        for (int j = 0; j < VJ; ++j) ov[j] = Os[r * VP + tx + 16 * j];
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) qv[j] = Qs[r * DP + tx + 16 * j];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float p = Ps[(ty + 16 * i) * PS + r];
           const float ds = Ss[(ty + 16 * i) * PS + r];
 #pragma unroll
-          for (int j = 0; j < DJ; ++j) {
-            dva[i][j] = fmaf(p, ov[j], dva[i][j]);
-            dka[i][j] = fmaf(ds, qv[j], dka[i][j]);
-          }
+          for (int j = 0; j < VJ; ++j) dva[i][j] = fmaf(p, ov[j], dva[i][j]);
+#pragma unroll
+          for (int j = 0; j < DJ; ++j) dka[i][j] = fmaf(ds, qv[j], dka[i][j]);
         }
       }
     }
@@ -270,35 +288,34 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(
   for (int i = 0; i < 4; ++i) {
     const int key = k0 + ty + 16 * i;
     if (key >= Sk) continue;
-    const long long off = at(b, key, Sk, kh, KH) * D;
+    const long long row = at(b, key, Sk, kh, KH);
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      dk[off + tx + 16 * j] = dka[i][j];
-      dv[off + tx + 16 * j] = dva[i][j];
-    }
+    for (int j = 0; j < DJ; ++j) dk[row * D + tx + 16 * j] = dka[i][j];
+#pragma unroll
+    for (int j = 0; j < VJ; ++j) dv[row * DV + tx + 16 * j] = dva[i][j];
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dq, int Sq, int Sk, int H, int KH, int causal,
     int window, int q_offset, float scale) {
-  constexpr int DP = D + 1, PS = BN + 1, DJ = D / 16;
+  constexpr int DP = D + 1, VP = DV + 1, PS = BN + 1, DJ = D / 16;
   extern __shared__ float smem[];
   float* Qs = smem;          // [BN query rows][DP]
-  float* Os = Qs + BN * DP;  // dout
-  float* Ks = Os + BN * DP;  // [BN keys][DP]
-  float* Vs = Ks + BN * DP;
-  float* Ss = Vs + BN * DP;  // dS [BN query rows][PS]
+  float* Os = Qs + BN * DP;  // dout [BN query rows][VP]
+  float* Ks = Os + BN * VP;  // [BN keys][DP]
+  float* Vs = Ks + BN * DP;  // [BN keys][VP]
+  float* Ss = Vs + BN * VP;  // dS [BN query rows][PS]
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int q0 = blockIdx.x * BN, h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (H / KH);
   load_f32<D>(Qs, q, b, h, H, Sq, q0);
-  load_f32<D>(Os, dout, b, h, H, Sq, q0);
+  load_f32<DV>(Os, dout, b, h, H, Sq, q0);
   float L[4], E[4], dqa[4][DJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -315,7 +332,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
     const int k0 = kt * BN;
     __syncthreads();  // the previous tile's readers are done
     load_f32<D>(Ks, k, b, kh, KH, Sk, k0);
-    load_f32<D>(Vs, v, b, kh, KH, Sk, k0);
+    load_f32<DV>(Vs, v, b, kh, KH, Sk, k0);
     __syncthreads();
 
     // S and dP: query rows ty + 16 i, keys tx + 16 j
@@ -325,21 +342,28 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
     for (int d = 0; d < D; ++d) {
-      float qv[4], ov[4], kv[4], vv[4];
+      float qv[4], kv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         qv[i] = Qs[(ty + 16 * i) * DP + d];
-        ov[i] = Os[(ty + 16 * i) * DP + d];
         kv[i] = Ks[(tx + 16 * i) * DP + d];
-        vv[i] = Vs[(tx + 16 * i) * DP + d];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-        }
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    }
+    for (int d = 0; d < DV; ++d) {
+      float ov[4], vv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ov[i] = Os[(ty + 16 * i) * VP + d];
+        vv[i] = Vs[(tx + 16 * i) * VP + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -383,21 +407,24 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
 namespace tc {
 
 constexpr int THREADS = 128;  // 4 warps of 16 rows
+constexpr int CS = BN + 8;    // row stride of a transposed (W, BN) tile
 using bf16 = __nv_bfloat16;
 
-// Shared layout at head dim D: a natural (BN, D) tile has rows of D + 8
-// elements, a transposed (D, BN) tile rows of BN + 8; each row's start
-// stays 16-byte aligned and a fragment's 32 lanes read 32 banks.
-template <int D>
+// Shared layout of the head-dim pair (D, DV): a natural (BN, W) tile has
+// rows of W + 8 elements, a transposed (W, BN) tile rows of BN + 8; each
+// row's start stays 16-byte aligned and a fragment's 32 lanes read 32
+// banks.
+template <int D, int DV>
 struct Geo {
-  static constexpr int RS = D + 8;
-  static constexpr int CS = BN + 8;
-  static constexpr int ROWS = BN * RS;  // elements of a natural tile
-  static constexpr int COLS = D * CS;   // elements of a transposed tile
+  static constexpr int RS = D + 8;    // K and Q rows
+  static constexpr int VRS = DV + 8;  // V and dO rows
+  static constexpr int ROWS = BN * RS;    // elements of a natural K, Q tile
+  static constexpr int VROWS = BN * VRS;  // of a natural V, dO tile
   // dK/dV: K, V, Q, dO, Q^T, dO^T, then lse and delta (f32)
-  static constexpr int DKDV = (4 * ROWS + 2 * COLS) * 2 + 2 * BN * 4;
+  static constexpr int DKDV =
+      (2 * ROWS + 2 * VROWS + (D + DV) * CS) * 2 + 2 * BN * 4;
   // dQ: Q, dO, K, V, K^T
-  static constexpr int DQ = (4 * ROWS + COLS) * 2;
+  static constexpr int DQ = (2 * ROWS + 2 * VROWS + D * CS) * 2;
 };
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
@@ -440,46 +467,46 @@ __device__ __forceinline__ void mma_bt(float (&d)[4], const uint32_t (&a)[4],
   mma(d, a, ld32(p), ld32(p + 8));
 }
 
-// rows [r0, r0 + BN) of a (B, S, heads, D) array at (b, head) into a tile
-// of row stride D + 8 (and, with TRANS, its transpose into a tile of row
+// rows [r0, r0 + BN) of a (B, S, heads, W) array at (b, head) into a tile
+// of row stride W + 8 (and, with TRANS, its transpose into a tile of row
 // stride BN + 8), zeros past S; 16-byte loads
-template <int D, bool TRANS>
+template <int W, bool TRANS>
 __device__ __forceinline__ void load_tile(bf16* dst, bf16* dstT,
                                           const bf16* src, int b, int head,
                                           int heads, int S, int r0) {
-  constexpr int CH = D / 8;
+  constexpr int CH = W / 8;
   for (int e = threadIdx.x; e < BN * CH; e += THREADS) {
     const int r = e / CH, c = (e % CH) * 8, row = r0 + r;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (row < S)
-      val = *reinterpret_cast<const uint4*>(src + at(b, row, S, head, heads) * D
+      val = *reinterpret_cast<const uint4*>(src + at(b, row, S, head, heads) * W
                                             + c);
-    *reinterpret_cast<uint4*>(dst + r * Geo<D>::RS + c) = val;
+    *reinterpret_cast<uint4*>(dst + r * (W + 8) + c) = val;
     if (TRANS) {
       const bf16* x = reinterpret_cast<const bf16*>(&val);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) dstT[(c + i) * Geo<D>::CS + r] = x[i];
+      for (int i = 0; i < 8; ++i) dstT[(c + i) * CS + r] = x[i];
     }
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_tc_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk, int H,
     int KH, int causal, int window, int q_offset, float scale) {
-  using Gm = Geo<D>;
-  constexpr int RS = Gm::RS, CS = Gm::CS, NT = D / 8;
+  using Gm = Geo<D, DV>;
+  constexpr int RS = Gm::RS, VRS = Gm::VRS, NT = D / 8, VT = DV / 8;
   extern __shared__ __align__(16) unsigned char smem_tc[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_tc);  // [BN keys][RS]
-  bf16* Vs = Ks + Gm::ROWS;
-  bf16* Qs = Vs + Gm::ROWS;  // [BN query rows][RS]
-  bf16* Os = Qs + Gm::ROWS;  // dout
-  bf16* QT = Os + Gm::ROWS;  // [D][CS]: Q transposed
-  bf16* OT = QT + Gm::COLS;  // dout transposed
-  float* Ls = reinterpret_cast<float*>(OT + Gm::COLS);
+  bf16* Vs = Ks + Gm::ROWS;                     // [BN keys][VRS]
+  bf16* Qs = Vs + Gm::VROWS;  // [BN query rows][RS]
+  bf16* Os = Qs + Gm::ROWS;   // dout [BN query rows][VRS]
+  bf16* QT = Os + Gm::VROWS;  // [D][CS]: Q transposed
+  bf16* OT = QT + D * CS;     // [DV][CS]: dout transposed
+  float* Ls = reinterpret_cast<float*>(OT + DV * CS);
   float* Es = Ls + BN;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -488,14 +515,17 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_tc_kernel(
   const int k0 = blockIdx.x * BN, kh = blockIdx.y, b = blockIdx.z;
   const int G = H / KH;
   load_tile<D, false>(Ks, nullptr, k, b, kh, KH, Sk, k0);
-  load_tile<D, false>(Vs, nullptr, v, b, kh, KH, Sk, k0);
+  load_tile<DV, false>(Vs, nullptr, v, b, kh, KH, Sk, k0);
 
   // accumulators: key rows kr + g (+ 8), columns 8 n + 2 t (+ 1)
-  float dka[NT][4], dva[NT][4];
+  float dka[NT][4], dva[VT][4];
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
+  for (int e = 0; e < 4; ++e) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+    for (int n = 0; n < NT; ++n) dka[n][e] = 0.f;
+#pragma unroll
+    for (int n = 0; n < VT; ++n) dva[n][e] = 0.f;
+  }
 
   int qt0, qt1;
   live_q_tiles(k0, Sq, causal, window, q_offset, qt0, qt1);
@@ -505,7 +535,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_tc_kernel(
       const int q0 = qt * BN;
       __syncthreads();  // the previous tile's readers are done
       load_tile<D, true>(Qs, QT, q, b, h, H, Sq, q0);
-      load_tile<D, true>(Os, OT, dout, b, h, H, Sq, q0);
+      load_tile<DV, true>(Os, OT, dout, b, h, H, Sq, q0);
       for (int r = threadIdx.x; r < BN; r += THREADS) {
         const int row = q0 + r;
         const bool in = row < Sq;
@@ -526,8 +556,12 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_tc_kernel(
           uint32_t a[4];
           frag_a(a, Ks, RS, kr, 16 * kk, g, t);
           mma_bt(s, a, Qs, RS, 8 * j, 16 * kk, g, t);
-          frag_a(a, Vs, RS, kr, 16 * kk, g, t);
-          mma_bt(dp, a, Os, RS, 8 * j, 16 * kk, g, t);
+        }
+#pragma unroll
+        for (int kk = 0; kk < DV / 16; ++kk) {
+          uint32_t a[4];
+          frag_a(a, Vs, VRS, kr, 16 * kk, g, t);
+          mma_bt(dp, a, Os, VRS, 8 * j, 16 * kk, g, t);
         }
         float p[4], ds[4];
 #pragma unroll
@@ -548,12 +582,14 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_tc_kernel(
       // dV += P^T dO and dK += dS^T Q over the 64 query rows; B^T is
       // dO^T and Q^T, row d, query rows contiguous
 #pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk)
+      for (int kk = 0; kk < BN / 16; ++kk) {
 #pragma unroll
-        for (int n = 0; n < NT; ++n) {
+        for (int n = 0; n < VT; ++n)
           mma_bt(dva[n], pa[kk], OT, CS, 8 * n, 16 * kk, g, t);
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
           mma_bt(dka[n], da[kk], QT, CS, 8 * n, 16 * kk, g, t);
-        }
+      }
     }
   }
 
@@ -561,32 +597,33 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_tc_kernel(
   for (int half = 0; half < 2; ++half) {
     const int key = k0 + kr + g + 8 * half;
     if (key >= Sk) continue;
-    const long long off = at(b, key, Sk, kh, KH) * D + 2 * t;
+    const long long row = at(b, key, Sk, kh, KH);
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * n) =
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dk + row * D + 8 * n + 2 * t) =
           __floats2bfloat162_rn(dka[n][2 * half], dka[n][2 * half + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * n) =
+#pragma unroll
+    for (int n = 0; n < VT; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dv + row * DV + 8 * n + 2 * t) =
           __floats2bfloat162_rn(dva[n][2 * half], dva[n][2 * half + 1]);
-    }
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dq_tc_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     bf16* __restrict__ dq, int Sq, int Sk, int H, int KH, int causal,
     int window, int q_offset, float scale) {
-  using Gm = Geo<D>;
-  constexpr int RS = Gm::RS, CS = Gm::CS, NT = D / 8;
+  using Gm = Geo<D, DV>;
+  constexpr int RS = Gm::RS, VRS = Gm::VRS, NT = D / 8;
   extern __shared__ __align__(16) unsigned char smem_tc[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_tc);  // [BN query rows][RS]
-  bf16* Os = Qs + Gm::ROWS;                     // dout
-  bf16* Ks = Os + Gm::ROWS;                     // [BN keys][RS]
-  bf16* Vs = Ks + Gm::ROWS;
-  bf16* KT = Vs + Gm::ROWS;  // [D][CS]: K transposed
+  bf16* Os = Qs + Gm::ROWS;                     // dout [BN rows][VRS]
+  bf16* Ks = Os + Gm::VROWS;                    // [BN keys][RS]
+  bf16* Vs = Ks + Gm::ROWS;                     // [BN keys][VRS]
+  bf16* KT = Vs + Gm::VROWS;  // [D][CS]: K transposed
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -594,7 +631,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_tc_kernel(
   const int q0 = blockIdx.x * BN, h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (H / KH);
   load_tile<D, false>(Qs, nullptr, q, b, h, H, Sq, q0);
-  load_tile<D, false>(Os, nullptr, dout, b, h, H, Sq, q0);
+  load_tile<DV, false>(Os, nullptr, dout, b, h, H, Sq, q0);
   float L[2], E[2];
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -604,12 +641,12 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_tc_kernel(
   }
   __syncthreads();
   // the warp's Q and dout rows as A fragments, for every key tile
-  uint32_t qa[D / 16][4], oa[D / 16][4];
+  uint32_t qa[D / 16][4], oa[DV / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    frag_a(qa[kk], Qs, RS, qr, 16 * kk, g, t);
-    frag_a(oa[kk], Os, RS, qr, 16 * kk, g, t);
-  }
+  for (int kk = 0; kk < D / 16; ++kk) frag_a(qa[kk], Qs, RS, qr, 16 * kk, g, t);
+#pragma unroll
+  for (int kk = 0; kk < DV / 16; ++kk)
+    frag_a(oa[kk], Os, VRS, qr, 16 * kk, g, t);
   // accumulator: query rows qr + g (+ 8), columns 8 n + 2 t (+ 1)
   float dqa[NT][4];
 #pragma unroll
@@ -623,7 +660,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_tc_kernel(
     const int k0 = kt * BN;
     __syncthreads();  // the previous tile's readers are done
     load_tile<D, true>(Ks, KT, k, b, kh, KH, Sk, k0);
-    load_tile<D, false>(Vs, nullptr, v, b, kh, KH, Sk, k0);
+    load_tile<DV, false>(Vs, nullptr, v, b, kh, KH, Sk, k0);
     __syncthreads();
 
     // per 8 keys j: S = Q K^T and dP = dO V^T (16 rows x 8 keys), then
@@ -633,10 +670,11 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_tc_kernel(
     for (int j = 0; j < BN / 8; ++j) {
       float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < D / 16; ++kk)
         mma_bt(s, qa[kk], Ks, RS, 8 * j, 16 * kk, g, t);
-        mma_bt(dp, oa[kk], Vs, RS, 8 * j, 16 * kk, g, t);
-      }
+#pragma unroll
+      for (int kk = 0; kk < DV / 16; ++kk)
+        mma_bt(dp, oa[kk], Vs, VRS, 8 * j, 16 * kk, g, t);
       float ds[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -679,8 +717,8 @@ cudaError_t allow_smem(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// The three launches of one backward at head dim D.
-template <int D>
+// The three launches of one backward at the head-dim pair (D, DV).
+template <int D, int DV>
 int launch(int bf16, const void* q, const void* k, const void* v,
            const void* o, const void* dout, const float* lse, float* delta,
            void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H, int KH,
@@ -693,22 +731,23 @@ int launch(int bf16, const void* q, const void* k, const void* v,
   cudaError_t err;
   if (bf16) {
     using T = __nv_bfloat16;
+    using Gm = tc::Geo<D, DV>;
     flash_bwd_delta_kernel<T><<<dgrid, 32 * warps_per_block, 0, stream>>>(
         static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows,
-        D);
+        DV);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    auto dkdv = tc::flash_bwd_dkdv_tc_kernel<D>;
-    auto dqk = tc::flash_bwd_dq_tc_kernel<D>;
-    if ((err = allow_smem(dkdv, tc::Geo<D>::DKDV)) != cudaSuccess ||
-        (err = allow_smem(dqk, tc::Geo<D>::DQ)) != cudaSuccess)
+    auto dkdv = tc::flash_bwd_dkdv_tc_kernel<D, DV>;
+    auto dqk = tc::flash_bwd_dq_tc_kernel<D, DV>;
+    if ((err = allow_smem(dkdv, Gm::DKDV)) != cudaSuccess ||
+        (err = allow_smem(dqk, Gm::DQ)) != cudaSuccess)
       return (int)err;
-    dkdv<<<kgrid, tc::THREADS, tc::Geo<D>::DKDV, stream>>>(
+    dkdv<<<kgrid, tc::THREADS, Gm::DKDV, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
         static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, H, KH, causal,
         window, q_offset, scale);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    dqk<<<qgrid, tc::THREADS, tc::Geo<D>::DQ, stream>>>(
+    dqk<<<qgrid, tc::THREADS, Gm::DQ, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
         static_cast<T*>(dq), Sq, Sk, H, KH, causal, window, q_offset, scale);
@@ -716,83 +755,75 @@ int launch(int bf16, const void* q, const void* k, const void* v,
   }
   using T = float;
   flash_bwd_delta_kernel<T><<<dgrid, 32 * warps_per_block, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows, D);
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows, DV);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  auto dkdv = flash_bwd_dkdv_kernel<D>;
-  auto dqk = flash_bwd_dq_kernel<D>;
-  if ((err = allow_smem(dkdv, f32_smem_bytes<D>(true))) != cudaSuccess ||
-      (err = allow_smem(dqk, f32_smem_bytes<D>(false))) != cudaSuccess)
+  auto dkdv = flash_bwd_dkdv_kernel<D, DV>;
+  auto dqk = flash_bwd_dq_kernel<D, DV>;
+  constexpr int dkdv_smem = f32_smem_bytes<D, DV>(true);
+  constexpr int dq_smem = f32_smem_bytes<D, DV>(false);
+  if ((err = allow_smem(dkdv, dkdv_smem)) != cudaSuccess ||
+      (err = allow_smem(dqk, dq_smem)) != cudaSuccess)
     return (int)err;
-  dkdv<<<kgrid, THREADS, f32_smem_bytes<D>(true), stream>>>(
+  dkdv<<<kgrid, THREADS, dkdv_smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, H, KH, causal, window,
       q_offset, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  dqk<<<qgrid, THREADS, f32_smem_bytes<D>(false), stream>>>(
+  dqk<<<qgrid, THREADS, dq_smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dq), Sq, Sk, H, KH, causal, window, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV>
 int smem_bytes(int bf16, int dkdv) {
-  if (bf16) return dkdv ? tc::Geo<D>::DKDV : tc::Geo<D>::DQ;
-  return f32_smem_bytes<D>(dkdv != 0);
+  if (bf16) return dkdv ? tc::Geo<D, DV>::DKDV : tc::Geo<D, DV>::DQ;
+  return f32_smem_bytes<D, DV>(dkdv != 0);
 }
 
 }  // namespace
+
+// The head-dim pairs (D, DV) the kernels are built for, as
+// flash_attention.cu's FLASH_HEAD_DIM_PAIRS.
+#define BWD_HEAD_DIM_PAIRS(X) \
+  X(16, 16) X(32, 32) X(64, 64) X(128, 128) X(192, 192) X(192, 128)
 
 extern "C" {
 
 // Launch the backward on ``stream`` (delta, then dK/dV, then dQ); returns
 // the first failing launch's cudaError_t (0 on success). Every tensor is a
-// contiguous (B, S, heads, D) array: q, out, dout, dq (B, Sq, H, D); k, v,
-// dk, dv (B, Sk, KH, D); lse and the scratch delta (B, Sq, H) f32.
-// ``bf16`` selects __nv_bfloat16 tensors (the tensor-core kernels), else
-// float; ``window`` <= 0 means no window.
+// contiguous (B, S, heads, width) array: q, dq (B, Sq, H, D); k, dk (B,
+// Sk, KH, D); v, dv (B, Sk, KH, Dv); out, dout (B, Sq, H, Dv); lse and the
+// scratch delta (B, Sq, H) f32. ``bf16`` selects __nv_bfloat16 tensors
+// (the tensor-core kernels), else float; ``window`` <= 0 means no window.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                const void* o, const void* dout,
                                const float* lse, float* delta, void* dq,
                                void* dk, void* dv, int bf16, int B, int Sq,
-                               int Sk, int H, int KH, int D, int causal,
-                               int window, int q_offset, float scale,
-                               cudaStream_t stream) {
-  switch (D) {
-    case 16:
-      return launch<16>(bf16, q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq,
-                        Sk, H, KH, causal, window, q_offset, scale, stream);
-    case 32:
-      return launch<32>(bf16, q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq,
-                        Sk, H, KH, causal, window, q_offset, scale, stream);
-    case 64:
-      return launch<64>(bf16, q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq,
-                        Sk, H, KH, causal, window, q_offset, scale, stream);
-    case 128:
-      return launch<128>(bf16, q, k, v, o, dout, lse, delta, dq, dk, dv, B,
-                         Sq, Sk, H, KH, causal, window, q_offset, scale,
-                         stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+                               int Sk, int H, int KH, int D, int Dv,
+                               int causal, int window, int q_offset,
+                               float scale, cudaStream_t stream) {
+#define BWD_LAUNCH(d, dv_)                                                  \
+  if (D == d && Dv == dv_)                                                  \
+    return launch<d, dv_>(bf16, q, k, v, o, dout, lse, delta, dq, dk, dv, B, \
+                          Sq, Sk, H, KH, causal, window, q_offset, scale,   \
+                          stream);
+  BWD_HEAD_DIM_PAIRS(BWD_LAUNCH)
+#undef BWD_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }
 
 // Dynamic shared memory of one block of the dK/dV (``dkdv`` = 1) or the
-// dQ kernel (0) of (type, D), in bytes (0 for a D without a kernel).
-int flash_attention_bwd_smem_bytes(int bf16, int D, int dkdv) {
-  switch (D) {
-    case 16:
-      return smem_bytes<16>(bf16, dkdv);
-    case 32:
-      return smem_bytes<32>(bf16, dkdv);
-    case 64:
-      return smem_bytes<64>(bf16, dkdv);
-    case 128:
-      return smem_bytes<128>(bf16, dkdv);
-    default:
-      return 0;
-  }
+// dQ kernel (0) of (type, D, Dv), in bytes (0 for a pair without a
+// kernel).
+int flash_attention_bwd_smem_bytes(int bf16, int D, int Dv, int dkdv) {
+#define BWD_SMEM(d, dv_) \
+  if (D == d && Dv == dv_) return smem_bytes<d, dv_>(bf16, dkdv);
+  BWD_HEAD_DIM_PAIRS(BWD_SMEM)
+#undef BWD_SMEM
+  return 0;
 }
 
 }  // extern "C"

@@ -11,9 +11,11 @@ requires grad, it runs the forward alone and writes no log-sum-exp
 both devices, which saves ``q, k, v, out, lse`` and runs the backward from
 them: on the card the forward kernel with its LSE output and the backward
 kernel, on the CPU ``ref.flash_attention_ref`` and
-``ref.flash_attention_bwd_ref``. CUDA tensors launch the kernels or raise
-(a head dim the backward kernel does not take raises before the forward
-runs); nothing falls back. ``stream_bf16`` (``RunConfig.attn_stream_bf16``)
+``ref.flash_attention_bwd_ref``. v may have a head dim of its own (MLA: q
+and k 192, v 128); the forward and the backward kernels take the same
+head-dim pairs (``flash_attention.HEAD_DIM_PAIRS``). CUDA tensors launch
+the kernels or raise (a pair outside them raises before anything moves to
+the card); nothing falls back. ``stream_bf16`` (``RunConfig.attn_stream_bf16``)
 streams the operands in bf16: on the card q, k and v are cast to bf16 and
 the bf16 kernels run (the output cast back to q's type, the gradients
 back through the cast), on the CPU the plain versions round the products'
@@ -26,7 +28,7 @@ import torch
 
 from ...device import resolve_device
 from .flash_attention import (
-    check_backward, flash_attention_bwd_cuda, flash_attention_cuda,
+    check_pair, flash_attention_bwd_cuda, flash_attention_cuda,
 )
 from .ref import flash_attention_bwd_ref, flash_attention_ref
 
@@ -58,7 +60,7 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(
     q: torch.Tensor,  # (B, S, H, D) — model layout
     k: torch.Tensor,  # (B, S, KH, D)
-    v: torch.Tensor,  # (B, S, KH, D)
+    v: torch.Tensor,  # (B, S, KH, Dv)
     *,
     causal: bool = True,
     window: int | None = None,
@@ -70,8 +72,8 @@ def flash_attention(
     if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"no attention engine for device {dev}")
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-    if grad and dev.type == "cuda":
-        check_backward(q)
+    if dev.type == "cuda":
+        check_pair(q.shape[-1], v.shape[-1])
     out_dtype = q.dtype
     q, k, v = (t.to(dev) for t in (q, k, v))
     if stream_bf16 and dev.type == "cuda":

@@ -12,9 +12,9 @@ whole. ``train`` called on each rank of a process group under a
 (``RunConfig.zero1``: each rank keeps its blocks of the state;
 ``train.optim.DataParallel``), and resumes from a checkpoint of any mesh
 (README: "ZeRO-1 and elastic restore"). Attention runs in the
-hand-written forward and backward kernels; an SSD layer or MLA (D = 192)
-refuses to train on the card (their backward kernels are still to come),
-and trains on the CPU.
+hand-written forward and backward kernels, MLA's (q/k 192, v 128) too; an
+SSD layer refuses to train on the card (its backward kernel is still to
+come), and trains on the CPU.
 """
 from __future__ import annotations
 

@@ -8,12 +8,10 @@ plain versions on the CPU. It computes the function of the reference's
 ``chunked_attention`` (the jnp path, which the reference meant the Pallas
 kernel to replace on its accelerator) and, under autograd, its gradient:
 the reference's hand-written backward ``_flash_bwd_impl``, on the card the
-backward kernel. MLA's values (head dim 128) are
-zero-padded to the query/key head dim (192) for the kernel, which has one
-head dim for q, k and v, and the output is sliced back: the padded columns
-are zeros and the scale ``D**-0.5`` is MLA's ``(nope + rope)**-0.5``.
-The backward kernel does not take D = 192, so MLA trains on the CPU only
-(on the card a call under grad raises).
+backward kernel. MLA's values keep their own head dim (128) beside the
+query/key head dim (192), as in the reference's ``_flash_fwd_impl``: the
+kernels, forward and backward, take that pair, and the scale ``D**-0.5``
+is q's, MLA's ``(nope + rope)**-0.5``. MLA trains on the card as GQA does.
 
 Under tensor parallelism (``shardctx.tensor_parallel``) a rank runs attention
 on its own heads through the same kernels. The weights are 2-D, ``(d,
@@ -48,7 +46,6 @@ attention in bf16 (``kernels.flash_attention.ops``).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ..kernels.flash_attention.ops import flash_attention
 from .config import ArchConfig, MLAConfig, RunConfig
@@ -370,11 +367,8 @@ def mla_apply(
     k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(B, S, h, rope)], dim=-1)
-    # one head dim for q, k and v: v zero-padded to q's, output sliced back
-    v = F.pad(v, (0, q.shape[-1] - dv))
     out = flash_attention(q, k, v, causal=True,
-                          stream_bf16=run.attn_stream_bf16,
-                          device=x.device)[..., :dv]
+                          stream_bf16=run.attn_stream_bf16, device=x.device)
     out = out.reshape(B, S, h * dv)[..., lo - h0 * dv:hi - h0 * dv]
     # where wo is not split every rank computed every head: its replicated
     # product is counted once

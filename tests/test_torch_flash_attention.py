@@ -2,7 +2,11 @@
 reference's Pallas flash kernel in interpret mode and its jnp oracle
 ``attention_ref``, on the reference's own sweep (``test_kernels.py``'s
 ``ATTN_SHAPES``: MHA, GQA, MQA, ragged, window, rectangular blocks, plus
-MLA's head dim 192) and its ``q_offset`` case.
+MLA's head dim 192, with v as wide and with MLA's own v of 128) and its
+``q_offset`` case. The Pallas kernel has one head dim for q, k and v: at
+MLA's pair it runs on v zero-padded to 192 and its output is cut back to
+128 columns (the padded columns are zeros, and the rest is the same
+function); the oracle takes v at 128 as it is.
 
 On the CPU ``flash_attention`` runs the plain version, the function the
 CUDA kernels are held to on the card. Tolerances are the reference's own
@@ -12,8 +16,9 @@ numpy and cast to bf16 by both frameworks (round to nearest even).
 The bf16 tensor-core kernel's arithmetic (128-row query tiles walking
 64-key tiles in ascending order, exp2, P rounded to bf16 before P V) is
 emulated here, not in the package, and held to the JAX oracle at the chip's
-bf16 tolerance on its edge cases; each kernel instance's shared memory is
-held to the 227 KB a block may use.
+bf16 tolerance on its edge cases (MLA's pair among them); each kernel
+instance's shared memory, at every head-dim pair, is held to the 227 KB a
+block may use.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -30,7 +35,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_ref,
 )
 from repro_torch.kernels.flash_attention.flash_attention import (
-    HEAD_DIMS,
+    HEAD_DIM_PAIRS,
     TC_BK,
     TC_BQ,
     check_tma,
@@ -39,24 +44,27 @@ from repro_torch.kernels.flash_attention.flash_attention import (
 from repro_torch.kernels.flash_attention.ref import NEG_INF
 
 ATTN_SHAPES = [
-    # (B, S, H, KH, D, bq, bk, window), as test_kernels.py
-    (1, 128, 4, 4, 64, 64, 64, None),  # MHA
-    (2, 256, 8, 2, 64, 128, 128, None),  # GQA 4:1
-    (2, 256, 8, 1, 32, 64, 128, None),  # MQA
-    (1, 200, 4, 2, 64, 64, 64, None),  # ragged (pad path)
-    (2, 256, 4, 4, 128, 64, 64, 96),  # sliding window
-    (1, 512, 2, 2, 64, 128, 256, 128),  # window, rectangular blocks
-    (1, 160, 4, 4, 192, 64, 64, None),  # MLA's q/k head dim 128 + 64
+    # (B, S, H, KH, D, bq, bk, window, Dv), as test_kernels.py (Dv = D)
+    (1, 128, 4, 4, 64, 64, 64, None, 64),  # MHA
+    (2, 256, 8, 2, 64, 128, 128, None, 64),  # GQA 4:1
+    (2, 256, 8, 1, 32, 64, 128, None, 32),  # MQA
+    (1, 200, 4, 2, 64, 64, 64, None, 64),  # ragged (pad path)
+    (2, 256, 4, 4, 128, 64, 64, 96, 128),  # sliding window
+    (1, 512, 2, 2, 64, 128, 256, 128, 64),  # window, rectangular blocks
+    (1, 160, 4, 4, 192, 64, 64, None, 192),  # MLA's q/k head dim 128 + 64
+    (1, 160, 4, 2, 192, 64, 64, 48, 128),  # MLA's pair, GQA, window
 ]
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
 
 
-def _inputs(B, Sq, Sk, H, KH, D, seed):
+def _inputs(B, Sq, Sk, H, KH, D, seed, Dv=None):
+    """q, k, v, seeded; v of width ``Dv`` (default D)."""
     rng = np.random.default_rng(seed)
     return (rng.standard_normal((B, Sq, H, D), np.float32),
             rng.standard_normal((B, Sk, KH, D), np.float32),
-            rng.standard_normal((B, Sk, KH, D), np.float32))
+            rng.standard_normal((B, Sk, KH, D if Dv is None else Dv),
+                                np.float32))
 
 
 def _bhsd(x):
@@ -68,12 +76,14 @@ def reference():
     """Every case through JAX once: (inputs, Pallas interpret, oracle)."""
     out = {}
     for i, shape in enumerate(ATTN_SHAPES):
-        B, S, H, KH, D, bq, bk, window = shape
-        np_in = _inputs(B, S, S, H, KH, D, seed=i)
+        B, S, H, KH, D, bq, bk, window, Dv = shape
+        np_in = _inputs(B, S, S, H, KH, D, seed=i, Dv=Dv)
         for name, (jdt, _, _) in DTYPES.items():
             q, k, v = (jnp.asarray(a, jdt) for a in np_in)
-            pallas = jax_flash(q, k, v, window=window, block_q=bq,
-                               block_k=bk, interpret=True)
+            # the Pallas kernel's one head dim: v zero-padded, cut back
+            vp = jnp.pad(v, [(0, 0)] * 3 + [(0, D - Dv)])
+            pallas = jax_flash(q, k, vp, window=window, block_q=bq,
+                               block_k=bk, interpret=True)[..., :Dv]
             oracle = _bhsd(attention_ref(_bhsd(q), _bhsd(k), _bhsd(v),
                                          window=window))
             out[shape, name] = (np_in, np.asarray(pallas, np.float32),
@@ -87,8 +97,8 @@ def test_attention_matches_pallas_and_oracle(reference, shape, dtype):
     np_in, pallas, oracle = reference[shape, dtype]
     _, tdt, atol = DTYPES[dtype]
     q, k, v = (torch.from_numpy(a).to(tdt) for a in np_in)
-    out = flash_attention(q, k, v, window=shape[-1], device="cpu")
-    assert out.dtype == tdt and out.shape == q.shape
+    out = flash_attention(q, k, v, window=shape[7], device="cpu")
+    assert out.dtype == tdt and out.shape == q.shape[:3] + v.shape[3:]
     got = out.float().numpy()
     np.testing.assert_allclose(got, pallas, atol=atol)
     np.testing.assert_allclose(got, oracle, atol=atol)
@@ -150,7 +160,7 @@ def _tc_kernel_emulation(q, k, v, *, window=None, q_offset=0):
     sums the unrounded p). Returns the output and, per query row, whether
     its first walked tile was fully masked."""
     B, Sq, H, D = q.shape
-    Sk, KH = k.shape[1], k.shape[2]
+    Sk, KH, Dv = k.shape[1], k.shape[2], v.shape[-1]
     G = H // KH
     BQ, BK = TC_BQ, TC_BK
     nk = -(-Sk // BK)
@@ -159,7 +169,7 @@ def _tc_kernel_emulation(q, k, v, *, window=None, q_offset=0):
     vf = F.pad(v.float(), (0, 0, 0, 0, 0, pad)).repeat_interleave(G, 2)
     qf = q.float()
     scale = D**-0.5 * LOG2E
-    out = torch.empty((B, Sq, H, D), dtype=torch.float32)
+    out = torch.empty((B, Sq, H, Dv), dtype=torch.float32)
     first_masked = torch.zeros(Sq, dtype=torch.bool)
     for q0 in range(0, Sq, BQ):
         rows = torch.arange(q0, min(q0 + BQ, Sq))
@@ -171,7 +181,7 @@ def _tc_kernel_emulation(q, k, v, *, window=None, q_offset=0):
         qp = q_offset + rows
         m = torch.full((B, H, len(rows)), NEG_INF)
         l = torch.zeros((B, H, len(rows)))
-        acc = torch.zeros((B, H, len(rows), D))
+        acc = torch.zeros((B, H, len(rows), Dv))
         for kt in range(kt0, kt1):
             keys = torch.arange(kt * BK, (kt + 1) * BK)
             s = torch.einsum("bqhd,bkhd->bhqk", qf[:, rows],
@@ -198,15 +208,17 @@ def _tc_kernel_emulation(q, k, v, *, window=None, q_offset=0):
 
 
 TC_CASES = [
-    # (B, Sq, Sk, H, KH, D, window, q_offset)
-    (1, 300, 300, 2, 2, 64, 70, 0),  # window rows whose first tile is dead
-    (2, 200, 200, 4, 2, 16, None, 0),  # D = 16, ragged Sq and Sk
-    (1, 200, 200, 4, 1, 32, 40, 0),  # D = 32, MQA, window
-    (1, 333, 333, 2, 2, 128, 100, 0),  # D = 128, two column blocks
-    (1, 333, 333, 4, 2, 192, 100, 0),  # D = 192, three blocks, GQA, window
-    (2, 200, 200, 4, 4, 192, None, 0),  # D = 192 (MLA), ragged Sq and Sk
-    (2, 64, 1377, 4, 2, 64, 1024, 1313),  # a 64-query q_offset chunk
-    (1, 40, 40, 2, 2, 64, None, 0),  # Sk below one key tile
+    # (B, Sq, Sk, H, KH, D, window, q_offset, Dv)
+    (1, 300, 300, 2, 2, 64, 70, 0, 64),  # window rows whose first tile is dead
+    (2, 200, 200, 4, 2, 16, None, 0, 16),  # D = 16, ragged Sq and Sk
+    (1, 200, 200, 4, 1, 32, 40, 0, 32),  # D = 32, MQA, window
+    (1, 333, 333, 2, 2, 128, 100, 0, 128),  # D = 128, two column blocks
+    (1, 333, 333, 4, 2, 192, 100, 0, 192),  # D = 192, GQA, window
+    (2, 200, 200, 4, 4, 192, None, 0, 192),  # D = 192, ragged Sq and Sk
+    (2, 64, 1377, 4, 2, 64, 1024, 1313, 64),  # a 64-query q_offset chunk
+    (1, 40, 40, 2, 2, 64, None, 0, 64),  # Sk below one key tile
+    (1, 333, 333, 4, 2, 192, 100, 0, 128),  # MLA's pair, GQA, window
+    (2, 64, 1377, 2, 2, 192, None, 1313, 128),  # MLA's pair, q_offset
 ]
 
 
@@ -214,8 +226,8 @@ TC_CASES = [
 def test_tc_kernel_emulation_matches_oracle(case):
     """The bf16 kernel's arithmetic (bf16 P, exp2, tile walk) stays within
     the chip tolerance of the JAX oracle (atol 2e-2)."""
-    B, Sq, Sk, H, KH, D, window, off = case
-    np_in = _inputs(B, Sq, Sk, H, KH, D, seed=Sq + D)
+    B, Sq, Sk, H, KH, D, window, off, Dv = case
+    np_in = _inputs(B, Sq, Sk, H, KH, D, seed=Sq + D, Dv=Dv)
     q, k, v = (torch.from_numpy(a).bfloat16() for a in np_in)
     got, _ = _tc_kernel_emulation(q, k, v, window=window, q_offset=off)
     jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in np_in)
@@ -229,7 +241,7 @@ def test_tc_emulation_window_case_has_a_fully_masked_first_tile():
     """The window case of ``TC_CASES`` does reach the -1e30 cancellation:
     rows whose first walked key tile is fully masked, and the output there
     still equals the oracle's."""
-    B, Sq, Sk, H, KH, D, window, off = TC_CASES[0]
+    B, Sq, Sk, H, KH, D, window, off, _ = TC_CASES[0]
     np_in = _inputs(B, Sq, Sk, H, KH, D, seed=1)
     q, k, v = (torch.from_numpy(a).bfloat16() for a in np_in)
     got, first_masked = _tc_kernel_emulation(q, k, v, window=window)
@@ -280,11 +292,13 @@ def test_row_rtol_holds_the_kernel_arithmetic_and_catches_a_dropped_tile():
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize(
+    "D", HEAD_DIM_PAIRS,
+    ids=lambda p: str(p[0]) if p[0] == p[1] else f"{p[0]}-{p[1]}")
 def test_kernel_shared_memory_fits_a_block(D, dtype):
-    """Each kernel instance's shared memory fits the 227 KB a block may use
-    on an H100."""
-    assert 0 < smem_bytes(dtype, D) <= 232_448
+    """Each kernel instance's shared memory, at each head-dim pair ``D`` =
+    (D, Dv), fits the 227 KB a block may use on an H100."""
+    assert 0 < smem_bytes(dtype, *D) <= 232_448
 
 
 def test_tma_check_refuses_unaligned_strides():

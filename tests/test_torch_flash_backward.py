@@ -5,9 +5,10 @@ against the reference's hand-written backward.
   oracle) against ``jax.vjp`` of ``repro.models.attention.
   chunked_attention`` and against ``_flash_bwd_impl`` called directly, on
   seeded f32 inputs: causal MHA, GQA at G = 3 with a window, G = 8, D = 16,
-  64 and 128, a ragged S and a ``q_offset`` chunk. atol 1e-5: both are the
-  same f32 function summed in another order (the reference in 32-wide
-  chunks), a few ulps of O(1) gradients apart.
+  64 and 128, a ragged S, a ``q_offset`` chunk, and MLA's pair (q/k 192, v
+  128) under GQA with a window and as a ``q_offset`` chunk. atol 1e-5:
+  both are the same f32 function summed in another order (the reference in
+  32-wide chunks), a few ulps of O(1) gradients apart.
 - ``flash_attention_ref(..., return_lse=True)``'s row log-sum-exp against
   ``_flash_fwd_impl``'s, atol 1e-5 (the same reason).
 - The ``torch.autograd.Function`` behind ``flash_attention`` on the CPU
@@ -19,15 +20,17 @@ against the reference's hand-written backward.
   kernel to (``BWD_ROW_RTOL`` 2e-2, rows floored at a tenth of the mean row
   norm), and a dropped 64-key tile over ten times that bound.
 - Each backward kernel instance's shared memory within a block's 227 KB,
-  on both routes (``wgmma``, the default, and ``mma_sync``); on the card, a
-  head dim the backward kernel lacks (MLA's 192) and the SSD kernel refuse
-  a call under grad; an unknown route raises.
+  at every head-dim pair ``HEAD_DIM_PAIRS`` on both routes (``wgmma``, the
+  default, and ``mma_sync``); on the card the SSD kernel refuses a call
+  under grad; a head-dim pair outside ``HEAD_DIM_PAIRS`` and an unknown
+  route raise.
 - The wgmma kernels' tile walks (``bwd_live_key_tiles`` for a dQ block,
-  ``bwd_live_query_tiles`` for a dK/dV block, mirrors of the source's
-  ``live_key_tiles`` / ``live_query_tiles``) against ``attention_mask`` on
-  the cases above (the last is also the card's ``q_offset`` case) and at
-  stablelm's training shape: every visible pair in exactly one visited
-  tile of each pass, no visited tile wholly masked.
+  ``bwd_live_query_tiles`` for a dK/dV block in query tiles of each pair's
+  ``bwd_query_tile``, mirrors of the source's ``live_key_tiles`` /
+  ``live_query_tiles``) against ``attention_mask`` on the cases above (the
+  fifth is also the card's ``q_offset`` case) and at stablelm's training
+  shape: every visible pair in exactly one visited tile of each pass, no
+  visited tile wholly masked.
 """
 import itertools
 
@@ -51,25 +54,37 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_ref,
 )
 from repro_torch.kernels.flash_attention.flash_attention import (
-    BWD_HEAD_DIMS,
     BWD_ROUTES,
     BWD_TILE,
     BWD_WGS,
+    HEAD_DIM_PAIRS,
     bwd_live_key_tiles,
     bwd_live_query_tiles,
+    bwd_query_tile,
     bwd_smem_bytes,
+    check_pair,
+    smem_bytes,
 )
 from repro_torch.kernels.ssd import ssd_intra_chunk
 
-# (B, Sq, Sk, H, KH, D, window, q_offset)
+# (B, Sq, Sk, H, KH, D, Dv, window, q_offset)
 CASES = [
-    (2, 96, 96, 4, 4, 64, None, 0),  # causal MHA
-    (1, 80, 80, 6, 2, 16, 24, 0),  # GQA G = 3, window
-    (1, 64, 64, 8, 1, 128, None, 0),  # GQA G = 8, D = 128
-    (2, 77, 77, 3, 1, 64, None, 0),  # ragged S, G = 3
-    (1, 40, 100, 4, 2, 32, 50, 60),  # q_offset chunk with a window
+    (2, 96, 96, 4, 4, 64, 64, None, 0),  # causal MHA
+    (1, 80, 80, 6, 2, 16, 16, 24, 0),  # GQA G = 3, window
+    (1, 64, 64, 8, 1, 128, 128, None, 0),  # GQA G = 8, D = 128
+    (2, 77, 77, 3, 1, 64, 64, None, 0),  # ragged S, G = 3
+    (1, 40, 100, 4, 2, 32, 32, 50, 60),  # q_offset chunk with a window
+    (1, 90, 90, 4, 2, 192, 128, 40, 0),  # MLA's pair, GQA, window, ragged
+    (1, 40, 100, 2, 2, 192, 128, None, 60),  # MLA's pair, q_offset chunk
 ]
-IDS = ["mha", "g3_window_d16", "g8_d128", "ragged_g3", "q_offset_window"]
+IDS = ["mha", "g3_window_d16", "g8_d128", "ragged_g3", "q_offset_window",
+       "mla_g2_window", "mla_q_offset"]
+
+
+def _pair_id(pair):
+    """A pair's test id: its head dim where v is as wide, else "D-Dv"."""
+    D, Dv = pair
+    return str(D) if D == Dv else f"{D}-{Dv}"
 ATOL = 1e-5
 CHUNK = 32
 
@@ -82,17 +97,19 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _inputs(B, Sq, Sk, H, KH, D, seed=0):
+def _inputs(B, Sq, Sk, H, KH, D, seed=0, Dv=None):
+    """q, k, v and dout, seeded; v and dout of width ``Dv`` (default D)."""
+    Dv = D if Dv is None else Dv
     rng = np.random.default_rng(seed)
     return [rng.standard_normal(s, np.float32)
-            for s in ((B, Sq, H, D), (B, Sk, KH, D), (B, Sk, KH, D),
-                      (B, Sq, H, D))]
+            for s in ((B, Sq, H, D), (B, Sk, KH, D), (B, Sk, KH, Dv),
+                      (B, Sq, H, Dv))]
 
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_bwd_ref_matches_jax_vjp_and_flash_bwd_impl(case):
-    B, Sq, Sk, H, KH, D, window, q_offset = case
-    q, k, v, do = _inputs(B, Sq, Sk, H, KH, D)
+    B, Sq, Sk, H, KH, D, Dv, window, q_offset = case
+    q, k, v, do = _inputs(B, Sq, Sk, H, KH, D, Dv=Dv)
     kw = dict(causal=True, window=window, q_offset=q_offset)
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
     out, lse = flash_attention_ref(tq, tk, tv, return_lse=True, **kw)
@@ -113,12 +130,13 @@ def test_bwd_ref_matches_jax_vjp_and_flash_bwd_impl(case):
                              CHUNK, q_offset)
     for a, b in zip(got, direct):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL)
+    assert [tuple(t.shape) for t in got] == [a.shape for a in (q, k, v)]
 
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_lse_matches_flash_fwd_impl(case):
-    B, Sq, Sk, H, KH, D, window, q_offset = case
-    q, k, v, _ = _inputs(B, Sq, Sk, H, KH, D, seed=1)
+    B, Sq, Sk, H, KH, D, Dv, window, q_offset = case
+    q, k, v, _ = _inputs(B, Sq, Sk, H, KH, D, seed=1, Dv=Dv)
     _, lse = flash_attention_ref(*map(torch.from_numpy, (q, k, v)),
                                  causal=True, window=window,
                                  q_offset=q_offset, return_lse=True)
@@ -206,33 +224,57 @@ def test_bf16_backward_arithmetic_within_the_chip_row_bound():
 
 @pytest.mark.parametrize("part", ["dkdv", "dq"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("D", BWD_HEAD_DIMS)
+@pytest.mark.parametrize("D", HEAD_DIM_PAIRS, ids=_pair_id)
 def test_backward_kernel_shared_memory_fits_a_block(D, dtype, part):
-    assert 0 < bwd_smem_bytes(dtype, D, part) <= 232_448
+    """At each head-dim pair ``D`` = (D, Dv), the default route."""
+    assert 0 < bwd_smem_bytes(dtype, *D, part) <= 232_448
 
 
 def test_card_refuses_training_what_it_has_no_backward_for(monkeypatch):
+    """The SSD kernel, whose backward is still to port, refuses a call
+    under grad on the card; the flash backward's wrapper takes CUDA
+    tensors only."""
     q = torch.zeros((1, 8, 2, 192), requires_grad=True)
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_attention_bwd_cuda(q.detach(), q.detach(), q.detach(),
                                  q.detach(), torch.zeros((1, 8, 2)),
                                  q.detach())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(NotImplementedError, match="item 6 step 6"):
-        flash_attention(q, q, q, device="cuda")
     x = torch.zeros((1, 8, 2, 16), requires_grad=True)
     dt, bm = torch.zeros((1, 8, 2)), torch.zeros((1, 8, 1, 16))
     with pytest.raises(NotImplementedError, match="item 6 step 5"):
         ssd_intra_chunk(x, dt, torch.zeros(2), bm, bm, 4, device="cuda")
 
 
+def test_head_dim_pair_outside_the_kernels_raises(monkeypatch):
+    """MLA's (192, 128) is a pair of the kernels; (192, 64), (64, 128) and
+    (128, 192) are not: the card's entry point under grad, the wrappers'
+    checks and the shared-memory mirrors raise, naming the pairs."""
+    assert (192, 128) in HEAD_DIM_PAIRS
+    check_pair(192, 128)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for D, Dv in ((192, 64), (64, 128), (128, 192)):
+        q, k = (torch.zeros((1, 8, 2, D), requires_grad=True)
+                for _ in range(2))
+        v = torch.zeros((1, 8, 2, Dv), requires_grad=True)
+        with pytest.raises(ValueError, match="take the pairs"):
+            flash_attention(q, k, v, device="cuda")
+        with pytest.raises(ValueError, match="take the pairs"):
+            check_pair(D, Dv)
+        with pytest.raises(ValueError, match="take the pairs"):
+            smem_bytes(torch.bfloat16, D, Dv)
+        for route in BWD_ROUTES:
+            with pytest.raises(ValueError, match="take the pairs"):
+                bwd_smem_bytes(torch.bfloat16, D, Dv, "dq", route=route)
+
+
 def test_backward_route_shared_memory_fits_a_block():
-    """Every (route, D, dtype, part) instance of both backward routes."""
-    for route, D, dtype, part in itertools.product(
-            BWD_ROUTES, BWD_HEAD_DIMS, (torch.bfloat16, torch.float32),
+    """Every (route, pair, dtype, part) instance of both backward routes."""
+    for route, pair, dtype, part in itertools.product(
+            BWD_ROUTES, HEAD_DIM_PAIRS, (torch.bfloat16, torch.float32),
             ("dkdv", "dq")):
-        smem = bwd_smem_bytes(dtype, D, part, route=route)
-        assert 0 < smem <= 232_448, (route, D, dtype, part, smem)
+        smem = bwd_smem_bytes(dtype, *pair, part, route=route)
+        assert 0 < smem <= 232_448, (route, pair, dtype, part, smem)
 
 
 def test_unknown_backward_route_raises():
@@ -241,21 +283,25 @@ def test_unknown_backward_route_raises():
         flash_attention_bwd_cuda(x, x, x, x, torch.zeros((1, 8, 2)), x,
                                  route="cutlass")
     with pytest.raises(ValueError, match="unknown backward route"):
-        bwd_smem_bytes(torch.bfloat16, 64, "dq", route="mma")
+        bwd_smem_bytes(torch.bfloat16, 64, 64, "dq", route="mma")
 
 
-def _visits(mask, block, walk, **kw):
+def _visits(mask, block, walk, tile_rows=BWD_TILE, **kw):
     """(Sq, Sk) visit counts of one pass, whose blocks hold ``block`` rows
-    (dQ, ``walk`` its live key tiles) or keys (dK/dV, its live query
-    tiles), and the visited tiles that hold no visible pair."""
+    (dQ, ``walk`` its live key tiles of ``BWD_TILE``) or keys (dK/dV, its
+    live query tiles of ``tile_rows``), and the visited tiles that hold no
+    visible pair."""
     Sq, Sk = mask.shape
     count = torch.zeros((Sq, Sk), dtype=torch.int16)
     empty = []
     dq_pass = walk is bwd_live_key_tiles
+    if not dq_pass:
+        kw["tile"] = tile_rows
     for a0 in range(0, Sq if dq_pass else Sk, block):
         own = slice(a0, a0 + block)
         for tile in walk(a0, block, Sq, Sk, **kw):
-            other = slice(tile * BWD_TILE, (tile + 1) * BWD_TILE)
+            n = BWD_TILE if dq_pass else tile_rows
+            other = slice(tile * n, (tile + 1) * n)
             r, c = (own, other) if dq_pass else (other, own)
             count[r, c] += 1
             if not bool(mask[r, c].any()):
@@ -278,15 +324,21 @@ WALK_CASES = [
 
 
 def test_wgmma_tile_walks_cover_every_visible_pair_once():
-    """The five cases above (the last is also the card's q_offset case)
-    and WALK_CASES, both passes."""
+    """The cases above (the fifth is also the card's q_offset case) and
+    WALK_CASES, both passes; the dK/dV pass in the query tiles of every
+    head-dim pair in ``HEAD_DIM_PAIRS`` (64 rows, MLA's 32, (192, 192)'s
+    16)."""
     big = BWD_WGS * BWD_TILE
-    for B, Sq, Sk, H, KH, D, window, q_offset in CASES + WALK_CASES:
+    tiles = sorted({bwd_query_tile(*p) for p in HEAD_DIM_PAIRS})
+    assert tiles == [16, 32, 64]
+    for B, Sq, Sk, H, KH, D, window, q_offset in [
+            c[:6] + c[7:] for c in CASES] + WALK_CASES:
         kw = dict(causal=True, window=window, q_offset=q_offset)
         mask = attention_mask(Sq, Sk, **kw)
-        for walk in (bwd_live_key_tiles, bwd_live_query_tiles):
-            where = (Sq, Sk, window, q_offset, walk.__name__)
-            count, empty = _visits(mask, big, walk, **kw)
+        for walk, rows in ([(bwd_live_key_tiles, BWD_TILE)]
+                           + [(bwd_live_query_tiles, t) for t in tiles]):
+            where = (Sq, Sk, window, q_offset, walk.__name__, rows)
+            count, empty = _visits(mask, big, walk, rows, **kw)
             assert bool((count[mask] == 1).all()), where
             assert int(count.max()) <= 1, where
             assert not empty, (where, empty[:5])

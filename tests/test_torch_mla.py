@@ -7,9 +7,15 @@ against the reference's, on the CPU.
   the latent to cache (``ckv``, ``krope``) in f32 within atol 1e-5 (the
   reference's chunked online softmax against the plain attention: the same
   function summed in another order). The port's attention call gets q and
-  k of head dim nope + rope and v zero-padded to it, and with the padded
-  v the plain flash function equals the reference's ``chunked_attention``
-  with its narrower v.
+  k of head dim nope + rope and v of its own head dim, unpadded, and the
+  plain flash function there equals the reference's ``chunked_attention``.
+- The gradient of ``mla_apply`` (autograd through the port's attention
+  Function, whose backward is the plain ``flash_attention_bwd_ref`` on the
+  CPU) against ``jax.vjp`` of the reference's, for x and every parameter
+  leaf, f32 within 1e-5 x max(1, the leaf's largest |.|), on a seeded
+  cotangent: a norm scale's gradient sums 144 tokens' terms of up to ~20,
+  whose f32 sums in another order differ by about 1e-5 (measured 1.1e-5
+  on ``kvnorm/scale``, whose largest element is 22.3).
 - The absorbed-matmul decode (``mla_decode``) against the reference's for
   8 steps from the prefilled latent, f32 within atol 1e-5, and the cache
   rows it writes.
@@ -93,16 +99,56 @@ def test_mla_prefill_matches_reference(mla, monkeypatch):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
     (q, k, v, kw), = calls
     D = m.qk_nope_head_dim + m.qk_rope_head_dim
-    assert q.shape[-1] == k.shape[-1] == v.shape[-1] == D
-    assert kw["causal"] and not v[..., m.v_head_dim:].any()
-    # the padded v through the plain flash function is the reference's
-    # chunked attention with its own v width
+    assert q.shape[-1] == k.shape[-1] == D and v.shape[-1] == m.v_head_dim
+    assert kw["causal"]
+    # v at its own width through the plain flash function is the
+    # reference's chunked attention
     want = jattn.chunked_attention(
         jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
-        jnp.asarray(v[..., :m.v_head_dim].numpy()), causal=True, chunk_q=32,
-        chunk_k=32)
-    np.testing.assert_allclose(flash_attention_ref(q, k, v)[..., :m.v_head_dim]
-                               .numpy(), np.asarray(want), atol=ATOL)
+        jnp.asarray(v.numpy()), causal=True, chunk_q=32, chunk_k=32)
+    np.testing.assert_allclose(flash_attention_ref(q, k, v).numpy(),
+                               np.asarray(want), atol=ATOL)
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k],
+                                                         f"{path}/{k}")]
+    return [(path, tree)]
+
+
+def test_mla_gradient_matches_reference_vjp(mla):
+    """d(out . cot) for x and every leaf: the port's autograd (the plain
+    attention backward on the CPU) against ``jax.vjp`` of the reference's
+    ``mla_apply``."""
+    jp, tp, x, pos = mla
+    jcfg, cfg = JAX_SMOKES[NAME], SMOKES[NAME]
+    cot = np.random.default_rng(5).standard_normal(
+        (*x.shape[:2], cfg.d_model), np.float32)
+
+    def jfwd(p, x_):
+        return jattn.mla_apply(p, x_, jcfg, JaxRun(**RUN_KW), jnp.asarray(pos))
+
+    jout, vjp = jax.vjp(jfwd, jax.tree.map(jnp.asarray, jp), jnp.asarray(x))
+    jgp, jgx = vjp(jnp.asarray(cot))
+    names = [n for n, _ in _leaves(tp)]
+    leaves = [t.clone().requires_grad_(True) for _, t in _leaves(tp)]
+    it = iter(leaves)
+    params = jax.tree.map(lambda _: next(it), jp)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    out = tattn.mla_apply(params, tx, cfg, RunConfig(**RUN_KW),
+                          torch.from_numpy(pos))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               atol=ATOL)
+    grads = torch.autograd.grad(out, [tx] + leaves, torch.from_numpy(cot))
+    want = [jgx] + [a for _, a in _leaves(jax.tree.map(np.asarray, jgp))]
+    assert len(grads) == len(want) == 1 + len(names) >= 9
+    for name, g, w in zip(["x"] + names, grads, want):
+        w = np.asarray(w)
+        assert tuple(g.shape) == w.shape, name
+        np.testing.assert_allclose(
+            g.numpy(), w, atol=ATOL * max(1.0, float(np.abs(w).max())),
+            err_msg=name)
 
 
 def test_mla_absorbed_decode_matches_reference(mla):
