@@ -11,13 +11,14 @@ non-zero before the result line:
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: the CUDA cycle kernels (``kernels/noc_cycle/csrc``), the two
    cost-table kernels (``kernels/dpm_cost/csrc``), the flash-attention
-   forward and backward kernels (``kernels/flash_attention/csrc``, two
-   sources), the SSD intra-chunk kernels (``kernels/ssd/csrc``) and the
-   segmented-min kernel (``kernels/noc_step/csrc``), one ``nvcc`` per
-   source, all six in parallel; one ``[build] ptxas:`` line per compiled
-   kernel instance (registers, stack, spill stores and loads, static shared
-   memory) and the attention (forward and backward) and SSD instances'
-   dynamic shared memory, held equal to the Python mirror that the CPU
+   forward and backward kernels (``kernels/flash_attention/csrc``, three
+   sources), the SSD intra-chunk kernels, forward and backward
+   (``kernels/ssd/csrc``, two sources) and the segmented-min kernel
+   (``kernels/noc_step/csrc``), one ``nvcc`` per source, all eight in
+   parallel; one ``[build] ptxas:`` line per compiled kernel instance
+   (registers, stack, spill stores and loads, static shared memory) and
+   the attention (forward and backward) and SSD (forward and backward)
+   instances' dynamic shared memory, held equal to the Python mirror that the CPU
    tests bound by 227 KB;
 3. kernel vs plain: on an 8x8 mesh and torus with the paper's Table I
    (``NoCConfig()`` defaults), MU and DPM at two injection rates, both
@@ -165,6 +166,29 @@ non-zero before the result line:
    at full width
    trained 6 steps with a checkpoint at step 3, a run resumed from it
    beside the continuous run, and a saved state restored bit for bit;
+7e'. MLA training (``[train_mla]``, ``--train-mla``): deepseek-v2-236b's
+   dense first layer, the flash forward and backward at (192, 128);
+7e''. SSD training (``[train_ssd]``, a child process, ``--train-ssd``):
+   the SSD backward kernel (``kernels/ssd/csrc/ssd_bwd.cu``) timed at
+   hymba's and mamba2's training shapes (B = 2, S = 4,096, chunks of 256;
+   N = 16, 50 heads and N = 128, 64 heads; P = 64; bf16), alone from the
+   profiler, through its wrapper, beside the plain version, the forward
+   kernel and the bound (``[kernel_time] kernel=ssd_intra_chunk_bwd``),
+   with the card its own (``[trace]`` joined before it), and against the
+   plain version on those seeded inputs in bf16 and f32;
+   ``hymba-1.5b`` at full width and depth trained ``SSD_TRAIN_STEPS``
+   steps of one 4,096-token sequence (two do not fit the card at remat
+   "none"): 32 SSD forward
+   (``mma_bf16``) and 32 backward (``cuda_core_bf16_in``) launches a
+   step, the plain versions never, with the counts set to 0 just before;
+   one step split (the SSD kernels' ms apart), the backward kernel
+   against its plain version on layer 0's captured inputs and cotangents
+   (bf16 and f32) and on ``SSD_EDGE_CASES`` run under grad through
+   ``ssd_scan_kernel`` (one launch each), each gradient within
+   ``SSD_BWD_RTOL`` x its max, two calls bit-equal; the first two layers
+   in f32 against the plain path; ``mamba2-1.3b`` at full width and depth
+   ``MAMBA_TRAIN_STEPS`` steps under remat "block" (two forward launches
+   a layer a step);
 7f. dist (``[dist]``, a child process, ``--dist``): four
    ``torch.distributed`` ranks on the machine's cards (``launch.mesh``:
    NCCL when each rank has a card, gloo when they share one, every payload
@@ -318,23 +342,26 @@ non-zero before the result line:
     telemetry_calibration.json`` reproduced on its 16x16 mesh (nine
     iterations, the three-rate sweep, the energy constants), the loop's
     wall time split into host signature planning, compile and device time;
-13. the ``kernels`` JSON line (seven kernels: the six TPU kernels' ports
-    and the flash backward, which replaces the reference's jnp backward;
-    flash attention's launches also by head dim, the backward's by
-    route), then the result line.
+13. the ``kernels`` JSON line (eight kernels: the six TPU kernels' ports,
+    the flash backward and the SSD backward, which replace the
+    reference's jnp backwards; flash attention's launches also by head
+    dim, the flash backward's by route, the SSD backward's by variant),
+    then the result line.
 
 Phases 4, 5, 7 and 8 read their kernels' profiler times from a child
 process of this script (``python3 chip_smoke.py --noc-cycle-alone``,
 ``--dpm-cost-alone``, ``--serve-kernel-alone`` and
 ``--segmin-kernel-alone``), phase 7 the split of one prefill's time by
-kernel family (``--prefill-profile``), and phases 7b, 7c, 7d, 7e and 7f
-run whole in a child each (``--serve-moe``, ``--serve-mla``,
-``--serve-frames``, ``--train``, ``--dist``). Each of these children is
+kernel family (``--prefill-profile``), and phases 7b, 7c, 7d, 7e, 7e',
+7e'' and 7f run whole in a child each (``--serve-moe``, ``--serve-mla``,
+``--serve-frames``, ``--train``, ``--train-mla``, ``--train-ssd``,
+``--dist``). Each of these children is
 started one ahead of its phase (``WARM_NEXT``): it makes its CUDA context,
 imports the port and waits for its go file while the phase before it
 runs. Phases 10-12 run in children of their own (``--phases=``) beside
 card phases that leave the card room: 11 beside 7d-7e', 10 and 12 beside
-7g; their times on the card are not taken alone. Every ``[phase]`` line
+7g; their times on the card are not taken alone, nor those of 7d-7e'
+and 7g. Every ``[phase]`` line
 ends with ``at_s``, the seconds since the script started.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -435,7 +462,8 @@ WARM_NEXT = {
     "--serve-mla": "--serve-frames",
     "--serve-frames": "--train",
     "--train": "--train-mla",
-    "--train-mla": "--dist",
+    "--train-mla": "--train-ssd",
+    "--train-ssd": "--dist",
     "--serve-tp": "--segmin-kernel-alone",
 }
 _WARM: dict = {}  # flag -> (its waiting child, its go file)
@@ -540,6 +568,29 @@ MLA_TRAIN_LAYOUT = (("mla_dense", 1),)
 MLA_TRAIN_STEPS, MLA_TRAIN_LR = 6, 2.4e-4
 MLA_BWD_HEAD_GROUP = 16
 MLA_PLAIN_SEQ = 1024
+# the SSD training phase (a child process, --train-ssd): hymba-1.5b at full
+# width and depth, SSD_TRAIN_BATCH x TRAIN_SEQ tokens (one sequence: at
+# remat "none" two ran out of an H100's 80 GB, 74.66 GiB allocated when
+# the logits asked for 1 GiB more), SSD_TRAIN_STEPS steps of
+# train_run_config() (remat "none"), one step split and its first
+# TRAIN_PLAIN_LAYERS layers in f32 against the plain path; mamba2-1.3b at
+# full width and depth, MAMBA_TRAIN_STEPS steps under remat "block"
+# (RunConfig's default). The SSD backward kernel against its plain version:
+# each gradient within SSD_BWD_RTOL x its largest |.| in both dtypes (the
+# kernel computes in f32 from the same inputs, so only the order of its f32
+# sums differs; the CPU tests hold the closed form to autograd within 1e-5,
+# and dA sums every step of a head), two calls bit-equal. Timed, and held
+# against the plain version on seeded inputs, at SSD_BWD_SHAPES (label, B,
+# S, H, G, N, P, chunk): mamba2's is the only (128, 64) instance on the
+# training path; SSD_BWD_SHORT_CASES
+# (label, B, S, H, G, N, P, chunk) call the kernels directly with S below
+# one chunk, which ssd_scan_kernel never passes them
+SSD_TRAIN_ARCH, SSD_TRAIN_STEPS, SSD_TRAIN_BATCH = "hymba-1.5b", 6, 1
+MAMBA_TRAIN_ARCH, MAMBA_TRAIN_STEPS = "mamba2-1.3b", 3
+SSD_BWD_RTOL = 1e-4
+SSD_BWD_SHAPES = (("hymba", 2, 4096, 50, 1, 16, 64, 256),
+                  ("mamba2", 2, 4096, 64, 1, 128, 64, 256))
+SSD_BWD_SHORT_CASES = (("seq_under_chunk", 2, 40, 4, 1, 16, 64, 64),)
 # the checkpoint round trip: smollm-135m at full width, a save at step
 # CKPT_AT of CKPT_STEPS
 CKPT_ARCH = "smollm-135m"
@@ -892,12 +943,14 @@ def start_build() -> tuple:
     from repro_torch.kernels.noc_cycle import KERNEL
     from repro_torch.kernels.noc_step import KERNEL as SEGMIN_KERNEL
     from repro_torch.kernels.ssd import KERNEL as SSD_KERNEL
+    from repro_torch.kernels.ssd import KERNEL_BWD as SSD_BWD
 
     kernels = [("noc_cycle", KERNEL), ("dpm_cost", DPM_KERNEL),
                ("flash_attention", FLASH_KERNEL),
                ("flash_attention_bwd", BWD_KERNEL),
                ("flash_attention_bwd_wgmma", BWD_WGMMA_LIB),
-               ("ssd", SSD_KERNEL), ("noc_step", SEGMIN_KERNEL)]
+               ("ssd", SSD_KERNEL), ("ssd_bwd", SSD_BWD),
+               ("noc_step", SEGMIN_KERNEL)]
     pool = ThreadPoolExecutor(len(kernels))
     futures = {name: pool.submit(k.build) for name, k in kernels}
     pool.shutdown(wait=False)
@@ -910,6 +963,7 @@ def finish_build(build: tuple) -> None:
     from repro_torch.kernels.flash_attention import BWD_KERNEL, BWD_WGMMA_LIB
     from repro_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
     from repro_torch.kernels.ssd import KERNEL as SSD_KERNEL
+    from repro_torch.kernels.ssd import KERNEL_BWD as SSD_BWD
 
     kernels, futures = build
     for f in futures.values():
@@ -922,7 +976,8 @@ def finish_build(build: tuple) -> None:
             print(f"[build] ptxas: library={name} kernel={kernel} {report}",
                   flush=True)
     check_smem_mirrors(FLASH_KERNEL.build(), SSD_KERNEL.build(),
-                       BWD_KERNEL.build(), BWD_WGMMA_LIB.build())
+                       BWD_KERNEL.build(), BWD_WGMMA_LIB.build(),
+                       SSD_BWD.build())
 
 
 def kernel_name(mangled: str) -> str:
@@ -973,18 +1028,20 @@ def ptxas_report(log: str) -> list[tuple[str, str]]:
     return out
 
 
-def check_smem_mirrors(flash_lib, ssd_lib, bwd_lib, bwd_wgmma_lib) -> None:
+def check_smem_mirrors(flash_lib, ssd_lib, bwd_lib, bwd_wgmma_lib,
+                       ssd_bwd_lib) -> None:
     """Print each attention (forward and backward, both backward routes)
-    and SSD kernel instance's dynamic shared memory as its library computes
-    it, and fail if the Python mirror that the CPU tests hold to the 227 KB
-    limit says otherwise."""
+    and SSD (forward and backward) kernel instance's dynamic shared memory
+    as its library computes it, and fail if the Python mirror that the CPU
+    tests hold to the 227 KB limit says otherwise."""
     import torch
 
     from repro_torch.kernels.flash_attention.flash_attention import (
         HEAD_DIM_PAIRS, bwd_smem_bytes, smem_bytes as flash_smem,
     )
     from repro_torch.kernels.ssd.ssd import (
-        TC_MAX_CHUNK, TC_SHAPES, smem_bytes as ssd_smem,
+        TC_MAX_CHUNK, TC_SHAPES, bwd_smem_bytes as ssd_bwd_smem,
+        smem_bytes as ssd_smem,
     )
 
     for dtype in (torch.bfloat16, torch.float32):
@@ -1020,6 +1077,13 @@ def check_smem_mirrors(flash_lib, ssd_lib, bwd_lib, bwd_wgmma_lib) -> None:
                 dynamic_smem=got)
             if got != ssd_smem(dtype, *args):
                 fail(f"SSD smem mirror: {got} != {ssd_smem(dtype, *args)}")
+    for N, P in TC_SHAPES:  # both input types: one shared-memory layout
+        got = ssd_bwd_lib.ssd_intra_chunk_bwd_smem_bytes(N, P, TC_MAX_CHUNK)
+        say("build", smem=f"ssd_bwd_tile_kernel<{N},{P}>", chunk=TC_MAX_CHUNK,
+            dynamic_smem=got)
+        if got != ssd_bwd_smem(TC_MAX_CHUNK, N, P):
+            fail(f"SSD backward smem mirror: {got} != "
+                 f"{ssd_bwd_smem(TC_MAX_CHUNK, N, P)}")
 
 
 def trace_kernels(fn) -> dict:
@@ -1904,9 +1968,7 @@ def phase_serve() -> list:
     for r in reqs:
         server.submit(r)
     reset_flash_counts()
-    SSD_KERNEL.launches = 0
-    SSD_KERNEL.variant_launches = dict.fromkeys(SSD_KERNEL.variant_launches,
-                                                0)
+    SSD_KERNEL.reset()
     t0 = time.monotonic()
     responses, per_batch = [], []
     while len(responses) < len(reqs):
@@ -3165,32 +3227,70 @@ def train_run_config():
                      learning_rate=TRAIN_LR, vocab_round=128)
 
 
-def train_main(cfg, run, tag: str = "train",
-               steps: int = TRAIN_STEPS) -> tuple[int, int, dict]:
+SSD_KINDS = ("ssd", "hymba_g", "hymba_w")
+
+
+def layer_counts(cfg) -> tuple[int, int]:
+    """(attention layers, SSD layers) of a configuration: hymba's layers
+    have both, mamba2's SSD alone."""
+    attn = sum(n for kind, n in cfg.layout if kind != "ssd")
+    ssd = sum(n for kind, n in cfg.layout if kind in SSD_KINDS)
+    return attn, ssd
+
+
+def plain_ssd_counter(calls: list):
+    """Count the calls of the SSD pass's plain versions (forward and
+    backward) on the autograd path, each appending its name to ``calls``."""
+    import repro_torch.kernels.ssd.ops as ssd_ops
+
+    def counted(name):
+        real = getattr(ssd_ops, name)
+
+        def fn(*a, **kw):
+            calls.append(name)
+            return real(*a, **kw)
+        return fn
+
+    return patched(*((ssd_ops, n, counted(n)) for n in (
+        "ssd_intra_chunk_ref", "ssd_intra_chunk_bwd_ref")))
+
+
+def train_main(cfg, run, tag: str = "train", steps: int = TRAIN_STEPS,
+               batch: int = TRAIN_BATCH) -> tuple[int, int, dict, dict]:
     """The main path: ``train`` on the card for ``steps`` steps of
-    TRAIN_BATCH x TRAIN_SEQ tokens, the launch counts set to 0 just before
-    and read just after; every launch must be at the model's head-dim
-    pair. Returns the forward and backward flash launches and the
-    backward's by variant."""
+    ``batch`` x TRAIN_SEQ tokens, the launch counts set to 0 just before
+    and read just after; every flash launch must be at the model's head-dim
+    pair, and an SSD layer must launch the forward kernel in bf16 and the
+    backward kernel once a step and the plain versions never. Returns the
+    forward and backward flash launches, the backward's by variant and the
+    SSD kernels' by variant (``{"fwd": ..., "bwd": ...}``)."""
     import statistics
 
     import torch
 
     from repro_torch.kernels.flash_attention import BWD_KERNEL
     from repro_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
+    from repro_torch.kernels.ssd import KERNEL as SSD_KERNEL
+    from repro_torch.kernels.ssd import KERNEL_BWD as SSD_BWD
     from repro_torch.models import count_params, model_init
     from repro_torch.train import LoopConfig, train
 
     n_params = count_params(model_init(0, cfg, run, device="meta")[0])
-    loop = LoopConfig(steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+    loop = LoopConfig(steps=steps, batch=batch, seq=TRAIN_SEQ,
                       log_every=0, seed=0)
     torch.cuda.reset_peak_memory_stats()
     reset_flash_counts()
     BWD_KERNEL.reset()
-    res = train(cfg, run, loop, device="cuda")
-    torch.cuda.synchronize()
+    SSD_KERNEL.reset()
+    SSD_BWD.reset()
+    plain_calls = []
+    with plain_ssd_counter(plain_calls):
+        res = train(cfg, run, loop, device="cuda")
+        torch.cuda.synchronize()
     fwd = dict(FLASH_KERNEL.variant_launches)
     bwd = dict(BWD_KERNEL.variant_launches)
+    ssd_fwd = dict(SSD_KERNEL.variant_launches)
+    ssd_bwd = dict(SSD_BWD.variant_launches)
     pairs_run = {pair_key(p): (n, BWD_KERNEL.head_dim_launches[p])
                  for p, n in FLASH_KERNEL.head_dim_launches.items()
                  if n or BWD_KERNEL.head_dim_launches[p]}
@@ -3200,22 +3300,46 @@ def train_main(cfg, run, tag: str = "train",
         say(tag, arch=cfg.name, step=i + 1, loss=repr(loss),
             grad_norm=repr(gn), ms=f"{ms:.2f}")
     L = cfg.n_layers
-    n_fwd = steps * L * (2 if run.remat == "block" else 1)
+    n_attn, n_ssd = layer_counts(cfg)
+    again = 2 if run.remat == "block" else 1
+    n_fwd = steps * n_attn * again
     want_fwd = {"wgmma_bf16": n_fwd, "cuda_core_f32": 0}
-    want_bwd = {"wgmma_bf16": steps * L, "mma_bf16": 0, "cuda_core_f32": 0}
+    want_bwd = {"wgmma_bf16": steps * n_attn, "mma_bf16": 0,
+                "cuda_core_f32": 0}
+    want_ssd_fwd = {"mma_bf16": steps * n_ssd * again, "cuda_core_f32": 0}
+    want_ssd_bwd = {"cuda_core_bf16_in": steps * n_ssd, "cuda_core_f32": 0}
     D, Dv = attn_head_dims(cfg)
-    want_pairs = {pair_key((D, Dv)): (n_fwd, steps * L)}
+    want_pairs = {pair_key((D, Dv)): (n_fwd, steps * n_attn)} if n_attn else {}
     med = statistics.median(res.step_ms[2:])
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    tokens = batch * TRAIN_SEQ
+    # visible (query, key) pairs of the attention layers (hymba_w's window)
+    pairs = sum(n * sum(min(i + 1, cfg.window if kind.endswith("_w")
+                            else TRAIN_SEQ) for i in range(TRAIN_SEQ))
+                for kind, n in cfg.layout if kind != "ssd")
     # 6 a parameter a token; attention 2 D + 2 Dv a visible pair forward,
-    # twice that backward
+    # twice that backward; an SSD head 2 N + 2 P a causal pair of a chunk
+    # and 2 N P a step forward, 4 P + 6 N and 4 N P backward
     flops = (6 * n_params * tokens
-             + 6 * (D + Dv) * pairs * cfg.n_heads * L * TRAIN_BATCH)
+             + 6 * (D + Dv) * pairs * cfg.n_heads * batch)
+    ssd_extra = {}
+    if n_ssd:
+        s = cfg.ssm
+        N, P, H = s.d_state, s.head_dim, s.n_heads(cfg.d_model)
+        Lc = min(run.ssd_chunk or s.chunk, TRAIN_SEQ)
+        ssd_pairs = sum(ln * (ln + 1) // 2 for ln in (
+            min(Lc, TRAIN_SEQ - c) for c in range(0, TRAIN_SEQ, Lc)))
+        flops += n_ssd * H * batch * (
+            ssd_pairs * (6 * P + 8 * N) + 6 * N * P * TRAIN_SEQ)
+        ssd_extra = dict(
+            ssd_layers=n_ssd,
+            ssd_fwd_launches=",".join(f"{k}:{n}" for k, n in ssd_fwd.items()),
+            ssd_bwd_launches=",".join(f"{k}:{n}" for k, n in ssd_bwd.items()),
+            ssd_plain_calls=len(plain_calls))
     finite = all(map(math.isfinite, res.losses + res.grad_norms))
     say(tag, part="summary", arch=cfg.name, layers=L,
-        d_model=cfg.d_model, heads=cfg.n_heads, head_dims=pair_key((D, Dv)),
-        params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        d_model=cfg.d_model, heads=cfg.n_heads,
+        head_dims=pair_key((D, Dv)) if n_attn else "none",
+        params=n_params, batch=batch, seq=TRAIN_SEQ,
         steps=steps, lr=run.learning_rate, remat=run.remat,
         params_dtype=run.params_dtype, master="float32",
         first_loss=repr(res.losses[0]), last_loss=repr(res.losses[-1]),
@@ -3227,25 +3351,35 @@ def train_main(cfg, run, tag: str = "train",
         flash_fwd_launches=",".join(f"{k}:{n}" for k, n in fwd.items()),
         flash_bwd_launches=",".join(f"{k}:{n}" for k, n in bwd.items()),
         fwd_bwd_launches_by_head_dims=",".join(
-            f"{k}:{a}+{b}" for k, (a, b) in pairs_run.items()),
-        wall_s=f"{res.wall_s:.2f}", finite=finite)
+            f"{k}:{a}+{b}" for k, (a, b) in pairs_run.items()) or "none",
+        **ssd_extra, wall_s=f"{res.wall_s:.2f}", finite=finite)
     if not finite or not res.losses[-1] < res.losses[0]:
         fail(f"training did not lower a finite loss: {res.losses}")
     if fwd != want_fwd or bwd != want_bwd or pairs_run != want_pairs:
         fail(f"training launched flash {fwd} and its backward {bwd} at "
              f"{pairs_run}, expected {want_fwd} and {want_bwd} at "
              f"{want_pairs}")
-    return sum(fwd.values()), sum(bwd.values()), bwd
+    if ssd_fwd != want_ssd_fwd or ssd_bwd != want_ssd_bwd or plain_calls:
+        fail(f"training launched the SSD kernels {ssd_fwd} and {ssd_bwd} "
+             f"and the plain versions {len(plain_calls)} times, expected "
+             f"{want_ssd_fwd}, {want_ssd_bwd} and none")
+    return (sum(fwd.values()), sum(bwd.values()), bwd,
+            {"fwd": ssd_fwd, "bwd": ssd_bwd})
 
 
-def train_split(cfg, run) -> dict:
+def train_split(cfg, run, ssd_bwd_args: list | None = None,
+                batch: int = TRAIN_BATCH) -> dict:
     """One training step split by CUDA events: forward (flash forward
-    kernel ms apart), backward (flash backward kernel ms apart), clip and
-    AdamW; the q/k/v and output gradients of the first and last layers'
-    attention captured on the way."""
+    kernel ms apart, and the SSD forward kernel's where the model has SSD
+    layers), backward (the backward kernels' ms apart), clip and AdamW;
+    the q/k/v and output gradients of the first and last layers'
+    attention captured on the way, and into ``ssd_bwd_args`` the SSD
+    backward kernel's arguments in layer 0 (the step's last SSD
+    backward)."""
     import torch
 
     import repro_torch.kernels.flash_attention.ops as flash_ops
+    import repro_torch.kernels.ssd.ops as ssd_ops
     import repro_torch.models.attention as attention
     from repro_torch.models import loss_fn, model_init
     from repro_torch.models.layers import tree_leaves, tree_map
@@ -3256,8 +3390,9 @@ def train_split(cfg, run) -> dict:
 
     f32_run = dataclasses.replace(run, activations_dtype="float32")
     state = init_state(model_init(0, cfg, f32_run, device="cuda")[0])
-    batch = synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 0, 0, device="cuda")
-    layers, captured, spans = (0, cfg.n_layers - 1), {}, {"fwd": [], "bwd": []}
+    tokens = synthetic_batch(cfg, batch, TRAIN_SEQ, 0, 0, device="cuda")
+    layers, captured = (0, cfg.n_layers - 1), {}
+    spans = {"fwd": [], "bwd": [], "ssd_fwd": [], "ssd_bwd": []}
     attn_fn = attention.flash_attention
 
     def capture(q, k, v, **kw):
@@ -3279,19 +3414,29 @@ def train_split(cfg, run) -> dict:
             return out
         return run_
 
+    ssd_bwd = evented("ssd_bwd", ssd_ops.ssd_intra_chunk_bwd_cuda)
+
+    def ssd_bwd_kept(*a):
+        if ssd_bwd_args is not None:
+            ssd_bwd_args[:] = a
+        return ssd_bwd(*a)
+
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
     with patched((attention, "flash_attention", capture),
                  (flash_ops, "flash_attention_cuda",
                   evented("fwd", flash_ops.flash_attention_cuda)),
                  (flash_ops, "flash_attention_bwd_cuda",
-                  evented("bwd", flash_ops.flash_attention_bwd_cuda))):
+                  evented("bwd", flash_ops.flash_attention_bwd_cuda)),
+                 (ssd_ops, "ssd_intra_chunk_cuda",
+                  evented("ssd_fwd", ssd_ops.ssd_intra_chunk_cuda)),
+                 (ssd_ops, "ssd_intra_chunk_bwd_cuda", ssd_bwd_kept)):
         torch.cuda.synchronize()
         alias = tree_map(lambda t: t.detach().requires_grad_(True),
                          state.params)
         ev[0].record()
         with torch.enable_grad():
             loss, _ = loss_fn(cast_params(alias, getattr(torch, run.params_dtype)),
-                              batch, cfg, run)
+                              tokens, cfg, run)
         ev[1].record()
         leaves = tree_leaves(alias)
         grads = torch.autograd.grad(loss, leaves)
@@ -3306,11 +3451,16 @@ def train_split(cfg, run) -> dict:
         torch.cuda.synchronize()
     span = lambda a, b: ev[a].elapsed_time(ev[b])
     sums = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
-    say("train_split", arch=cfg.name, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+    ssd = {} if not spans["ssd_fwd"] else dict(
+        ssd_fwd_ms=f"{sums['ssd_fwd']:.2f}",
+        ssd_fwd_calls=len(spans["ssd_fwd"]),
+        ssd_bwd_ms=f"{sums['ssd_bwd']:.2f}",
+        ssd_bwd_calls=len(spans["ssd_bwd"]))
+    say("train_split", arch=cfg.name, batch=batch, seq=TRAIN_SEQ,
         step_ms=f"{span(0, 4):.2f}", forward_ms=f"{span(0, 1):.2f}",
         flash_fwd_ms=f"{sums['fwd']:.2f}", flash_fwd_calls=len(spans["fwd"]),
         backward_ms=f"{span(1, 2):.2f}", flash_bwd_ms=f"{sums['bwd']:.2f}",
-        flash_bwd_calls=len(spans["bwd"]), clip_ms=f"{span(2, 3):.2f}",
+        flash_bwd_calls=len(spans["bwd"]), **ssd, clip_ms=f"{span(2, 3):.2f}",
         adamw_ms=f"{span(3, 4):.2f}", loss=repr(float(loss.detach())),
         grad_norm=repr(float(gnorm)))
     del state, alias, grads, leaves, loss
@@ -3329,11 +3479,14 @@ def train_vs_plain(cfg, run, layers: int = TRAIN_PLAIN_LAYERS,
 
     from repro_torch.kernels.flash_attention import BWD_KERNEL
     from repro_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
+    from repro_torch.kernels.ssd import KERNEL as SSD_KERNEL
+    from repro_torch.kernels.ssd import KERNEL_BWD as SSD_BWD
     from repro_torch.models import loss_fn, model_init, value_and_grad
     from repro_torch.models.layers import tree_flatten
     from repro_torch.train import synthetic_batch
 
     cfg2 = cut_depth(cfg, ((cfg.layout[0][0], layers),))
+    n_attn, n_ssd = layer_counts(cfg2)
     run32 = dataclasses.replace(run, params_dtype="float32",
                                 activations_dtype="float32")
     params, _ = model_init(0, cfg2, run32, device="cuda")
@@ -3343,14 +3496,18 @@ def train_vs_plain(cfg, run, layers: int = TRAIN_PLAIN_LAYERS,
         with contextlib.ExitStack() as stack:
             if name == "plain":
                 stack.enter_context(plain_path())
-            f0, b0 = FLASH_KERNEL.launches, BWD_KERNEL.launches
+            before = (FLASH_KERNEL.launches, BWD_KERNEL.launches,
+                      SSD_KERNEL.launches, SSD_BWD.launches)
             (loss, _), grads = value_and_grad(
                 lambda p: loss_fn(p, batch, cfg2, run32), params)
             torch.cuda.synchronize()
-            n = (FLASH_KERNEL.launches - f0, BWD_KERNEL.launches - b0)
-        want = (cfg2.n_layers,) * 2 if name == "kernel" else (0, 0)
+            n = tuple(k.launches - b for k, b in zip(
+                (FLASH_KERNEL, BWD_KERNEL, SSD_KERNEL, SSD_BWD), before))
+        want = ((n_attn,) * 2 + (n_ssd,) * 2 if name == "kernel"
+                else (0,) * 4)
         if n != want:
-            fail(f"the {name} path launched flash forward/backward {n}")
+            fail(f"the {name} path launched flash forward/backward and SSD "
+                 f"forward/backward {n}, expected {want}")
         paths[name] = (float(loss), tree_flatten(grads))
     (lk, gk), (lp, gp) = paths["kernel"], paths["plain"]
     worst, worst_leaf = 0.0, ""
@@ -3482,7 +3639,7 @@ def train_child() -> None:
     timing = bwd_kernel_time("stablelm", TRAIN_BATCH, TRAIN_SEQ, 32, 32, 64,
                              64)
     cfg, run = ARCHS[TRAIN_ARCH], train_run_config()
-    fwd, bwd, bwd_by_variant = train_main(cfg, run)
+    fwd, bwd, bwd_by_variant, _ = train_main(cfg, run)
     captured = train_split(cfg, run)
     errs = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -3526,8 +3683,8 @@ def train_mla_child() -> None:
     timing = bwd_kernel_time("mla", TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads,
                              cfg.n_heads, D, Dv, group=MLA_BWD_HEAD_GROUP)
     torch.cuda.empty_cache()
-    fwd, bwd, bwd_by_variant = train_main(cfg, run, "train_mla",
-                                          MLA_TRAIN_STEPS)
+    fwd, bwd, bwd_by_variant, _ = train_main(cfg, run, "train_mla",
+                                             MLA_TRAIN_STEPS)
     torch.cuda.empty_cache()
     captured = train_split(cfg, run)
     errs = []
@@ -3546,6 +3703,261 @@ def train_mla_child() -> None:
                       "head_dims": pair_key((D, Dv)),
                       "max_abs_err": max(errs), "timing": timing}),
           flush=True)
+
+
+def ssd_bwd_bound_ms(x, Bm, L) -> tuple[float, str, int, int]:
+    """Least time the card could take for one intra-chunk backward (the
+    kernels' own work): the larger of x, B and C (in their type, B and C
+    once per group), dt, A, cum, dy, dsc, ddec and dcum read once and the
+    function's outputs dx, ddt, dA and the per-group dB and dC (f32)
+    written once over HBM bandwidth, and the operations of each real chunk
+    (length l <= L: 2 N
+    and 2 P a causal pair to recompute C.B and dy.x, 2 P for dx and 2 N
+    each for dB and dC; 4 N P a step for the state's terms) over the f32
+    rate of the CUDA cores, where the kernels compute."""
+    B_, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    nc = -(-S // L)
+    es = x.element_size()
+    f32_in = (B_ * S * H + H + 2 * B_ * nc * L * H + B_ * nc * L * H * P
+              + B_ * nc * H * N * P + B_ * nc * H)
+    f32_out = B_ * S * H * P + B_ * S * H + H + 2 * B_ * S * G * N
+    nbytes = (B_ * S * H * P + 2 * B_ * S * G * N) * es + 4 * (f32_in
+                                                              + f32_out)
+    ops = 0
+    for c in range(nc):
+        ln = min(L, S - c * L)
+        ops += ln * (ln + 1) // 2 * (4 * P + 6 * N) + 4 * N * P * ln
+    ops *= B_ * H
+    return roofline(nbytes, ops, F32_FLOPS_PER_S)
+
+
+def check_ssd_bwd(label, args, dtype) -> dict:
+    """The SSD backward kernels against their plain version on the card:
+    ``args`` as ``SsdIntraChunk`` hands them to the backward (x, dt, A, Bm,
+    Cm, cum, dy, dsc, ddec, dcum, chunk), x, Bm and Cm cast to ``dtype``;
+    each gradient within ``SSD_BWD_RTOL`` x its largest |.|, finite, and a
+    second call bit-equal."""
+    import torch
+
+    from repro_torch.kernels.ssd import (
+        ssd_intra_chunk_bwd_cuda, ssd_intra_chunk_bwd_ref,
+    )
+    from repro_torch.kernels.ssd.ssd import BWD_VARIANTS
+
+    x, dt, A, Bm, Cm, *rest = (t.detach() if isinstance(t, torch.Tensor)
+                               else t for t in args)
+    a = (x.to(dtype), dt, A, Bm.to(dtype), Cm.to(dtype), *rest)
+    x, Bm, L = a[0], a[3], a[-1]
+    with torch.no_grad():
+        got, k_ms = median_ms(lambda: ssd_intra_chunk_bwd_cuda(*a))
+        again = ssd_intra_chunk_bwd_cuda(*a)
+        want, p_ms = median_ms(lambda: ssd_intra_chunk_bwd_ref(*a))
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    scales = [float(w.abs().max()) for w in want]
+    rel = [e / max(m, 1e-30) for e, m in zip(errs, scales)]
+    repeat_equal = all(torch.equal(g, h) for g, h in zip(got, again))
+    finite = all(bool(g.isfinite().all()) for g in got)
+    S = x.shape[1]
+    say("kernel_vs_plain", kernel="ssd_intra_chunk_bwd", case=label,
+        dtype=str(dtype).removeprefix("torch."), variant=BWD_VARIANTS[dtype],
+        x=tuple(x.shape), B=tuple(Bm.shape), chunk=L,
+        last_chunk_steps=S - (-(-S // L) - 1) * L,
+        max_abs_err_dx_ddt_dA_dB_dC=",".join(f"{e:.3g}" for e in errs),
+        max_abs_dx_ddt_dA_dB_dC=",".join(f"{m:.3g}" for m in scales),
+        max_err_over_max=",".join(f"{r:.3g}" for r in rel),
+        bound=f"abs<={SSD_BWD_RTOL}*max", repeat_equal=repeat_equal,
+        finite=finite, kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}")
+    if not (max(rel) <= SSD_BWD_RTOL and finite and repeat_equal):
+        fail(f"ssd_intra_chunk_bwd != plain on {label} {dtype}: errors over "
+             f"max {rel}, finite {finite}, repeat {repeat_equal}")
+    return dict(err=max(errs), ms=k_ms, plain_ms=p_ms)
+
+
+def ssd_bwd_inputs(g, B, S, H, G, N, P, L, dtype):
+    """Seeded inputs of the backward as the forward kernel makes them: x,
+    B, C in ``dtype``; dt = softplus(z - 4) (~0.02, near the models' init
+    of 0.01) and A = -(1 .. 16) (the models' init), so that a chunk's decay
+    spans ~0.1 to ~80; the cotangents of y, sc, dec and cum standard
+    normal."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd import ssd_intra_chunk_cuda
+
+    randn = lambda *s: torch.randn(s, generator=g, device="cuda")
+    x = randn(B, S, H, P).to(dtype)
+    dt = F.softplus(randn(B, S, H) - 4.0)
+    A = -torch.linspace(1.0, 16.0, H, device="cuda")
+    Bm, Cm = (randn(B, S, G, N).to(dtype) for _ in range(2))
+    outs = ssd_intra_chunk_cuda(x, dt, A, Bm, Cm, L)
+    return (x, dt, A, Bm, Cm, outs[3], *(randn(*t.shape) for t in outs), L)
+
+
+def ssd_bwd_kernel_time(case, B, S, H, G, N, P, L) -> dict:
+    """The SSD backward at a training shape on seeded bf16 inputs
+    (``ssd_bwd_inputs``): alone from the profiler (its two kernels, in a
+    trace after a warm-up step), through the wrapper (CUDA events, median
+    of 3), the plain version, the forward kernel beside it and the bound;
+    then held against the plain version on these inputs in bf16 and, cast,
+    in f32 (``check_ssd_bwd``). No single PyTorch call computes it: no
+    library yardstick."""
+    import torch
+
+    from repro_torch.kernels.ssd import (
+        ssd_intra_chunk_bwd_cuda, ssd_intra_chunk_cuda,
+    )
+    from repro_torch.kernels.ssd.ssd import BWD_VARIANTS
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a = ssd_bwd_inputs(g, B, S, H, G, N, P, L, torch.bfloat16)
+    fn = lambda: ssd_intra_chunk_bwd_cuda(*a)
+    alone, kernels, discarded = profiled_ms(fn, "ssd_bwd", kernels=2)
+    if alone is None:
+        fail(f"no trace held the two SSD backward kernels ({case})")
+    split = kernel_split_ms(fn, "ssd_bwd")
+    runs = [timed(fn)[1] for _ in range(3)]
+    ms = sorted(runs)[1]
+    checks = [check_ssd_bwd(f"{case}_seeded", a, dtype)
+              for dtype in (torch.bfloat16, torch.float32)]
+    p_ms = checks[0]["plain_ms"]
+    _, f_ms = median_ms(lambda: ssd_intra_chunk_cuda(*a[:5], L))
+    b_ms, b_by, nbytes, ops = ssd_bwd_bound_ms(a[0], a[3], L)
+    say("kernel_time", kernel="ssd_intra_chunk_bwd", case=case,
+        dtype="bfloat16", variant=BWD_VARIANTS[torch.bfloat16],
+        x=(B, S, H, P), B=(B, S, G, N), chunk=L, ms=f"{ms:.4f}",
+        ms_runs=",".join(f"{t:.4f}" for t in runs),
+        kernel_alone_ms=f"{alone:.4f}", kernels_per_call=kernels,
+        discarded_traces=discarded,
+        kernels_ms=",".join(f"{k}:{t:.4f}" for k, t in split.items())
+        or "not measured",
+        plain_ms=f"{p_ms:.4f}", forward_kernel_ms=f"{f_ms:.4f}",
+        library="none", bound_ms=f"{b_ms:.5f}", bound_by=b_by,
+        bytes=nbytes, ops=ops, times_bound=f"{ms / b_ms:.2f}",
+        alone_times_bound=f"{alone / b_ms:.2f}",
+        achieved_f32_tflops=f"{ops / alone / 1e9:.2f}")
+    return dict(ms=ms, alone_ms=alone, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, err=max(c["err"] for c in checks))
+
+
+def ssd_bwd_edge_cases(errs: list) -> None:
+    """``SSD_EDGE_CASES`` under grad: ``ssd_scan_kernel`` on the card (the
+    ``SsdIntraChunk`` path: the forward and backward kernels) with seeded
+    cotangents on y and h_last, and the backward kernel's arguments as the
+    Function handed them held against the plain version
+    (``check_ssd_bwd``), bf16 and f32; then ``SSD_BWD_SHORT_CASES``
+    directly. Their largest errors go into ``errs``."""
+    import torch
+    import torch.nn.functional as F
+
+    import repro_torch.kernels.ssd.ops as ssd_ops
+    from repro_torch.kernels.ssd import ssd_scan_kernel
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    randn = lambda *s: torch.randn(s, generator=g, device="cuda")
+    for lab, B_, S_, H_, G_, N_, P_, L_ in SSD_EDGE_CASES:
+        base = (randn(B_, S_, H_, P_), F.softplus(randn(B_, S_, H_) - 2.0),
+                -torch.exp(randn(H_)), randn(B_, S_, G_, N_),
+                randn(B_, S_, G_, N_))
+        dy, dh = randn(B_, S_, H_, P_), randn(B_, H_, N_, P_)
+        for dtype in (torch.bfloat16, torch.float32):
+            leaves = [t.to(dtype if i in (0, 3, 4) else torch.float32)
+                      .requires_grad_(True) for i, t in enumerate(base)]
+            calls = []
+
+            def kept(*a, calls=calls, real=ssd_ops.ssd_intra_chunk_bwd_cuda):
+                calls.append(a)
+                return real(*a)
+
+            with patched((ssd_ops, "ssd_intra_chunk_bwd_cuda", kept)):
+                y, h = ssd_scan_kernel(*leaves, chunk=L_, device="cuda")
+                torch.autograd.backward((y, h), (dy, dh))
+            if len(calls) != 1 or not all(
+                    bool(t.grad.isfinite().all()) for t in leaves):
+                fail(f"{lab} {dtype}: {len(calls)} SSD backward launches "
+                     "under grad, or a gradient not finite")
+            errs.append(check_ssd_bwd(lab, calls[0], dtype)["err"])
+    for lab, B_, S_, H_, G_, N_, P_, L_ in SSD_BWD_SHORT_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            a = ssd_bwd_inputs(g, B_, S_, H_, G_, N_, P_, L_, dtype)
+            errs.append(check_ssd_bwd(lab, a, dtype)["err"])
+
+
+def train_ssd_child() -> None:
+    """``--train-ssd``: the SSD configurations trained at full width and
+    depth on the card, in a process of their own. The backward kernel timed
+    at hymba's and mamba2's shapes and held against its plain version there
+    (bf16 and f32); ``hymba-1.5b`` for ``SSD_TRAIN_STEPS``
+    steps of ``train_run_config()`` (remat "none"), one step split (its
+    layer 0's SSD backward arguments captured), the backward kernel
+    against its plain version on that layer (bf16 and f32) and on the edge
+    cases under grad, its first two layers in f32 against the plain path;
+    ``mamba2-1.3b`` for ``MAMBA_TRAIN_STEPS`` steps under remat "block".
+    Prints ``[kernel_time]``, ``[train_ssd]``, ``[train_split]``,
+    ``[kernel_vs_plain] kernel=ssd_intra_chunk_bwd`` and
+    ``[train_vs_plain]`` lines, then one JSON line for the kernels line."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matmuls are on: the f32 comparison needs f32 products")
+    timing = {case: ssd_bwd_kernel_time(case, *shape)
+              for case, *shape in SSD_BWD_SHAPES}
+    errs = [t["err"] for t in timing.values()]
+    torch.cuda.empty_cache()
+    fwd, bwd, ssd = {}, {}, {}
+    cfg, run = ARCHS[SSD_TRAIN_ARCH], train_run_config()
+    fwd[cfg.name], bwd[cfg.name], _, ssd[cfg.name] = train_main(
+        cfg, run, "train_ssd", SSD_TRAIN_STEPS, SSD_TRAIN_BATCH)
+    torch.cuda.empty_cache()
+    layer0 = []
+    train_split(cfg, run, layer0, SSD_TRAIN_BATCH)
+    for dtype in (torch.bfloat16, torch.float32):
+        errs.append(check_ssd_bwd("hymba_l0", layer0, dtype)["err"])
+    del layer0
+    torch.cuda.empty_cache()
+    ssd_bwd_edge_cases(errs)
+    train_vs_plain(cfg, run)
+    cfg = ARCHS[MAMBA_TRAIN_ARCH]
+    run = dataclasses.replace(train_run_config(), remat="block")
+    fwd[cfg.name], bwd[cfg.name], _, ssd[cfg.name] = train_main(
+        cfg, run, "train_ssd", MAMBA_TRAIN_STEPS)
+    sum_by = lambda part: {k: sum(c[part][k] for c in ssd.values())
+                           for k in next(iter(ssd.values()))[part]}
+    print(json.dumps({"fwd_launches": fwd, "bwd_launches": bwd,
+                      "ssd_fwd_by_variant": sum_by("fwd"),
+                      "ssd_bwd_by_variant": sum_by("bwd"),
+                      "head_dims": pair_key(attn_head_dims(ARCHS[
+                          SSD_TRAIN_ARCH])),
+                      "max_abs_err": max(errs), "timing": timing}),
+          flush=True)
+
+
+def phase_train_ssd_child(entries: list) -> None:
+    """The ``--train-ssd`` child: hymba's flash launches join the flash
+    entries of the kernels line, the SSD forward launches the SSD entry's,
+    and the SSD backward gets its own entry."""
+    res = run_child("--train-ssd")
+    flash = next(e for e in entries if e["name"] == "flash_attention")
+    fbwd = next(e for e in entries if e["name"] == "flash_attention_bwd")
+    hymba = SSD_TRAIN_ARCH
+    add_launches(flash, res["head_dims"], res["fwd_launches"][hymba])
+    add_launches(fbwd, res["head_dims"], res["bwd_launches"][hymba],
+                 "wgmma_bf16")
+    ssd = next(e for e in entries if e["name"] == "ssd_intra_chunk")
+    ssd["launches"] += sum(res["ssd_fwd_by_variant"].values())
+    t = res["timing"]["hymba"]
+    entries.append({
+        "name": "ssd_intra_chunk_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd_bwd.cu",
+        "replaces": "src/repro/models/ssm.py:25",
+        "launches": sum(res["ssd_bwd_by_variant"].values()),
+        "launches_by_variant": res["ssd_bwd_by_variant"],
+        "max_abs_err": res["max_abs_err"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None,
+    })
 
 
 def phase_train_child(entries: list) -> None:
@@ -5590,9 +6002,7 @@ def serve_tp_rank(rank: int, plan: dict, device_type: str = "cuda") -> dict:
             if on_card:
                 torch.cuda.reset_peak_memory_stats()
             reset_flash_counts()
-            SSD_KERNEL.launches = 0
-            SSD_KERNEL.variant_launches = dict.fromkeys(
-                SSD_KERNEL.variant_launches, 0)
+            SSD_KERNEL.reset()
             set_ctx(mesh, blocks=True)
             try:
                 logits, caches, pre_ms, dec_ms = serve_tp_serve(
@@ -7088,6 +7498,9 @@ def main() -> None:
     if sys.argv[1:] == ["--train-mla"]:
         train_mla_child()
         return
+    if sys.argv[1:] == ["--train-ssd"]:
+        train_ssd_child()
+        return
     if sys.argv[1:] == ["--dist"]:
         dist_child()
         return
@@ -7379,7 +7792,12 @@ def main() -> None:
     # forward and backward at the head-dim pair (192, 128) -----------------
     walled("train_mla", phase_train_mla_child, serve_entries)
 
+    # [train_ssd] times the SSD backward with the card its own
     join_phases(trace_child, walls)
+
+    # ---- 7e''. SSD training: hymba-1.5b and mamba2-1.3b, the SSD backward
+    # kernel --------------------------------------------------------------
+    walled("train_ssd", phase_train_ssd_child, serve_entries)
 
     # ---- 7f. dist: four ranks, DPM executors, compress, EP, pipeline,
     # ZeRO-1, elastic restore, tensor parallelism, MoE over data ranks ----

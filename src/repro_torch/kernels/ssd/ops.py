@@ -1,43 +1,71 @@
 """SSD scan through the intra-chunk kernel plus the inter-chunk recurrence
-in PyTorch. Twin of ``repro.kernels.ssd.ops.ssd_scan_pallas``: a drop-in
-for ``models.ssm.ssd_scan`` (same signature subset), which the port's
-``ssd_block_apply`` calls on the card.
+in PyTorch, forward and backward. Twin of ``repro.kernels.ssd.ops.
+ssd_scan_pallas``: a drop-in for ``models.ssm.ssd_scan`` (same signature
+subset), which the port's ``ssd_block_apply`` calls on the card; for the
+gradient, the twin of autodiff of the reference's jnp ``ssd_scan``.
 
 ``ssd_scan_kernel`` and ``ssd_intra_chunk`` take ``device=`` (default the
-card; a missing card raises) and move their inputs there. CUDA tensors
-launch the kernel or raise; CPU tensors run ``ref.ssd_intra_chunk_ref``.
-Nothing falls back. The kernel has no backward yet: on the card a call
-under grad, with an input that requires grad, raises (the ctypes launch
-would cut the autograd graph without a word); on the CPU the plain
-version is differentiable and trains.
+card; a missing card raises) and move their inputs there. With grad off,
+or no input that requires grad, the intra-chunk pass runs its forward
+alone (serving): CUDA tensors launch the kernel or raise, CPU tensors run
+``ref.ssd_intra_chunk_ref``. Otherwise it goes through the autograd
+Function ``SsdIntraChunk`` on both devices: on the card the forward kernel
+and the backward kernel (``csrc/ssd_bwd.cu``), on the CPU
+``ref.ssd_intra_chunk_ref`` and ``ref.ssd_intra_chunk_bwd_ref``. The
+inter-chunk recurrence stays under autograd, so ``sc``, ``dec`` and
+``cum`` take their cotangents from it and from ``y_inter``. Nothing falls
+back.
 """
 from __future__ import annotations
 
 import torch
 
 from ...device import resolve_device
-from .ref import MIN_LOG, pad_to_chunks, ssd_intra_chunk_ref
-from .ssd import ssd_intra_chunk_cuda
+from .ref import (
+    MIN_LOG, pad_to_chunks, ssd_intra_chunk_bwd_ref, ssd_intra_chunk_ref,
+)
+from .ssd import ssd_intra_chunk_bwd_cuda, ssd_intra_chunk_cuda
+
+
+class SsdIntraChunk(torch.autograd.Function):
+    """The intra-chunk pass whose backward recomputes ``C B^T``, the decay
+    and ``dY X^T`` from the saved inputs and ``cum``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk):
+        fwd = ssd_intra_chunk_cuda if x.is_cuda else ssd_intra_chunk_ref
+        y, sc, dec, cum = fwd(x, dt, A, Bm, Cm, chunk)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, cum)
+        ctx.chunk = chunk
+        return y, sc, dec, cum
+
+    @staticmethod
+    def backward(ctx, dy, dsc, ddec, dcum):
+        x, dt, A, Bm, Cm, cum = ctx.saved_tensors
+        bwd = ssd_intra_chunk_bwd_cuda if x.is_cuda else ssd_intra_chunk_bwd_ref
+        grads = bwd(x, dt, A, Bm, Cm, cum, dy, dsc, ddec, dcum, ctx.chunk)
+        return tuple(g.to(t.dtype) for g, t in zip(grads, (x, dt, A, Bm, Cm))
+                     ) + (None,)
 
 
 def ssd_intra_chunk(x, dt, A, Bm, Cm, chunk: int, *,
                     device: torch.device | str = "cuda"):
     """The intra-chunk outputs ``(y, sc, dec, cum)`` of ``ref.py``'s
-    contract, by device."""
+    contract, by device; through ``SsdIntraChunk`` when grad is on and an
+    input requires it."""
     dev = resolve_device(device)
-    if dev.type == "cuda" and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, dt, A, Bm, Cm)):
-        raise NotImplementedError(
-            "the SSD intra-chunk kernel has no backward yet: training an SSD "
-            "layer (mamba2, hymba) on the card waits for ROADMAP queue 1 "
-            "item 6 step 5 (the SSD backward kernel)")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"no SSD engine for device {dev}")
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, dt, A, Bm, Cm))
     x, dt, A, Bm, Cm = (t.to(dev) for t in (x, dt, A, Bm, Cm))
     if dev.type == "cuda":
-        return ssd_intra_chunk_cuda(x, dt.float(), A.float().contiguous(),
-                                    Bm, Cm, chunk)
-    if dev.type == "cpu":
-        return ssd_intra_chunk_ref(x, dt, A, Bm, Cm, chunk)
-    raise ValueError(f"no SSD engine for device {dev}")
+        dt, A = dt.float(), A.float().contiguous()
+    if grad:
+        return SsdIntraChunk.apply(x, dt, A, Bm, Cm, chunk)
+    if dev.type == "cuda":
+        return ssd_intra_chunk_cuda(x, dt, A, Bm, Cm, chunk)
+    return ssd_intra_chunk_ref(x, dt, A, Bm, Cm, chunk)
 
 
 def ssd_scan_kernel(

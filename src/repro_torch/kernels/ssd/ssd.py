@@ -13,6 +13,14 @@ sequence to whole chunks themselves and write the outputs of
 (``kernels.build``); ``ssd_intra_chunk_cuda`` takes CUDA tensors only.
 ``KERNEL.launches`` counts its launches, ``KERNEL.variant_launches`` each
 kernel's.
+
+The backward (``csrc/ssd_bwd.cu``, ``ssd_intra_chunk_bwd_cuda``) takes the
+same inputs, the forward's ``cum`` and the cotangents of its four outputs,
+and returns the gradients of ``ref.ssd_intra_chunk_bwd_ref``. Its kernels
+compute in f32 on the CUDA cores for either input type (``BWD_VARIANTS``),
+at the (N, P) of ``TC_SHAPES`` and chunks of at most ``TC_MAX_CHUNK``
+steps. ``KERNEL_BWD`` counts its launches (one a call), by input type in
+``variant_launches``.
 """
 from __future__ import annotations
 
@@ -24,9 +32,14 @@ import torch
 from ..build import CudaLibrary, check_tensor
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
+_BWD_SRC = Path(__file__).resolve().parent / "csrc" / "ssd_bwd.cu"
 DTYPES = (torch.float32, torch.bfloat16)
 # the kernel each input type runs
 VARIANTS = {torch.bfloat16: "mma_bf16", torch.float32: "cuda_core_f32"}
+# the backward's kernels by input type: both compute in f32 on the CUDA
+# cores, reading x, Bm and Cm in their own type
+BWD_VARIANTS = {torch.bfloat16: "cuda_core_bf16_in",
+                torch.float32: "cuda_core_f32"}
 # the (state N, head dim P) the bf16 kernel is built for: those of the
 # port's models (hymba and mamba2, full and smoke width)
 TC_SHAPES = ((16, 32), (32, 32), (16, 64), (128, 64))
@@ -47,11 +60,24 @@ def smem_bytes(dtype: torch.dtype, L: int, N: int, P: int) -> int:
     return 4 * (3 * L + 64 * N + N * 65 + 64 * P + 64 * 64 + 64 * P + N * P)
 
 
+def bwd_smem_bytes(L: int, N: int, P: int) -> int:
+    """Shared memory of one block of the backward's tile kernel, as
+    ``ssd_intra_chunk_bwd_smem_bytes`` in the source computes it: the
+    64-row tiles of C, B (N rows of 65), dy and x (P rows of 65)
+    transposed, the M and G tiles (64 rows of 80), cum and dt over the
+    chunk, two 8 x 64 warp-sum arrays and u, all f32."""
+    return 4 * (2 * N * 65 + 2 * P * 65 + 2 * 64 * 80 + 2 * L + 2 * 8 * 64
+                + 64)
+
+
 class SsdKernel(CudaLibrary):
     """The built library, its build report and the launch counters."""
 
     def __init__(self):
         super().__init__("ssd", _SRC)
+        self.reset()
+
+    def reset(self) -> None:
         self.launches = 0
         self.variant_launches = dict.fromkeys(VARIANTS.values(), 0)
 
@@ -66,6 +92,30 @@ class SsdKernel(CudaLibrary):
 
 
 KERNEL = SsdKernel()
+
+
+class SsdBwdKernel(CudaLibrary):
+    """The backward's library, its build report and the launch counters."""
+
+    def __init__(self):
+        super().__init__("ssd_bwd", _BWD_SRC)
+        self.reset()
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.variant_launches = dict.fromkeys(BWD_VARIANTS.values(), 0)
+
+    def bind(self, lib: ctypes.CDLL) -> None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.ssd_intra_chunk_bwd_launch.argtypes = (
+            [p] * 16 + [i] * 9 + [ll] * 12 + [p]
+        )
+        lib.ssd_intra_chunk_bwd_launch.restype = ctypes.c_int
+        lib.ssd_intra_chunk_bwd_smem_bytes.argtypes = [i] * 3
+        lib.ssd_intra_chunk_bwd_smem_bytes.restype = ctypes.c_size_t
+
+
+KERNEL_BWD = SsdBwdKernel()
 
 
 def _check(x, dt, A, Bm, Cm) -> None:
@@ -141,3 +191,67 @@ def ssd_intra_chunk_cuda(x, dt, A, Bm, Cm, chunk: int):
     KERNEL.launches += 1
     KERNEL.variant_launches[VARIANTS[x.dtype]] += 1
     return y, sc, dec, cum
+
+
+def ssd_intra_chunk_bwd_cuda(x, dt, A, Bm, Cm, cum, dy, dsc, ddec, dcum,
+                             chunk: int):
+    """The intra-chunk pass's backward through the CUDA kernels on
+    PyTorch's current stream: ``(dx (B, S, H, P), ddt (B, S, H), dA (H,),
+    dBm (B, S, G, N), dCm (B, S, G, N))``, all f32, the contract of
+    ``ref.ssd_intra_chunk_bwd_ref``. dB and dC come from the kernels per
+    head and dA per (batch, chunk, head); torch sums them over a group's
+    heads and over batch and chunks."""
+    _check(x, dt, A, Bm, Cm)
+    B_, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    L = chunk
+    nc = -(-S // L)
+    if (N, P) not in TC_SHAPES:
+        raise ValueError(f"the SSD backward takes (N, P) in {TC_SHAPES}, "
+                         f"got ({N}, {P})")
+    if L > TC_MAX_CHUNK:
+        raise ValueError(f"the SSD backward takes chunks of at most "
+                         f"{TC_MAX_CHUNK} steps, got {L}")
+    dev, f32 = x.device, torch.float32
+    dy, dsc, ddec, dcum = (t.float().contiguous() for t in (dy, dsc, ddec,
+                                                              dcum))
+    check_tensor("cum", cum, f32, (B_, nc, L, H), dev)
+    check_tensor("dy", dy, f32, (B_, nc * L, H, P), dev)
+    check_tensor("dsc", dsc, f32, (B_, nc, H, N, P), dev)
+    check_tensor("ddec", ddec, f32, (B_, nc, H), dev)
+    check_tensor("dcum", dcum, f32, (B_, nc, L, H), dev)
+    lib = KERNEL_BWD.build()
+    smem = lib.ssd_intra_chunk_bwd_smem_bytes(N, P, L)
+    if not 0 < smem <= MAX_SMEM:
+        raise ValueError(f"L={L}, N={N}, P={P} needs {smem} bytes of shared "
+                         f"memory, over {MAX_SMEM}")
+    out = dict(dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        dx = torch.empty((B_, S, H, P), **out)
+        ddt = torch.empty((B_, S, H), **out)
+        dA_part = torch.empty((B_, nc, H), **out)
+        dBh = torch.empty((B_, S, H, N), **out)
+        dCh = torch.empty((B_, S, H, N), **out)
+        scratch = torch.empty((4, B_, H, nc, L), **out)
+        if dx.numel():
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.ssd_intra_chunk_bwd_launch(
+                x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                Cm.data_ptr(), cum.data_ptr(), dy.data_ptr(), dsc.data_ptr(),
+                ddec.data_ptr(), dcum.data_ptr(), dx.data_ptr(),
+                ddt.data_ptr(), dA_part.data_ptr(), dBh.data_ptr(),
+                dCh.data_ptr(), scratch.data_ptr(),
+                int(x.dtype == torch.bfloat16), B_, S, H, G, N, P, L, nc,
+                *x.stride()[:3], *dt.stride(), *Bm.stride()[:3],
+                *Cm.stride()[:3], stream,
+            )
+            if err != 0:
+                raise RuntimeError(f"ssd_intra_chunk_bwd kernel launch "
+                                   f"failed: cudaError {err}")
+            KERNEL_BWD.launches += 1
+            KERNEL_BWD.variant_launches[BWD_VARIANTS[x.dtype]] += 1
+        hpg = H // G
+        dA = dA_part.sum((0, 1))
+        dBm = dBh.view(B_, S, G, hpg, N).sum(3)
+        dCm = dCh.view(B_, S, G, hpg, N).sum(3)
+    return dx, ddt, dA, dBm, dCm

@@ -13,8 +13,10 @@ whole. ``train`` called on each rank of a process group under a
 ``train.optim.DataParallel``), and resumes from a checkpoint of any mesh
 (README: "ZeRO-1 and elastic restore"). Attention runs in the
 hand-written forward and backward kernels, MLA's (q/k 192, v 128) too; an
-SSD layer refuses to train on the card (its backward kernel is still to
-come), and trains on the CPU.
+SSD layer (hymba, mamba2) in the SSD forward and backward kernels:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
+        --steps 8 --batch 2 --seq 4096                # SSD, on the card
 """
 from __future__ import annotations
 

@@ -4,9 +4,13 @@
 ``ssd_scan`` is the plain chunked algorithm: within a chunk of length L the
 recurrence in its quadratic "attention" dual form, across chunks a loop
 carrying the (N x P) state. It is the CPU path and the plain version of
-the SSD path. On the card ``ssd_block_apply`` runs ``kernels.ssd.ops.
-ssd_scan_kernel`` instead: the CUDA intra-chunk kernel, then the same
-inter-chunk recurrence in PyTorch.
+the SSD path, and on the CPU it trains through autograd, as the
+reference differentiates its jnp ``ssd_scan``. On the card
+``ssd_block_apply`` runs ``kernels.ssd.ops.ssd_scan_kernel`` instead: the
+CUDA intra-chunk kernel, then the same inter-chunk recurrence in PyTorch;
+under grad the intra-chunk pass is the autograd Function
+``SsdIntraChunk``, whose backward is the CUDA kernel of ``csrc/ssd_bwd.cu``
+(the recurrence stays under autograd), so hymba and mamba2 train there.
 
 Shapes: batch B, seq S, heads H, head_dim P, groups G, state N.
 

@@ -65,7 +65,7 @@ from repro_torch.kernels.flash_attention.flash_attention import (
     check_pair,
     smem_bytes,
 )
-from repro_torch.kernels.ssd import ssd_intra_chunk
+from repro_torch.kernels.ssd import ssd_intra_chunk_bwd_cuda
 
 # (B, Sq, Sk, H, KH, D, Dv, window, q_offset)
 CASES = [
@@ -230,20 +230,24 @@ def test_backward_kernel_shared_memory_fits_a_block(D, dtype, part):
     assert 0 < bwd_smem_bytes(dtype, *D, part) <= 232_448
 
 
-def test_card_refuses_training_what_it_has_no_backward_for(monkeypatch):
-    """The SSD kernel, whose backward is still to port, refuses a call
-    under grad on the card; the flash backward's wrapper takes CUDA
-    tensors only."""
+def test_card_refuses_training_what_it_has_no_backward_for():
+    """The card's backward wrappers take CUDA tensors only: the flash
+    backward's, and the SSD intra-chunk backward's (which replaced the SSD
+    path's refusal under grad)."""
     q = torch.zeros((1, 8, 2, 192), requires_grad=True)
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_attention_bwd_cuda(q.detach(), q.detach(), q.detach(),
                                  q.detach(), torch.zeros((1, 8, 2)),
                                  q.detach())
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    x = torch.zeros((1, 8, 2, 16), requires_grad=True)
+    x = torch.zeros((1, 8, 2, 16))
     dt, bm = torch.zeros((1, 8, 2)), torch.zeros((1, 8, 1, 16))
-    with pytest.raises(NotImplementedError, match="item 6 step 5"):
-        ssd_intra_chunk(x, dt, torch.zeros(2), bm, bm, 4, device="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_intra_chunk_bwd_cuda(x, dt, torch.zeros(2), bm, bm,
+                                 torch.zeros((1, 2, 4, 2)),
+                                 torch.zeros((1, 8, 2, 16)),
+                                 torch.zeros((1, 2, 2, 16, 16)),
+                                 torch.zeros((1, 2, 2)),
+                                 torch.zeros((1, 2, 4, 2)), 4)
 
 
 def test_head_dim_pair_outside_the_kernels_raises(monkeypatch):
